@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the offline upmix of bench.py's config
+Drives the port's two main paths: the offline upmix of bench.py's config
 (6 bands at 0/30/120/480/1920/7680 Hz, 44.1 kHz, blocks up to 65536) on
-2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`.
-Phases, one line each, any failure exits nonzero:
+2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`; and
+the serving pool of the stream server's default config (the Bela setup:
+edges 0/500/2000/8000 Hz, 48 kHz, hardware block 2048) at 2048 streams,
+through `make_stream_pool(cfg, 2048, 2048)`.  Phases, one line each or
+more, any failure exits nonzero:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds csrc/omnibus.cu into upmix_tpu_torch/_build/;
+  2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
   3. kernel parity: the omnibus kernel against its plain version run in
      float64 on the card, per bucket and for the whole plan (>= 80 dB);
   4. end to end: Upmixer must launch the kernel, and its output must
@@ -20,8 +23,28 @@ Phases, one line each, any failure exits nonzero:
      and the kernel alone against its plain version on one chunk, whole
      and per bucket (CUDA events, min over loops); then device time by
      kernel and the idle share under torch.profiler;
-  6. a JSON line of per-kernel results, then the last line
-     {"ok": true, "device": {...}}.
+  6. pool kernel parity: the pool step kernel (K3) against its plain
+     version in float64 on the card, at 2048 streams with mixed block
+     counts and nonzero carries, hops 1 and 4, per bucket and whole
+     (>= 80 dB, exact zeros where the plain version has them); the floor
+     probe (K6) bit for bit, both modes;
+  7. pool end to end: the default make_stream_pool must be the CUDA pool
+     and launch K3; 12 blocks of seeded noise, the first K-1 exact zeros,
+     the rest >= 60 dB against a float64 run of the plain step with its
+     own state; reset_streams re-warms one slot and leaves the others
+     bit-identical; silence gives zeros, mono gives Ls, Rs <= 1e-5; then
+     the floor probe's own run (history shift + K6, 12 blocks), and
+     StreamingUpmixer on the card (it must launch K3, >= 60 dB);
+  8. pool timing: ms per block at 16, 2048, 7168 and 7680 streams and at hops
+     4, on device-resident blocks, with the throughput S x 42.67 ms / (ms
+     per block) each extrapolates to and whether it meets the deadline;
+     K3 against its plain version, per bucket; the history shift; K6 copy
+     and frame; device time by kernel and the idle share under
+     torch.profiler;
+  9. a JSON line of per-kernel results (launches from the main paths'
+     runs; bounds from this run's shapes and the least work of each
+     function: its FFTs or its bytes, whichever takes longer), then the
+     last line {"ok": true, "device": {...}}.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -44,6 +67,35 @@ PROBE_STARTS = sorted({0, N_SAMPLES // 2, N_SAMPLES - PROBE_W})  # bench.py:51-5
 KERNEL_BAR_DB = 80.0
 E2E_BAR_DB = 60.0
 OUTPUTS = ("C", "Ls", "Rs")
+
+# The stream server's default (serve_stream.py:1307, the Bela setup).
+POOL_EDGES = [0.0, 500.0, 2000.0, 8000.0]
+POOL_SR = 48000.0
+POOL_HW = 2048
+POOL_STREAMS = 2048
+POOL_BLOCKS = 12
+# Pools near the size that S = 2048's rate extrapolates to at the 42.67 ms
+# deadline (about 7,900 streams), in steps of 512: timed too, to see which
+# pool sizes meet the deadline.
+POOL_CAPACITY_STREAMS = (7168, 7680)
+
+# NVIDIA H100 SXM at its 700 W limit (the data sheet): FP32 outside the
+# tensor cores and HBM3.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flop: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time for the work on the card."""
+    t_op, t_b = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def fft_flop(frames: int, block: int) -> float:
+    """Least operations of one bucket's transforms: per frame two forward
+    and three inverse real FFTs of length B, 2.5 B log2 B FLOP each (half
+    the usual 5 N log2 N of a complex FFT)."""
+    return 5 * frames * 2.5 * block * np.log2(block)
 
 
 def fail(msg: str):
@@ -242,8 +294,22 @@ def main():
     print(f"timing [{smi}]: per bucket: " + "; ".join(parts), flush=True)
     print(f"profile: {device_share(lambda: up.process(Lt, Rt))}", flush=True)
 
-    # 6. results
-    print(json.dumps({"kernels": [{
+    # K1's bound on one chunk, from the least work of the function: the FFTs
+    # of every frame, x read and y written once, gains and windows read.
+    k1_flop = sum(fft_flop(CHUNK_SAMPLES // b.hop, b.block) for b in plan.buckets)
+    k1_bytes = 4 * (5 * (CHUNK_SAMPLES + plan.halo)
+                    + sum(2 * b.block + b.gains.numel() for b in plan.buckets))
+    k1_bound, k1_by = bound(k1_flop, k1_bytes)
+    print(f"bound [{smi}]: omnibus {k1_flop:.3e} FLOP by FFT, {k1_bytes / 1e9:.3f} GB per chunk -> "
+          f"{k1_bound:.3f} ms ({k1_by}); kernel at {k1_bound / kernel_ms:.1%} of it", flush=True)
+    # The kernel's own design, the direct banded DFT: 2 x 10 F B K FLOP, weights read too.
+    d_flop = sum(20.0 * CHUNK_SAMPLES // b.hop * b.block * b.kept for b in plan.buckets)
+    d_bound, _ = bound(d_flop, k1_bytes + 4 * sum(4 * b.block * b.kept for b in plan.buckets))
+    print(f"design [{smi}]: omnibus direct DFT {d_flop:.3e} FLOP -> {d_bound:.3f} ms at FP32 peak; "
+          f"kernel at {d_bound / kernel_ms:.1%} of it ({d_flop / kernel_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    del x, Lt, Rt, Ll, Rl, up, whole, buckets, plan
+    torch.cuda.empty_cache()
+    kernels = [{
         "name": "omnibus_lcr",
         "route": "cuda",
         "source": "upmix_tpu_torch/csrc/omnibus.cu",
@@ -252,12 +318,265 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }]
+    kernels += pool_phases(smi, dev)
+
+    # 9. results
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def pool_phases(smi: str, dev) -> list:
+    """Phases 6-8 on the serving pool; returns the K3 and K6 result entries."""
+    import dataclasses
+
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
+    from upmix_tpu_torch.ops import omnibus, pool, pool_floor
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
+    from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor_plain
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    S, hw = POOL_STREAMS, POOL_HW
+    plan = make_pool_plan(cfg, hw, S, device=dev)
+    K = plan.warmup
+    print("pool plan: " + ", ".join(f"B={b.block} H={b.hop} P={b.passes} K={b.kept}" for b in plan.buckets)
+          + f"; warmup {K} blocks, window {plan.window}", flush=True)
+    rng = np.random.default_rng(1)
+
+    def inputs(hops, ready_only=False):
+        hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32,
+                               device=dev)
+        low = K if ready_only else 1
+        t = torch.as_tensor(rng.integers(low, K + 4, S), dtype=torch.int32, device=dev)
+        carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block)) * 0.1, dtype=torch.float32,
+                                   device=dev) for b in plan.buckets]
+        return hist, t, carries
+
+    # 6. kernel parity: K3 against its plain version in float64, then K6
+    worst, max_abs_err = float("inf"), 0.0
+    for hops in (1, 4):
+        hist, t, carries = inputs(hops)
+        for b, c in zip(plan.buckets, carries):
+            sub = dataclasses.replace(plan, buckets=(b,))
+            got, got_c = pool_step_lcr(hist, t, [c], sub, hops)
+            ref, ref_c = pool_step_lcr_plain(hist.double(), t, [c.double()], sub, hops)
+            snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)] + [snr_db(ref_c[0], got_c[0])]
+            worst = min(worst, *snrs)
+            print(f"pool parity hops={hops} bucket B={b.block} H={b.hop}: "
+                  + ", ".join(f"{n} {v:.1f} dB" for n, v in zip((*OUTPUTS, "carry"), snrs)), flush=True)
+        got, got_c = pool_step_lcr(hist, t, carries, plan, hops)
+        ref, ref_c = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
+        torch.cuda.synchronize()
+        snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
+        snrs += [snr_db(r, g) for r, g in zip(ref_c, got_c)]
+        zeros_agree = bool(torch.equal(got == 0, ref == 0))
+        err = float((got.double() - ref).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        worst = min(worst, *snrs)
+        print(f"pool parity hops={hops} all buckets: "
+              + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs[:3]))
+              + ", carries " + ", ".join(f"{v:.1f}" for v in snrs[3:])
+              + f" dB, max abs err {err:.3e}, not-ready zeros agree {zeros_agree} (bar >= {KERNEL_BAR_DB} dB)",
+              flush=True)
+        if not zeros_agree:
+            fail("pool kernel's exact zeros differ from its plain version's")
+    if not (worst >= KERNEL_BAR_DB):
+        fail(f"pool kernel parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
+    del hist, t, carries, got, got_c, ref, ref_c
+    window = torch.randn((S, 2, plan.window), device=dev, generator=torch.Generator(dev).manual_seed(2))
+    for mode in ("copy", "frame"):
+        same = torch.equal(pool_floor.pool_floor(window, hw, mode, plan),
+                           pool_floor_plain(window, hw, mode, plan))
+        print(f"floor parity {mode}: bit-exact {same}", flush=True)
+        if not same:
+            fail(f"floor kernel ({mode}) differs from its plain version")
+
+    # 7. end to end through the user's entry point
+    blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(3))
+    sp = make_stream_pool(cfg, hw, S)
+    if type(sp) is not CudaStreamPool:
+        fail(f"make_stream_pool gave {type(sp).__name__}, not CudaStreamPool")
+    omnibus.LAUNCHES = pool.LAUNCHES = pool_floor.LAUNCHES = 0
+    outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
+    torch.cuda.synchronize()
+    k3_launches = pool.LAUNCHES
+    print(f"pool e2e: CudaStreamPool, {POOL_BLOCKS} blocks x {S} streams, pool kernel launches "
+          f"{k3_launches}, omnibus launches {omnibus.LAUNCHES}", flush=True)
+    if k3_launches == 0:
+        fail("the serving pool launched no pool kernel")
+    hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)
+    carries64 = [torch.zeros((S, 3, b.block), dtype=torch.float64, device=dev) for b in plan.buckets]
+    e2e = float("inf")
+    for i, (b, out) in enumerate(zip(blocks, outs)):
+        h = torch.cat([hist64, b.transpose(0, 1).double()], dim=-1)
+        t = torch.full((S,), i + 1, dtype=torch.int32, device=dev)
+        ref, carries64 = pool_step_lcr_plain(h, t, carries64, plan)
+        hist64 = h[..., hw:]
+        if not torch.isfinite(out).all() or out.shape != (3, S, hw):
+            fail(f"pool block {i}: shape {tuple(out.shape)} or non-finite values")
+        if i < K - 1:
+            if bool((out != 0).any()):
+                fail(f"pool block {i} is not silent during warmup")
+        else:
+            e2e = min(e2e, snr_db(ref.transpose(0, 1), out))
+    print(f"pool e2e: warmup blocks 0..{K - 2} exact zeros; worst block SNR vs float64 plain step "
+          f"{e2e:.1f} dB (bar >= {E2E_BAR_DB} dB)", flush=True)
+    if not (e2e >= E2E_BAR_DB):
+        fail(f"pool end-to-end SNR {e2e:.1f} dB < {E2E_BAR_DB} dB")
+    snap = sp.snapshot()
+    a = torch.stack(sp.push_blocks(blocks[0, 0], blocks[0, 1]))
+    sp.restore(snap)
+    slot = S // 2
+    sp.reset_streams([slot])
+    b = torch.stack(sp.push_blocks(blocks[0, 0], blocks[0, 1]))
+    others = [s for s in range(S) if s != slot]
+    churn_ok = bool(torch.equal(a[:, others], b[:, others])) and not bool((b[:, slot] != 0).any())
+    sp.reset()
+    zero = torch.zeros((S, hw), device=dev)
+    silent = max(float(torch.stack(sp.push_blocks(zero, zero)).abs().max()) for _ in range(K + 1))
+    sp.reset()
+    mono = 0.0
+    for blk in blocks[: K + 2]:
+        _, ls, rs = sp.push_blocks(blk[0], blk[0])
+        mono = max(mono, float(ls.abs().max()), float(rs.abs().max()))
+    print(f"pool e2e: reset_streams re-warms slot {slot}, others bit-identical {churn_ok}; silence max |out| "
+          f"{silent}, mono max |Ls|,|Rs| {mono:.3e}", flush=True)
+    if not churn_ok:
+        fail("reset_streams touched other streams or did not re-warm the slot")
+    if silent != 0.0:
+        fail("pool: silence in did not give exact zeros out")
+    if mono > 1e-5:
+        fail(f"pool: mono in gave side energy {mono:.3e} > 1e-5")
+    # The floor probe's own run: the probe scan of bench_pool_floor.py,
+    # history shift then K6, over the same blocks.
+    pool_floor.LAUNCHES = 0
+    h = torch.zeros((S, 2, (K - 1) * hw), device=dev)
+    for blk in blocks:
+        full = torch.cat([h, blk.transpose(0, 1)], dim=-1)
+        pool_floor.pool_floor(full, hw, "copy")
+        h = full[..., hw:]
+    torch.cuda.synchronize()
+    k6_launches = pool_floor.LAUNCHES
+    print(f"floor probe run: {POOL_BLOCKS} blocks, floor kernel launches {k6_launches}", flush=True)
+    if k6_launches == 0:
+        fail("the floor probe launched no floor kernel")
+    # The single-stream engine on the card goes through the pool kernel too.
+    pool.LAUNCHES = 0
+    sig = blocks[:, :, 0].permute(1, 0, 2).reshape(2, POOL_BLOCKS * hw)  # stream 0's blocks
+    one = torch.stack(StreamingUpmixer(cfg, hw).process_signal(sig[0], sig[1]))
+    torch.cuda.synchronize()
+    one_launches = pool.LAUNCHES
+    h = torch.cat([sig.new_zeros((2, (K - 1) * hw)), sig], dim=-1)[None].double()
+    ref, _ = pool_step_lcr_plain(h, torch.ones(1, dtype=torch.int32, device=dev),
+                                 [h.new_zeros((1, 3, b.block)) for b in plan.buckets], plan, POOL_BLOCKS)
+    one_snr = snr_db(ref[0], one)
+    print(f"stream e2e: StreamingUpmixer.process_signal, {POOL_BLOCKS} blocks: pool kernel launches "
+          f"{one_launches}; SNR vs float64 plain step {one_snr:.1f} dB (bar >= {E2E_BAR_DB} dB)", flush=True)
+    if one_launches == 0:
+        fail("StreamingUpmixer on the card launched no pool kernel")
+    if bool((one[:, : (K - 1) * hw] != 0).any()) or not (one_snr >= E2E_BAR_DB):
+        fail(f"StreamingUpmixer: warmup not silent or SNR {one_snr:.1f} dB < {E2E_BAR_DB} dB")
+    del sp, outs, hist64, carries64, snap, one, ref, h
+
+    # 8. timing
+    deadline_ms = hw / POOL_SR * 1e3
+    for n_streams, hops in ((16, 1), (S, 1), (S, 4), *((n, 1) for n in POOL_CAPACITY_STREAMS)):
+        tp = CudaStreamPool(cfg, hw, n_streams, device=dev)
+        run, fresh = tp.make_sustained_runner(POOL_BLOCKS, hops=hops)
+        rows = torch.arange(n_streams, device=dev) % S  # streams beyond S repeat the seeded noise
+        slabs = (blocks[:, :, rows].reshape(POOL_BLOCKS // hops, hops, 2, n_streams, hw)
+                 .permute(0, 2, 3, 1, 4).reshape(POOL_BLOCKS // hops, 2, n_streams, hops * hw).contiguous())
+        state = fresh()
+        per_block = time_ms(lambda: run(state, slabs), loops=5, iters=1) / POOL_BLOCKS
+        print(f"pool timing [{smi}]: S={n_streams} hops={hops}: {per_block:.3f} ms per block, "
+              f"meets the {deadline_ms:.2f} ms deadline {per_block <= deadline_ms}; throughput "
+              f"S x deadline / (ms per block) = {n_streams * deadline_ms / per_block:.0f} streams, "
+              f"extrapolated from S={n_streams}", flush=True)
+        del tp, run, state, slabs
+    hist, t, carries = inputs(1, ready_only=True)
+    k3_ms = time_ms(lambda: pool_step_lcr(hist, t, carries, plan))
+    k3_plain_ms = time_ms(lambda: pool_step_lcr_plain(hist, t, carries, plan))
+    # K3's bound per block, from the least work of the function: the FFTs of
+    # every frame; the history read, the carries read and written, the
+    # outputs written and t, gains and windows read once.
+    k3_flop = sum(fft_flop(S * b.passes, b.block) for b in plan.buckets)
+    k3_bytes = 4 * (S * 2 * K * hw + 2 * S * 3 * sum(b.block for b in plan.buckets) + S * 3 * hw + S
+                    + sum(2 * b.block + b.gains.numel() for b in plan.buckets))
+    k3_bound, k3_by = bound(k3_flop, k3_bytes)
+    d_flop = sum(20.0 * S * b.passes * b.block * b.kept for b in plan.buckets)
+    d_bound, _ = bound(d_flop, k3_bytes + 4 * sum(4 * b.block * b.kept for b in plan.buckets))
+    print(f"timing [{smi}]: pool kernel (S={S}, hops=1, all ready) {k3_ms:.3f} ms, plain version "
+          f"{k3_plain_ms:.3f} ms; bound {k3_bound:.3f} ms ({k3_by}: {k3_flop:.3e} FLOP by FFT, "
+          f"{k3_bytes / 1e9:.3f} GB), kernel at {k3_bound / k3_ms:.1%} of it", flush=True)
+    print(f"design [{smi}]: pool direct DFT {d_flop:.3e} FLOP -> {d_bound:.3f} ms at FP32 peak; "
+          f"kernel at {d_bound / k3_ms:.1%} of it ({d_flop / k3_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    parts = []
+    for b, c in zip(plan.buckets, carries):
+        sub = dataclasses.replace(plan, buckets=(b,))
+        b_ms = time_ms(lambda: pool_step_lcr(hist, t, [c], sub))
+        b_plain = time_ms(lambda: pool_step_lcr_plain(hist, t, [c], sub))
+        gflop = 20.0 * S * b.passes * b.block * b.kept / 1e9
+        parts.append(f"B={b.block} {b_ms:.3f} ms ({gflop / b_ms:.1f} TFLOP/s) vs plain {b_plain:.3f} ms")
+    print(f"timing [{smi}]: pool kernel per bucket: " + "; ".join(parts), flush=True)
+    x = blocks[0].transpose(0, 1).contiguous()
+    h = hist[..., hw:].contiguous()
+    shift_ms = time_ms(lambda: torch.cat([h, x], dim=-1))
+    print(f"timing [{smi}]: history shift (cat of [{S}, 2, {(K - 1) * hw}] and the block) "
+          f"{shift_ms:.3f} ms", flush=True)
+    floor = {}
+    for mode in ("copy", "frame"):
+        f_ms = time_ms(lambda: pool_floor.pool_floor(window, hw, mode, plan))
+        f_plain = time_ms(lambda: pool_floor_plain(window, hw, mode, plan))
+        nbytes = floor_bytes(S, plan.window, hw)
+        f_bound, f_by = bound(S * hw * 3.0, nbytes)
+        floor[mode] = (f_ms, f_plain, f_bound, f_by)
+        print(f"timing [{smi}]: floor {mode} (S={S}) {f_ms * 1e3:.1f} us, plain version "
+              f"{f_plain * 1e3:.1f} us; bound {f_bound * 1e3:.1f} us ({f_by}: {nbytes / 1e6:.1f} MB), "
+              f"kernel at {f_bound / f_ms:.1%} of it", flush=True)
+    for n_streams in (16, S):
+        tp = CudaStreamPool(cfg, hw, n_streams, device=dev)
+        run, fresh = tp.make_sustained_runner(POOL_BLOCKS)
+        state = fresh()
+        slabs = blocks[:, :, :n_streams].contiguous()
+        print(f"pool profile (S={n_streams}, {POOL_BLOCKS} blocks per call): "
+              f"{device_share(lambda: run(state, slabs), iters=2)}", flush=True)
+
+    return [
+        {
+            "name": "pool_step_lcr",
+            "route": "cuda",
+            "source": "upmix_tpu_torch/csrc/pool.cu",
+            "replaces": "upmix_tpu/ops/pallas_pool.py:579",
+            "launches": k3_launches,
+            "max_abs_err": max_abs_err,
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound,
+            "bound_by": k3_by,
+            "library_ms": None,
+        },
+        {
+            "name": "pool_floor",
+            "route": "cuda",
+            "source": "upmix_tpu_torch/csrc/pool.cu",
+            "replaces": "scripts/bench_pool_floor.py:53",
+            "launches": k6_launches,
+            "max_abs_err": 0.0,
+            "ms": floor["copy"][0],
+            "plain_ms": floor["copy"][1],
+            "bound_ms": floor["copy"][2],
+            "bound_by": floor["copy"][3],
+            "library_ms": None,
+        },
+    ]
 
 
 if __name__ == "__main__":

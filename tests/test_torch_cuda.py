@@ -86,3 +86,116 @@ def test_upmixer_matches_whole_file_float64(cuda):
     )
     for r, g in zip(ref, got):
         assert _snr(r, g) > 90.0
+
+
+# The pool kernel (K3) and its floor probe (K6).
+
+POOL_CASES = {
+    # (edges, sr, hw): the 256 bucket has H = 64 (one 64-wide column
+    # tile), the 1024 bucket P = 1; at hw 128 every block exceeds hw.
+    "h64": (([0.0, 400.0, 1600.0], 8000.0), 256),
+    "block_over_hw": (([0.0, 400.0, 1600.0], 8000.0), 128),
+    "bela_48k": (([0.0, 500.0, 2000.0, 8000.0], 48000.0), 2048),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+@pytest.mark.parametrize("S,hops", [(1, 1), (5, 1), (5, 3)])
+def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
+    # FP32 products against float64 FFTs; mixed t with nonzero carries,
+    # stream 0 below the warmup with a carry it must hold.
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
+
+    (edges, sr), hw = POOL_CASES[case]
+    cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
+    plan = make_pool_plan(cfg, hw, S, device=cuda)
+    K = plan.warmup
+    rng = np.random.default_rng(S * 10 + hops)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=cuda)
+    t = torch.as_tensor(rng.integers(1, 8, S), dtype=torch.int32, device=cuda)
+    t[0] = 1
+    carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block)), dtype=torch.float32, device=cuda)
+               for b in plan.buckets]
+    before = pool.LAUNCHES
+    out, new = pool_step_lcr(hist, t, carries, plan, hops)
+    torch.cuda.synchronize()
+    assert pool.LAUNCHES - before == 3 * len(plan.buckets)
+    ref, ref_new = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
+    assert torch.equal(out == 0, ref == 0)  # not-ready hops are exact zeros
+    if bool((ref != 0).any()):  # else no stream was ready: all zeros, checked above
+        assert _snr(ref, out) > 90.0
+    for c, r, n in zip(carries, ref_new, new):
+        assert _snr(r, n) > 90.0
+        if hops == 1 and K > 1:
+            assert torch.equal(n[0], c[0])  # stream 0 not ready: carry held
+
+
+@pytest.mark.parametrize("mode", ["copy", "frame"])
+def test_pool_floor_bit_exact(cuda, mode):
+    from upmix_tpu_torch.ops.pool import make_pool_plan
+    from upmix_tpu_torch.ops.pool_floor import pool_floor, pool_floor_plain
+
+    for (edges, sr), hw in POOL_CASES.values():
+        cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
+        plan = make_pool_plan(cfg, hw, 7, device=cuda)
+        hist = torch.randn((7, 2, plan.window), device=cuda, generator=torch.Generator(cuda).manual_seed(hw))
+        assert torch.equal(pool_floor(hist, hw, mode, plan), pool_floor_plain(hist, hw, mode, plan))
+
+
+def test_cuda_pool_matches_torch_engine(cuda):
+    # Both pools run the pool kernel on the card: the same step on the same
+    # state, so the same bits; the JAX structures differ only in snapshots.
+    from upmix_tpu_torch.models.streaming import BatchStreamingUpmixer, CudaStreamPool, make_stream_pool
+    from upmix_tpu_torch.ops import pool
+
+    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
+    S = 6
+    pool_ = make_stream_pool(cfg, 256, S, device=cuda)
+    assert isinstance(pool_, CudaStreamPool)
+    ref = BatchStreamingUpmixer(cfg, 256, S, device=cuda)
+    blocks = torch.randn((10, S, 2, 256), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    for t, b in enumerate(blocks):
+        before = pool.LAUNCHES
+        got = torch.stack(pool_.push_blocks(b[:, 0], b[:, 1]))
+        want = torch.stack(ref.push_blocks(b[:, 0], b[:, 1]))
+        assert pool.LAUNCHES - before == 2 * 3 * len(pool_.plan.buckets)
+        if t < pool_.warmup_blocks - 1:
+            assert torch.all(got == 0)
+        assert torch.equal(got, want)
+
+
+def test_engines_on_cuda_launch_the_pool_kernel(cuda):
+    # StreamingUpmixer and BatchStreamingUpmixer on the card go through the
+    # pool kernel and match one float64 run of the plain step over the
+    # whole signal.
+    from upmix_tpu_torch.models.streaming import BatchStreamingUpmixer, StreamingUpmixer
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr_plain
+
+    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
+    hw, S, n = 256, 3, 10
+    x = torch.randn((S, 2, n * hw), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    plan = make_pool_plan(cfg, hw, S, device=cuda)
+    K = plan.warmup
+    hist = torch.cat([x.new_zeros((S, 2, (K - 1) * hw)), x], dim=-1).double()
+    carries = [hist.new_zeros((S, 3, b.block)) for b in plan.buckets]
+    ref, _ = pool_step_lcr_plain(hist, torch.ones(S, dtype=torch.int32, device=cuda), carries, plan, n)
+
+    before = pool.LAUNCHES
+    got = torch.stack(StreamingUpmixer(cfg, hw, device=cuda).process_signal(x[0, 0], x[0, 1]))
+    assert pool.LAUNCHES - before == 3 * len(plan.buckets)
+    assert torch.equal(got[:, : (K - 1) * hw] == 0, ref[0, :, : (K - 1) * hw] == 0)
+    assert _snr(ref[0], got) > 90.0
+
+    single = StreamingUpmixer(cfg, hw, device=cuda)
+    batch = BatchStreamingUpmixer(cfg, hw, S, device=cuda)
+    before = pool.LAUNCHES
+    pushed, batched = [], []
+    for i in range(n):
+        blk = x[..., i * hw : (i + 1) * hw]
+        pushed.append(torch.stack(single.push_block(blk[0, 0], blk[0, 1])))
+        batched.append(torch.stack(batch.push_blocks(blk[:, 0], blk[:, 1])))
+    assert pool.LAUNCHES - before == 2 * n * 3 * len(plan.buckets)
+    assert _snr(ref[0], torch.cat(pushed, dim=-1)) > 90.0
+    assert _snr(ref.transpose(0, 1), torch.cat(batched, dim=-1)) > 90.0

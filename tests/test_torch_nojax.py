@@ -1,5 +1,6 @@
 """The torch port must run where jax is not installed: importing every
-module of upmix_tpu_torch and running an Upmixer leaves jax unimported.
+module of upmix_tpu_torch and running an Upmixer and a stream pool
+leaves jax, and every module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -16,19 +17,28 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 import numpy as np
 import upmix_tpu_torch
-from upmix_tpu_torch import UpmixConfig, Upmixer
+from upmix_tpu_torch import UpmixConfig, Upmixer, make_stream_pool
 
 names = [m.name for m in pkgutil.walk_packages(upmix_tpu_torch.__path__, "upmix_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "upmix_tpu_torch.ops.omnibus" in names and "upmix_tpu_torch.ops._build" in names, names
+for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming"):
+    assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
 L = np.random.default_rng(0).standard_normal(3000).astype(np.float32)
 c, ls, rs = Upmixer(cfg, device="cpu").process_np(L, 0.5 * L)
 assert c.shape == (3000,) and np.isfinite(c).all()
+scfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
+for engine in ("cuda", "torch"):
+    pool = make_stream_pool(scfg, 256, 3, engine=engine, device="cpu")
+    for _ in range(5):
+        out = pool.push_blocks(np.random.default_rng(1).standard_normal((3, 256)), np.ones((3, 256)))
+    assert np.isfinite(out[0].numpy()).all() and out[0].abs().max() > 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
+jax_package = sorted(m for m in sys.modules if m == "upmix_tpu" or m.startswith("upmix_tpu."))
+assert not jax_package, jax_package
 print("NOJAX_OK", len(names))
 """
 

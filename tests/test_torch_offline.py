@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from helpers import make_stereo, snr_db
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
 from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
 from upmix_tpu.models.offline import build_offline_chunked_fn as jax_build_chunked
 from upmix_tpu.oracle import oracle_multiband
@@ -59,7 +60,7 @@ def test_upmixer_matches_oracle(name):
     cfg = UpmixConfig.make(edges, **kw)
     L, R = make_stereo(n, cfg.sr, kind=kind, seed=seed)
     L32, R32 = L.astype(np.float32), R.astype(np.float32)
-    ref = oracle_multiband(L32, R32, cfg)
+    ref = oracle_multiband(L32, R32, JaxUpmixConfig.make(edges, **kw))
     got = Upmixer(cfg, device="cpu").process_np(L32, R32)
     for r, g in zip(ref, got):
         assert g.shape == r.shape and g.dtype == np.float32
@@ -83,7 +84,7 @@ def test_whole_file_path_matches_oracle(edges, kw):
     cfg = UpmixConfig.make(edges, **kw)
     L, R = make_stereo(5000, cfg.sr, seed=9)
     L32, R32 = L.astype(np.float32), R.astype(np.float32)
-    ref = oracle_multiband(L32, R32, cfg)
+    ref = oracle_multiband(L32, R32, JaxUpmixConfig.make(edges, **kw))
     fn = build_offline_fn(cfg, 5000, chunk=0, device="cpu")
     got64 = fn(torch.as_tensor(L), torch.as_tensor(R))
     assert got64[0].dtype == torch.float64
@@ -102,7 +103,8 @@ def test_chunked_matches_jax_chunked(n):
     rng = np.random.default_rng(n)
     L = rng.standard_normal(n).astype(np.float32)
     R = rng.standard_normal(n).astype(np.float32)
-    ref = jax_build_chunked(cfg, n, chunk=chunk, use_pallas=True)(L, R)
+    jcfg = JaxUpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    ref = jax_build_chunked(jcfg, n, chunk=chunk, use_pallas=True)(L, R)
     got = build_offline_chunked_fn(cfg, n, chunk=chunk, device="cpu")(
         torch.as_tensor(L), torch.as_tensor(R)
     )
@@ -118,7 +120,8 @@ def test_plans_from_jax_give_bitwise_same_output():
     L = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
     R = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
     own = build_offline_chunked_fn(cfg, n, device="cpu")(L, R)
-    jax_buckets = plans_from_numpy(jax_plan_buckets(cfg, CHUNK_SAMPLES), "cpu")
+    jcfg = JaxUpmixConfig.make(*BENCH[:1], **BENCH[1])
+    jax_buckets = plans_from_numpy(jax_plan_buckets(jcfg, CHUNK_SAMPLES), "cpu")
     carried = build_offline_chunked_fn(cfg, n, device="cpu", buckets=jax_buckets)(L, R)
     for a, b in zip(own, carried):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -143,10 +146,12 @@ def test_unsupported_configs_raise(edges, kw):
 def test_custom_window_raises():
     from upmix_tpu.ops.windows import register_window
 
+    # The JAX package knows the window; the port refuses it when the
+    # config is built.
     register_window("torch_port_test_window", np.hanning, overwrite=True)
-    cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, window="torch_port_test_window")
+    JaxUpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, window="torch_port_test_window")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Upmixer(cfg, device="cpu")
+        UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, window="torch_port_test_window")
 
 
 def test_upmixer_cache_padding_and_lru():
@@ -161,7 +166,8 @@ def test_upmixer_cache_padding_and_lru():
     again = up.process_np(L.astype(np.float32), R.astype(np.float32))
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
-    ref = oracle_multiband(L.astype(np.float32), R.astype(np.float32), cfg)
+    jcfg = JaxUpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256)
+    ref = oracle_multiband(L.astype(np.float32), R.astype(np.float32), jcfg)
     for r, g in zip(ref, first):
         assert g.shape == (3000,) and snr_db(r, g) > 60.0
     with pytest.raises(ValueError):

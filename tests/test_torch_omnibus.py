@@ -14,10 +14,10 @@ import pytest
 import torch
 
 from helpers import snr_db
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
 from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
 from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan as jax_make_omnibus_plan
 from upmix_tpu.ops.pallas_omnibus import omnibus_lcr as jax_omnibus_lcr
-from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import plans_from_numpy
 from upmix_tpu_torch.ops import omnibus
 from upmix_tpu_torch.ops.omnibus import (
@@ -49,8 +49,7 @@ CASES = {
 @pytest.mark.parametrize("name", list(CASES))
 def test_omnibus_matches_jax_interpret(name):
     (edges, kw), chunk, jkw, kinds = CASES[name]
-    cfg = UpmixConfig.make(edges, **kw)
-    jplans = jax_plan_buckets(cfg, chunk)
+    jplans = jax_plan_buckets(JaxUpmixConfig.make(edges, **kw), chunk)
     jplan, leftover = jax_make_omnibus_plan(jplans, chunk, min_tile=0, **jkw)
     assert leftover == []
     if kinds is not None:
@@ -68,7 +67,7 @@ def test_omnibus_matches_jax_interpret(name):
 
 
 def test_batch_rows_are_independent_segments():
-    cfg = UpmixConfig.make(*SMALL[:1], **SMALL[1])
+    cfg = JaxUpmixConfig.make(*SMALL[:1], **SMALL[1])
     plan = make_omnibus_plan(plans_from_numpy(jax_plan_buckets(cfg, 1024), "cpu"), 1024)
     x = torch.as_tensor(np.random.default_rng(1).standard_normal((3, 2, 1024 + plan.halo)),
                         dtype=torch.float32)
@@ -80,7 +79,7 @@ def test_batch_rows_are_independent_segments():
 
 
 def test_cpu_dispatch_is_the_plain_version():
-    cfg = UpmixConfig.make(*SMALL[:1], **SMALL[1])
+    cfg = JaxUpmixConfig.make(*SMALL[:1], **SMALL[1])
     plan = make_omnibus_plan(plans_from_numpy(jax_plan_buckets(cfg, 1024), "cpu"), 1024)
     x = torch.randn((2, 2, 1024 + plan.halo), generator=torch.Generator().manual_seed(0))
     before = omnibus.LAUNCHES
@@ -95,7 +94,7 @@ def test_cpu_dispatch_is_the_plain_version():
 
 
 def test_plan_orders_buckets_and_drops_dead_ones():
-    cfg = UpmixConfig.make(*BENCH[:1], **BENCH[1])
+    cfg = JaxUpmixConfig.make(*BENCH[:1], **BENCH[1])
     jplans = jax_plan_buckets(cfg, 4096)
     buckets = plans_from_numpy(jplans, "cpu")
     assert all(b.w_fwd is None for b in buckets)  # weights only for the kernel

@@ -17,11 +17,13 @@ import upmix_tpu.ops.framing as jfr
 import upmix_tpu.ops.gains as jgains
 import upmix_tpu.ops.mask as jmask
 import upmix_tpu.ops.windows as jwin
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
 from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
 from upmix_tpu.ops.pallas_upmix import _mask_sum as jax_mask_sum
-from upmix_tpu_torch.config import BUILTIN_WINDOWS, UpmixConfig
+from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import _plan_buckets
 from upmix_tpu_torch.ops import dftmm, framing, gains, mask, windows
+from upmix_tpu_torch.ops.windows import BUILTIN_WINDOWS
 
 BENCH = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0, max_block_size=65536))
 CONFIGS = [
@@ -65,13 +67,14 @@ def test_custom_window_name_refused():
 def test_gains_and_bucket_plans_equal(case):
     edges, kw = CONFIGS[case]
     cfg = UpmixConfig.make(edges, **kw)
-    for band in cfg.bands:
+    jcfg = JaxUpmixConfig.make(edges, **kw)
+    for band, jband in zip(cfg.bands, jcfg.bands, strict=True):
         for dt in (np.float32, np.float64):
             np.testing.assert_array_equal(
-                gains.band_gain_curve(band, dtype=dt), jgains.band_gain_curve(band, dtype=dt)
+                gains.band_gain_curve(band, dtype=dt), jgains.band_gain_curve(jband, dtype=dt)
             )
     for n in (1, 997, 5000):
-        for p, q in zip(_plan_buckets(cfg, n), jax_plan_buckets(cfg, n), strict=True):
+        for p, q in zip(_plan_buckets(cfg, n), jax_plan_buckets(jcfg, n), strict=True):
             assert (p.block_size, p.hop_size, p.num_frames, p.total_padded) == (
                 q.block_size, q.hop_size, q.num_frames, q.total_padded
             )

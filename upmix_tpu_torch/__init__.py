@@ -1,29 +1,46 @@
 """upmix_tpu_torch — the PyTorch/CUDA port of upmix_tpu.
 
-The offline whole-file upmix (the JAX package's main path) runs here on
-PyTorch tensors, with its one Pallas kernel (the omnibus) rewritten as a
-hand-written CUDA kernel for Hopper (`csrc/omnibus.cu`).  The layout
-mirrors `upmix_tpu/` so each module's counterpart is easy to find:
+The offline whole-file upmix, block streaming and the multi-stream
+serving pool run here on PyTorch tensors; the JAX package's Pallas
+kernels on these paths are hand-written CUDA kernels for Hopper
+(`csrc/omnibus.cu`, `csrc/pool.cu`).  The layout mirrors `upmix_tpu/`
+so each module's counterpart is easy to find:
 
-  - config: UpmixConfig / BandSpec / bucket_bands / EPS, re-exported from
-    the jax-free `upmix_tpu.config`
+  - config: UpmixConfig / BandSpec / bucket_bands / EPS, the port's own
+    copy of the JAX package's config (standard library only)
   - ops.windows, ops.gains, ops.dftmm: numpy host plans (copies of the
     JAX package's, pinned to it by tests)
   - ops.framing, ops.mask: tensor framing / overlap-add and the mask
-  - ops.omnibus: the kernel's wrapper, its plain version and its plan
+  - ops.omnibus: the offline kernel's wrapper, its plain version and plan
+  - ops.pool: the serving-pool step's wrapper, plain version and plan
+  - ops.pool_floor: the pool's floor probe
+  - ops._build: nvcc build and ctypes binding of csrc/
   - models.offline: Upmixer / upmix_offline
+  - models.streaming: StreamingUpmixer, BatchStreamingUpmixer,
+    CudaStreamPool, make_stream_pool
 
-This package never imports jax: the machines it runs on need not have it.
+This package never imports jax or anything of the JAX package: the
+machines it runs on need not have them.  Importing it does not import
+torch either; the entry points below load on first use.
 """
 
 from upmix_tpu_torch.config import EPS, BandSpec, UpmixConfig, bucket_bands
 
-__all__ = ["EPS", "BandSpec", "UpmixConfig", "bucket_bands", "Upmixer", "upmix_offline"]
+_MODELS = (
+    "Upmixer",
+    "upmix_offline",
+    "StreamingUpmixer",
+    "BatchStreamingUpmixer",
+    "CudaStreamPool",
+    "make_stream_pool",
+    "mix_stereo_sum",
+)
+
+__all__ = ["EPS", "BandSpec", "UpmixConfig", "bucket_bands", *_MODELS]
 
 
 def __getattr__(name):
-    # Keep bare `import upmix_tpu_torch` light (no torch import).
-    if name in ("Upmixer", "upmix_offline"):
+    if name in _MODELS:
         import upmix_tpu_torch.models as _m
 
         return getattr(_m, name)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from upmix_tpu_torch.config import UpmixConfig, bucket_bands, require_builtin_windows
+from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.ops.framing import frame_signal, offline_frame_plan, overlap_add
 from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.mask import center_mask
@@ -58,7 +58,6 @@ class _BucketPlan:
 
 
 def _plan_buckets(config: UpmixConfig, n_samples: int):
-    require_builtin_windows(config)
     plans = []
     for block_size, bands in bucket_bands(config.bands).items():
         hop = bands[0].hop_size
@@ -210,7 +209,6 @@ class Upmixer:
         max_programs: int = 16,
         chunk: int | None = None,
     ):
-        require_builtin_windows(config)
         self.config = config
         self.device = torch.device(device)
         self.pad_granularity = max(1, int(pad_granularity))

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels at first use.
 
-`nvcc` compiles `csrc/omnibus.cu` (a plain C interface, no PyTorch
-headers) for sm_90a into `upmix_tpu_torch/_build/`, keyed by a hash of
-the source and the flags, and the library is bound with ctypes.  Nothing
-here runs at import time: machines without a GPU or nvcc import the
-package and use the plain versions.
+`nvcc` compiles every `csrc/*.cu` (a plain C interface, no PyTorch
+headers) for sm_90a into one library under `upmix_tpu_torch/_build/`,
+keyed by a hash of the flags and of every source and header under
+`csrc/`, and the library is bound with ctypes.  Nothing here runs at
+import time: machines without a GPU or nvcc import the package and use
+the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "omnibus.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,20 +45,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def library_key() -> str:
+    """Hash of the flags and of every source and header, by name and content."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES + HEADERS:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first call."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"omnibus_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"kernels_{library_key()}.so"
     build_seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, SOURCES)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
@@ -68,7 +77,9 @@ def load() -> ctypes.CDLL:
     lib.omni_forward.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
     lib.omni_mask.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.omni_inverse.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
-    for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse):
+    lib.pool_inverse.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
+    for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse, lib.pool_inverse, lib.pool_floor):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from upmix_tpu.config import BandSpec, freq_to_bin
+from upmix_tpu_torch.config import BandSpec, freq_to_bin
 
 
 def band_gain_curve(band: BandSpec, dtype=np.float32) -> np.ndarray:

@@ -1,16 +1,17 @@
 """Built-in analysis windows and the WOLA synthesis-window design.
 
 Numpy copies of `upmix_tpu/ops/windows.py` (the built-in windows and
-`design_wola_synthesis_window`).  They are copied, not imported, because
-importing `upmix_tpu.ops` imports jax; tests/test_torch_ops.py pins every
-window to the JAX package's output bit for bit.
+`design_wola_synthesis_window`): the port imports nothing of the JAX
+package.  tests/test_torch_ops.py pins every window to the JAX
+package's output bit for bit.  `BUILTIN_WINDOWS` is the set of names
+the port's configs accept.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from upmix_tpu_torch.config import BUILTIN_WINDOWS, EPS
+from upmix_tpu_torch.config import EPS
 
 
 def make_blackman_harris(N: int) -> np.ndarray:
@@ -34,6 +35,7 @@ _WINDOWS = {
     "hamming": lambda N: np.hamming(N).astype(np.float32),
     "rect": lambda N: np.ones(N, dtype=np.float32),
 }
+BUILTIN_WINDOWS = tuple(_WINDOWS)
 
 
 def make_window(name: str, N: int) -> np.ndarray:
@@ -41,7 +43,7 @@ def make_window(name: str, N: int) -> np.ndarray:
     if fn is None:
         raise NotImplementedError(
             f"window {name!r} is not built in; the torch port supports "
-            f"{BUILTIN_WINDOWS} (custom windows: ROADMAP.md, Queue 1)"
+            f"{BUILTIN_WINDOWS} (custom windows: ROADMAP.md, Queue 1 item 4)"
         )
     return fn(int(N))
 
