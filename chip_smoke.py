@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths: the offline upmix of bench.py's config
+Drives the port's main paths: the offline upmix of bench.py's config
 (6 bands at 0/30/120/480/1920/7680 Hz, 44.1 kHz, blocks up to 65536) on
-2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`; and
-the serving pool of the stream server's default config (the Bela setup:
-edges 0/500/2000/8000 Hz, 48 kHz, hardware block 2048) at 2048 streams,
-through `make_stream_pool(cfg, 2048, 2048)`.  Phases, one line each or
-more, any failure exits nonzero:
+2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`; the
+same config sharded, two files of 2^21 samples on a data 2 x seq 4 mesh
+of the one card, through `ShardedUpmixer`, and in batches through
+`BatchUpmixer`; and the serving pool of the stream server's default
+config (the Bela setup: edges 0/500/2000/8000 Hz, 48 kHz, hardware block
+2048) at 2048 streams, through `make_stream_pool(cfg, 2048, 2048)`.
+Phases, one line each or more, any failure exits nonzero (phases 10-13
+run between 5 and 6):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -44,7 +47,19 @@ more, any failure exits nonzero:
   9. a JSON line of per-kernel results (launches from the main paths'
      runs; bounds from this run's shapes and the least work of each
      function: its FFTs or its bytes, whichever takes longer), then the
-     last line {"ok": true, "device": {...}}.
+     last line {"ok": true, "device": {...}};
+ 10. fused kernel parity: K2 against its plain version in float64 on the
+     card, on the three buckets the sharded path routes to it, at the
+     sharded geometry (8 rows of one 2^19 chunk; >= 80 dB);
+ 11. sharded end to end: ShardedUpmixer on the 2 x 4 mesh must launch K2
+     3 times and K1 6 times per call, match the float64 whole-file path
+     (>= 60 dB) and Upmixer within 64 samples of each shard edge (< 1e-3),
+     the data-only mesh likewise, and give exact zeros for silence;
+ 12. BatchUpmixer.process_files, sequential and pipelined, bit-identical
+     to each other and within 1e-3 of Upmixer;
+ 13. timing: the sharded path's realtime factor; K2 alone per bucket
+     against K1 alone on the same bucket and against the plain version;
+     K2's bound and design lines; the profiler's idle share.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -78,6 +93,14 @@ POOL_BLOCKS = 12
 # deadline (about 7,900 streams), in steps of 512: timed too, to see which
 # pool sizes meet the deadline.
 POOL_CAPACITY_STREAMS = (7168, 7680)
+
+# The sharded path: two files of 2^21 samples on a data 2 x seq 4 mesh
+# whose eight shards share the one card (one chunk of 2^19 samples each);
+# BatchUpmixer on three files in batches of two.
+SHARD_MESH = {"data": 2, "seq": 4}
+SHARD_FILES = 2
+SHARD_SAMPLES = 2**21
+BATCH_FILES, BATCH_SIZE, BATCH_SAMPLES = 3, 2, 2**20
 
 # NVIDIA H100 SXM at its 700 W limit (the data sheet): FP32 outside the
 # tensor cores and HBM3.
@@ -128,7 +151,9 @@ def time_ms(fn, loops: int = 7, iters: int = 3) -> float:
 
 def device_share(fn, iters: int = 5) -> str:
     """Device time by kernel and the device's busy share over `iters`
-    calls of fn, from torch.profiler."""
+    calls of fn, from torch.profiler.  Only the kernels' own rows count:
+    an operator's row repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -142,7 +167,7 @@ def device_share(fn, iters: int = 5) -> str:
     rows = [
         (e.self_device_time_total, e.key)
         for e in prof.key_averages()
-        if e.self_device_time_total > 0
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     busy = sum(t for t, _ in rows)
     if busy == 0:
@@ -322,6 +347,7 @@ def main():
         "bound_by": k1_by,
         "library_ms": None,
     }]
+    kernels.append(sharded_phases(smi, dev))
     kernels += pool_phases(smi, dev)
 
     # 9. results
@@ -331,6 +357,152 @@ def main():
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def sharded_phases(smi: str, dev) -> dict:
+    """Phases 10-13 on the sharded and batch offline paths; returns the K2
+    result entry."""
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models import BatchUpmixer, Upmixer
+    from upmix_tpu_torch.models.offline import build_offline_fn, plans_from_numpy
+    from upmix_tpu_torch.ops import fused, omnibus, pool, pool_floor
+    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain
+    from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch, omnibus_lcr_batch_plain
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh, sequence_plan
+    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
+
+    cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
+    splan = sequence_plan(cfg, SHARD_SAMPLES, SHARD_MESH["seq"])
+    chunk, S = splan.chunk, SHARD_FILES * SHARD_MESH["seq"]
+    omni_plan, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), dev), chunk)
+    print(f"sharded plan: mesh {SHARD_MESH} on one card, chunk {chunk} per shard, halo {splan.halo}; "
+          f"K2 buckets {[b.block for b in narrow]}, K1 buckets {[b.block for b in omni_plan.buckets]}",
+          flush=True)
+    if [b.block for b in narrow] != [4096, 1024, 256] or [b.block for b in omni_plan.buckets] != [65536, 16384]:
+        fail("bucket routing differs from 4096/1024/256 -> K2, 65536/16384 -> K1")
+
+    # 10. K2 parity at the sharded geometry: S rows of one chunk each
+    rng = np.random.default_rng(4)
+    xs = {b.block: torch.as_tensor(rng.standard_normal((S, 2, chunk + b.spill)), dtype=torch.float32,
+                                   device=dev) for b in narrow}
+    worst, max_abs_err = float("inf"), 0.0
+    for b in narrow:
+        x = xs[b.block]
+        got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
+        ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
+        torch.cuda.synchronize()
+        snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
+        err = float((got.double() - ref).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        worst = min(worst, *snrs)
+        print(f"K2 parity B={b.block} H={b.hop} K={b.kept} (S={S}, chunk {chunk}): "
+              + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs))
+              + f", max abs err {err:.3e} (bar >= {KERNEL_BAR_DB} dB)", flush=True)
+    if not (worst >= KERNEL_BAR_DB):
+        fail(f"fused kernel parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
+    del got, ref
+
+    # 11. sharded end to end through the user's entry point
+    mesh = make_mesh(SHARD_MESH, devices=[dev] * S)
+    su = ShardedUpmixer(cfg, mesh)
+    audio = torch.as_tensor(np.random.default_rng(5).standard_normal((SHARD_FILES, 2, SHARD_SAMPLES)),
+                            dtype=torch.float32, device=dev)
+    su.process_batch(audio)  # device plans built once, outside the count
+    torch.cuda.synchronize()
+    omnibus.LAUNCHES = fused.LAUNCHES = pool.LAUNCHES = pool_floor.LAUNCHES = 0
+    y = su.process_batch(audio)
+    torch.cuda.synchronize()
+    k2_launches, k1_launches = fused.LAUNCHES, omnibus.LAUNCHES
+    print(f"sharded e2e: ShardedUpmixer.process_batch on {SHARD_FILES} x {SHARD_SAMPLES} samples: "
+          f"fused kernel launches {k2_launches}, omnibus launches {k1_launches}", flush=True)
+    if k2_launches != 3 or k1_launches != 6:
+        fail(f"sharded call launched K2 {k2_launches} times (want 3) and K1 {k1_launches} (want 6)")
+    if y.shape != (SHARD_FILES, 3, SHARD_SAMPLES) or not bool(torch.isfinite(y).all()):
+        fail(f"sharded output shape {tuple(y.shape)} or non-finite values")
+    up = Upmixer(cfg, device=dev)
+    e2e, edge_err = float("inf"), 0.0
+    for i in range(SHARD_FILES):
+        ref = build_offline_fn(cfg, SHARD_SAMPLES, chunk=0, device=dev)(audio[i, 0].double(), audio[i, 1].double())
+        e2e = min(e2e, *(snr_db(r, y[i, o]) for o, r in enumerate(ref)))
+        single = torch.stack(up.process(audio[i, 0], audio[i, 1]))
+        for q in range(1, SHARD_MESH["seq"]):
+            e = q * chunk
+            edge_err = max(edge_err, float((single[:, e - 64 : e + 64] - y[i, :, e - 64 : e + 64]).abs().max()))
+    del ref, single
+    only_data = ShardedUpmixer(cfg, make_mesh({"data": SHARD_MESH["data"]}, devices=[dev] * SHARD_MESH["data"]))
+    dp_err = float((only_data.process_batch(audio) - y).abs().max())
+    silent = float(su.process_batch(torch.zeros_like(audio)).abs().max())
+    print(f"sharded e2e: worst SNR vs float64 whole-file path {e2e:.1f} dB (bar >= {E2E_BAR_DB} dB); "
+          f"max |sharded - Upmixer| within 64 samples of the shard edges {edge_err:.3e} (bar < 1e-3); "
+          f"data-only mesh max abs diff {dp_err:.3e} (bar < 1e-3); silence max |out| {silent}", flush=True)
+    if not (e2e >= E2E_BAR_DB):
+        fail(f"sharded end-to-end SNR {e2e:.1f} dB < {E2E_BAR_DB} dB")
+    if not (edge_err < 1e-3 and dp_err < 1e-3):
+        fail("sharded result differs from Upmixer at a shard edge or from the data-only mesh")
+    if silent != 0.0:
+        fail("sharded: silence in did not give exact zeros out")
+    del only_data
+
+    # 12. BatchUpmixer.process_files, sequential and pipelined
+    files = [np.random.default_rng(10 + i).standard_normal((2, BATCH_SAMPLES)).astype(np.float32)
+             for i in range(BATCH_FILES)]
+    bu = BatchUpmixer(cfg, BATCH_SAMPLES, BATCH_SIZE, device=dev)
+    seq = list(bu.process_files(files))
+    piped = list(bu.process_files(files, pipeline=True))
+    same = len(seq) == len(piped) == BATCH_FILES and all(np.array_equal(a, b) for a, b in zip(seq, piped))
+    vs_up = max(float(np.abs(np.stack(up.process_np(f[0], f[1])) - o).max()) for f, o in zip(files, seq))
+    print(f"batch e2e: BatchUpmixer.process_files, {BATCH_FILES} files x {BATCH_SAMPLES} samples in batches of "
+          f"{BATCH_SIZE}: pipelined == sequential {same}; max |batch - Upmixer| {vs_up:.3e} (bar < 1e-3)",
+          flush=True)
+    if not same or not (vs_up < 1e-3):
+        fail("BatchUpmixer: pipelined and sequential results differ, or they differ from Upmixer")
+    del bu, seq, piped, up
+
+    # 13. timing
+    audio_s = SHARD_FILES * SHARD_SAMPLES / SR
+    path_ms = time_ms(lambda: su.process_batch(audio), loops=5, iters=1)
+    print(f"timing [{smi}]: sharded path ({SHARD_MESH} on one card) {path_ms:.3f} ms for {SHARD_FILES} x "
+          f"{SHARD_SAMPLES} samples = {audio_s / path_ms * 1e3:.1f}x realtime", flush=True)
+    k2_ms = k2_plain_ms = 0.0
+    parts = []
+    for b in narrow:
+        x = xs[b.block]
+        sub = make_omnibus_plan([b], chunk)
+        t_k2 = time_ms(lambda: fused_bucket_lcr_batch(x, b))
+        t_k1 = time_ms(lambda: omnibus_lcr_batch(x, sub))
+        t_plain = time_ms(lambda: fused_bucket_lcr_batch_plain(x, b))
+        k2_ms, k2_plain_ms = k2_ms + t_k2, k2_plain_ms + t_plain
+        gflop = 20.0 * S * chunk // b.hop * b.block * b.kept / 1e9
+        parts.append(f"B={b.block} K2 {t_k2:.3f} ms ({gflop / t_k2:.1f} TFLOP/s), K1 {t_k1:.3f} ms "
+                     f"(K2/K1 {t_k2 / t_k1:.2f}), plain {t_plain:.3f} ms")
+    print(f"timing [{smi}]: per bucket (S={S}, chunk {chunk}): " + "; ".join(parts), flush=True)
+    # K2's bound over its three buckets, from the least work of the function:
+    # the FFTs of every frame; x read once per bucket, y written once.
+    k2_flop = sum(fft_flop(S * chunk // b.hop, b.block) for b in narrow)
+    k2_bytes = 4 * sum(5 * S * (chunk + b.spill) + 2 * b.block + b.gains.numel() for b in narrow)
+    k2_bound, k2_by = bound(k2_flop, k2_bytes)
+    print(f"bound [{smi}]: fused {k2_flop:.3e} FLOP by FFT, {k2_bytes / 1e9:.3f} GB over its three buckets -> "
+          f"{k2_bound:.3f} ms ({k2_by}); kernel {k2_ms:.3f} ms, at {k2_bound / k2_ms:.1%} of it", flush=True)
+    d_flop = sum(20.0 * S * chunk // b.hop * b.block * b.kept for b in narrow)
+    d_bound, _ = bound(d_flop, k2_bytes + 4 * sum(4 * b.block * b.kept for b in narrow))
+    print(f"design [{smi}]: fused direct DFT {d_flop:.3e} FLOP -> {d_bound:.3f} ms at FP32 peak; "
+          f"kernel at {d_bound / k2_ms:.1%} of it ({d_flop / k2_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    print(f"sharded profile: {device_share(lambda: su.process_batch(audio), iters=3)}", flush=True)
+    del su, audio, y, xs
+    torch.cuda.empty_cache()
+    return {
+        "name": "fused_bucket_lcr",
+        "route": "cuda",
+        "source": "upmix_tpu_torch/csrc/fused.cu",
+        "replaces": "upmix_tpu/ops/pallas_upmix.py:252",
+        "launches": k2_launches,
+        "max_abs_err": max_abs_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }
 
 
 def pool_phases(smi: str, dev) -> list:

@@ -1,4 +1,5 @@
-"""The omnibus CUDA kernel against its plain version, on an NVIDIA GPU.
+"""The CUDA kernels against their plain versions, and the entry points
+that must launch them, on an NVIDIA GPU.
 
 Marked `gpu`: skipped where no CUDA device is present.  On a GPU machine
 (which need not have jax; this file does not import it):
@@ -199,3 +200,77 @@ def test_engines_on_cuda_launch_the_pool_kernel(cuda):
     assert pool.LAUNCHES - before == 2 * n * 3 * len(plan.buckets)
     assert _snr(ref[0], torch.cat(pushed, dim=-1)) > 90.0
     assert _snr(ref.transpose(0, 1), torch.cat(batched, dim=-1)) > 90.0
+
+
+# The fused bucket kernel (K2) and the sharded and batch paths.
+
+FUSED_CASES = {
+    # (edges, config kwargs, chunk): several thread blocks per segment,
+    # H = 32 and 64 (below the 64-wide column tile), eight frames per
+    # output sample (overlap 0.875), and the bench config's 256 bucket.
+    "small": (([0.0, 400.0, 1600.0], dict(sr=8000.0, max_block_size=512)), 8192),
+    "overlap_0875": (([0.0, 400.0], dict(sr=8000.0, max_block_size=256, overlap=0.875)), 4096),
+    "bench_narrow": (([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0)), 65536),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+@pytest.mark.parametrize("S", [1, 5])
+def test_fused_kernel_matches_plain_float64(cuda, case, S):
+    # FP32 products against float64 FFTs: ~120 dB in practice; 90 dB bar.
+    from upmix_tpu_torch.ops import fused
+    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain, takes_fused
+    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets
+
+    (edges, kw), chunk = FUSED_CASES[case]
+    buckets = [b for b in plans_from_numpy(_plan_seq_buckets(UpmixConfig.make(edges, **kw)), cuda) if takes_fused(b)]
+    assert buckets
+    rng = np.random.default_rng(S)
+    for b in buckets:
+        x = torch.as_tensor(rng.standard_normal((S, 2, chunk + b.spill)), dtype=torch.float32, device=cuda)
+        x[0, :, 100:300] = 0.0  # a silent stretch inside the first segment
+        before = fused.LAUNCHES
+        got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES - before == 1
+        ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
+        for o in range(3):
+            assert _snr(ref[:, o], got[:, o]) > 90.0, (b.block, o)
+
+
+def test_sharded_upmixer_launches_both_kernels(cuda):
+    # A 2 x 4 mesh on one card: per call one K2 launch per narrow bucket
+    # and three K1 launches per wide bucket; matches the float64 whole-file
+    # path and the unsharded Upmixer.
+    from upmix_tpu_torch.ops import fused
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
+
+    cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0)
+    su = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 4}, devices=[cuda] * 8))
+    x = torch.randn((2, 2, 2**18), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    y = su.process_batch(x)
+    torch.cuda.synchronize()
+    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == (6, 3)
+    for i in range(2):
+        ref = build_offline_fn(cfg, 2**18, chunk=0, device=cuda)(x[i, 0].double(), x[i, 1].double())
+        for o in range(3):
+            assert _snr(ref[o], y[i, o]) > 90.0
+        single = torch.stack(Upmixer(cfg, device=cuda).process(x[i, 0], x[i, 1]))
+        assert float((single - y[i]).abs().max()) < 1e-3
+
+
+def test_batch_upmixer_pipelined_on_cuda(cuda):
+    from upmix_tpu_torch.models import BatchUpmixer
+
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    rng = np.random.default_rng(3)
+    files = [rng.standard_normal((2, n)).astype(np.float32) for n in (4096, 3000, 4096)]
+    bu = BatchUpmixer(cfg, 4096, 2, device=cuda)
+    before = omnibus.LAUNCHES
+    seq = list(bu.process_files(files))
+    assert omnibus.LAUNCHES - before == 2 * 3 * 2  # two batches, three launches per bucket
+    piped = list(bu.process_files(files, pipeline=True))
+    for f, a, b in zip(files, seq, piped):
+        np.testing.assert_array_equal(a, b)
+        assert a.shape == (3, f.shape[-1])

@@ -1,0 +1,126 @@
+"""The port's fused bucket engine (on the CPU: its plain version) against the
+JAX package's Pallas fused kernel run in interpret mode, and the routing
+that sends a bucket to it.
+
+Both sides take the same numpy input and the JAX package's own bucket
+plans.  The JAX kernel multiplies in bf16x3 (about 1e-6 relative error)
+and the port's plain version uses float32 FFTs; the bar is 100 dB, the
+bar tests/test_fftmm.py holds the JAX kernel to against its XLA fold.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import snr_db
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
+from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
+from upmix_tpu.ops.dftmm import make_direct_plan as jax_make_direct_plan
+from upmix_tpu.ops.pallas_upmix import fused_bucket_lcr_batch as jax_fused_bucket_lcr_batch
+from upmix_tpu.ops.pallas_upmix import make_fused_plan as jax_make_fused_plan
+from upmix_tpu_torch.config import UpmixConfig
+from upmix_tpu_torch.models.offline import plans_from_numpy
+from upmix_tpu_torch.ops import fused
+from upmix_tpu_torch.ops.fused import (
+    FUSED_WEIGHT_BYTES,
+    fused_bucket_lcr,
+    fused_bucket_lcr_batch,
+    fused_bucket_lcr_batch_plain,
+    make_fused_bucket,
+    takes_fused,
+    tile_frames,
+)
+from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch_plain
+from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
+
+# tests/test_fftmm.py::test_pallas_fused_bucket_matches_fold: 8 kHz, max
+# block 512, chunk 2048, 512-sample tiles (so n_tiles > 1 and the JAX
+# kernel carries its spill across tiles).
+SMALL = ([0.0, 400.0, 1600.0], dict(sr=8000.0, max_block_size=512))
+CHUNK = 2048
+BENCH = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0, max_block_size=65536))
+
+
+def _jax_fused_plan(p, chunk):
+    nz = np.nonzero(p.gains.max(axis=0))[0]
+    lo, hi = int(nz[0]), int(nz[-1])
+    dplan = jax_make_direct_plan(p.block_size, lo, hi, p.analysis_window, p.synthesis_window)
+    return jax_make_fused_plan(
+        p.block_size, p.hop_size, chunk, dplan.w_fwd, dplan.w_inv, p.gains[:, lo : hi + 1],
+        tile_samples=512,
+    )
+
+
+@pytest.mark.parametrize("bucket", [0, 1])
+def test_plain_matches_jax_interpret(bucket):
+    p = jax_plan_buckets(JaxUpmixConfig.make(SMALL[0], **SMALL[1]), 4096)[bucket]
+    fp = _jax_fused_plan(p, CHUNK)
+    assert fp.n_tiles > 1
+    b = make_fused_bucket(p, "cpu")
+    x = np.random.default_rng(bucket).standard_normal((3, 2, CHUNK + b.spill)).astype(np.float32)
+    jmain, jspill = jax_fused_bucket_lcr_batch(jnp.asarray(x), fp, interpret=True)
+    main, spill = fused_bucket_lcr_batch(torch.as_tensor(x), b)
+    assert main.shape == (3, 3, CHUNK) and spill.shape == (3, 3, b.spill)
+    for s in range(3):
+        for o in range(3):
+            assert snr_db(np.asarray(jmain[s, o]), main[s, o].numpy()) > 100.0
+            assert snr_db(np.asarray(jspill[s, o]), spill[s, o].numpy()) > 100.0
+
+
+def test_plain_is_the_one_bucket_omnibus():
+    # The same contract as the omnibus over a plan of this one bucket.
+    cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
+    for b in plans_from_numpy(_plan_seq_buckets(cfg), "cpu"):
+        x = torch.randn((3, 2, CHUNK + b.spill), generator=torch.Generator().manual_seed(b.block))
+        ref = omnibus_lcr_batch_plain(x, make_omnibus_plan([b], CHUNK))
+        for a, r in zip(fused_bucket_lcr_batch_plain(x, b), ref):
+            torch.testing.assert_close(a, r, rtol=0, atol=0)
+
+
+def test_single_segment_is_a_batch_row():
+    cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
+    b = plans_from_numpy(_plan_seq_buckets(cfg), "cpu")[0]
+    x = torch.randn((3, 2, CHUNK + b.spill), generator=torch.Generator().manual_seed(0))
+    main, spill = fused_bucket_lcr_batch(x, b)
+    m1, s1 = fused_bucket_lcr(x[1], b)
+    torch.testing.assert_close(main[1], m1, rtol=0, atol=0)
+    torch.testing.assert_close(spill[1], s1, rtol=0, atol=0)
+
+
+def test_cpu_dispatch_is_the_plain_version_and_shapes_are_checked():
+    cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
+    b = plans_from_numpy(_plan_seq_buckets(cfg), "cpu")[0]
+    x = torch.randn((2, 2, CHUNK + b.spill), generator=torch.Generator().manual_seed(1))
+    before = fused.LAUNCHES
+    for a, r in zip(fused_bucket_lcr_batch(x, b), fused_bucket_lcr_batch_plain(x, b)):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    assert fused.LAUNCHES == before  # no kernel on the CPU
+    with pytest.raises(ValueError):  # neither cpu nor cuda: refused
+        fused_bucket_lcr_batch(x.to("meta"), b)
+    for bad in (x[..., :-1], x[:, :1], x[0]):
+        with pytest.raises(ValueError):
+            fused_bucket_lcr_batch(bad, b)
+
+
+def test_routing_on_the_default_config():
+    # 4096, 1024 and 256 within the JAX package's fused gate (7 MiB of
+    # weights per direction) go to the fused kernel; 65536 and 16384 to
+    # the omnibus.
+    cfg = UpmixConfig.make(BENCH[0], **BENCH[1])
+    buckets = plans_from_numpy(_plan_seq_buckets(cfg), "cpu")
+    omni, narrow = route_buckets(buckets, 65536)
+    assert [b.block for b in narrow] == [4096, 1024, 256]
+    assert [b.block for b in omni.buckets] == [65536, 16384]
+    assert [b.kept for b in narrow] == [190, 190, 95]
+    for b in buckets:
+        assert takes_fused(b) == (b.block * 2 * b.kept * 4 <= FUSED_WEIGHT_BYTES)
+    # Output frame positions per thread block: the spectra of T + 3 frames
+    # fit 100 KB, and 3 T rows one 64-row tile.
+    assert [tile_frames(b) for b in narrow] == [19, 19, 21]
+
+
+def test_routing_all_to_one_kernel():
+    cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
+    omni, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), "cpu") + (None,), CHUNK)
+    assert omni is None and [b.block for b in narrow] == [512, 256]

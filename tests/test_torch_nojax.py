@@ -1,6 +1,7 @@
 """The torch port must run where jax is not installed: importing every
-module of upmix_tpu_torch and running an Upmixer and a stream pool
-leaves jax, and every module of the JAX package, unimported.
+module of upmix_tpu_torch and running an Upmixer, a BatchUpmixer, a
+ShardedUpmixer on a CPU mesh and a stream pool leaves jax, and every
+module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -17,18 +18,24 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 import numpy as np
 import upmix_tpu_torch
-from upmix_tpu_torch import UpmixConfig, Upmixer, make_stream_pool
+from upmix_tpu_torch import BatchUpmixer, ShardedUpmixer, UpmixConfig, Upmixer, make_mesh, make_stream_pool
 
 names = [m.name for m in pkgutil.walk_packages(upmix_tpu_torch.__path__, "upmix_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming"):
+for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
+            "ops.fused", "parallel.sharded", "models.batch"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
 L = np.random.default_rng(0).standard_normal(3000).astype(np.float32)
 c, ls, rs = Upmixer(cfg, device="cpu").process_np(L, 0.5 * L)
 assert c.shape == (3000,) and np.isfinite(c).all()
+y = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 4}, devices=["cpu"] * 8)).process_batch(
+    np.stack([np.stack([L, 0.5 * L])] * 2))
+assert y.shape == (2, 3, 3000) and float((y[0, 0] - c).abs().max()) < 1e-3
+b, = BatchUpmixer(cfg, 3000, 1, device="cpu").process_files([np.stack([L, 0.5 * L])])
+assert b.shape == (3, 3000) and float(np.abs(b[0] - c).max()) < 1e-3
 scfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
 for engine in ("cuda", "torch"):
     pool = make_stream_pool(scfg, 256, 3, engine=engine, device="cpu")

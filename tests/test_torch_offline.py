@@ -186,3 +186,29 @@ def test_silence_and_mono():
     c, ls, rs = upmix_offline(L, L, cfg, device="cpu")
     assert np.abs(ls).max() <= 1e-5 and np.abs(rs).max() <= 1e-5
     assert np.abs(c).max() > 0.1
+
+
+@pytest.mark.parametrize("n,batch", [(4 * 1024 + 300, 1), (3 * 1024, 3), (1024, 2)])
+def test_rows_reach_the_kernel_as_it_takes_them(monkeypatch, n, batch):
+    # The omnibus kernel takes one contiguous float32 [S, 2, chunk + halo]
+    # tensor (the CPU runs the plain version, which would take any view);
+    # every row's segments go into that one call.
+    from upmix_tpu_torch.models import offline
+
+    seen, real = [], offline.omnibus_lcr_batch
+
+    def spy(x, plan):
+        assert x.dtype == torch.float32 and x.is_contiguous()
+        seen.append(x.shape[0])
+        return real(x, plan)
+
+    monkeypatch.setattr(offline, "omnibus_lcr_batch", spy)
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.standard_normal((batch, 2, n)), dtype=torch.float32)
+    y = offline.build_offline_rows_fn(cfg, n, chunk=1024, device="cpu")(x)
+    assert seen == [batch * -(-n // 1024)] and y.shape == (batch, 3, n)
+    for b in range(batch):
+        one = build_offline_chunked_fn(cfg, n, chunk=1024, device="cpu")(x[b, 0], x[b, 1])
+        for o in range(3):
+            torch.testing.assert_close(y[b, o], one[o], rtol=0, atol=1e-6)

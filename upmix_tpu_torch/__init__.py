@@ -1,7 +1,8 @@
 """upmix_tpu_torch — the PyTorch/CUDA port of upmix_tpu.
 
-The offline whole-file upmix, block streaming and the multi-stream
-serving pool run here on PyTorch tensors; the JAX package's Pallas
+The offline whole-file upmix (one file, a batch of files, or sharded
+over a mesh of devices), block streaming and the multi-stream serving
+pool run here on PyTorch tensors; the JAX package's Pallas
 kernels on these paths are hand-written CUDA kernels for Hopper
 (`csrc/omnibus.cu`, `csrc/pool.cu`).  The layout mirrors `upmix_tpu/`
 so each module's counterpart is easy to find:
@@ -14,8 +15,12 @@ so each module's counterpart is easy to find:
   - ops.omnibus: the offline kernel's wrapper, its plain version and plan
   - ops.pool: the serving-pool step's wrapper, plain version and plan
   - ops.pool_floor: the pool's floor probe
+  - ops.fused: the fused bucket kernel's wrapper, plain version and gate
   - ops._build: nvcc build and ctypes binding of csrc/
   - models.offline: Upmixer / upmix_offline
+  - models.batch: BatchUpmixer (many files as rows of one call)
+  - parallel.sharded: make_mesh, ShardedUpmixer (data and sequence
+    sharding over the devices of one process)
   - models.streaming: StreamingUpmixer, BatchStreamingUpmixer,
     CudaStreamPool, make_stream_pool
 
@@ -29,6 +34,9 @@ from upmix_tpu_torch.config import EPS, BandSpec, UpmixConfig, bucket_bands
 _MODELS = (
     "Upmixer",
     "upmix_offline",
+    "BatchUpmixer",
+    "ShardedUpmixer",
+    "make_mesh",
     "StreamingUpmixer",
     "BatchStreamingUpmixer",
     "CudaStreamPool",

@@ -37,6 +37,7 @@
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
+#include "mask.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -102,8 +103,8 @@ forward_kernel(const float* __restrict__ x, const float* __restrict__ w, float* 
 }
 
 // spec[s, o, f, :] = masked, band-summed (re | im) of output o (C, Ls, Rs)
-// from the forward partials of frame f: per band gain -> mask -> sum,
-// exactly ops/mask.py::mask_sum.
+// from the forward partials of frame f: per band gain -> mask -> sum
+// (mask.cuh, exactly ops/mask.py::mask_sum).
 __global__ void __launch_bounds__(THREADS)
 mask_kernel(const float* __restrict__ part, const float* __restrict__ gains, float* __restrict__ spec,
             int S, int F, int K, int nb, int P) {
@@ -127,34 +128,16 @@ mask_kernel(const float* __restrict__ part, const float* __restrict__ gains, flo
     rim += pp[row_r * N + K + j];
   }
 
-  float c_re = 0.f, c_im = 0.f, l_re = 0.f, l_im = 0.f, r_re = 0.f, r_im = 0.f;
-  for (int b = 0; b < nb; ++b) {
-    const float g = gains[b * K + j];
-    const float glre = lre * g, glim = lim * g;
-    const float grre = rre * g, grim = rim * g;
-    const float magl = sqrtf(glre * glre + glim * glim);
-    const float magr = sqrtf(grre * grre + grim * grim);
-    const float cross = magl * magr;
-    const float coh = cross / (cross + EPS);
-    const float bal = (magl - magr) / (magl + magr + EPS);
-    const float fac = 0.5f * coh * (1.0f - fabsf(bal));
-    const float cre = fac * (glre + grre);
-    const float cim = fac * (glim + grim);
-    c_re += cre;
-    c_im += cim;
-    l_re += glre - cre;
-    l_im += glim - cim;
-    r_re += grre - cre;
-    r_im += grim - cim;
-  }
+  float m[6];
+  mask_sum_bin(lre, lim, rre, rim, gains, K, nb, j, m);
   float* out = spec + ((3 * s) * F + f) * N + j;
   const long long o_stride = (long long)F * N;
-  out[0] = c_re;
-  out[K] = c_im;
-  out[o_stride] = l_re;
-  out[o_stride + K] = l_im;
-  out[2 * o_stride] = r_re;
-  out[2 * o_stride + K] = r_im;
+  out[0] = m[0];
+  out[K] = m[1];
+  out[o_stride] = m[2];
+  out[o_stride + K] = m[3];
+  out[2 * o_stride] = m[4];
+  out[2 * o_stride + K] = m[5];
 }
 
 // y[so, q*H + r] (+)= sum_{g < B/H} sum_{j < N2} spec[so, q - g, j] * w_inv[j, g*H + r]

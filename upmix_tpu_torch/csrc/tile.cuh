@@ -1,5 +1,5 @@
-// The shared-memory tile of the FP32 SIMT products in omnibus.cu and
-// pool.cu: 64x64 output tiles, a depth of 16 per stage, 256 threads each
+// The shared-memory tile of the FP32 SIMT products in omnibus.cu, pool.cu
+// and fused.cu: 64x64 output tiles, a depth of 16 per stage, 256 threads each
 // holding a 4x4 block of the sum in registers.
 
 #pragma once
@@ -14,7 +14,6 @@ constexpr int BK = 16;  // depth per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int TM = 4;  // rows per thread
 constexpr int TN = 4;  // columns per thread
-constexpr float EPS = 1e-12f;  // upmix_tpu_torch.config.EPS
 
 // acc[TM][TN] += As[k][rows of this thread] x Ws[k][columns of this thread]
 __device__ __forceinline__ void tile_fma(float (*As)[BM + 4], float (*Ws)[BN + 4],

@@ -11,7 +11,10 @@ block sizes), so both packages cut an input at the same places.
 Two things differ from the JAX chunked path:
   - Segments are independent, so one kernel call takes all of them as
     batch rows, and the spill carry is one vectorised add afterwards
-    (the JAX path scans the segments in order).
+    (the JAX path scans the segments in order).  The same holds across
+    signals: `build_offline_rows_fn` takes [batch, 2, n] and puts every
+    row's segments into that one call (models/batch.py, the data-only
+    sharded path).
   - Every length goes through the kernel path.  The JAX package sends
     inputs under 2^18 samples to a whole-file program because that was
     faster on its TPU; that threshold does not carry over.
@@ -118,16 +121,18 @@ def plans_from_numpy(bucket_plans, device) -> tuple:
     return tuple(b for b in live if b is not None)
 
 
-def build_offline_chunked_fn(
+def build_offline_rows_fn(
     config: UpmixConfig,
     n_samples: int,
     chunk: int = CHUNK_SAMPLES,
     device="cuda",
     buckets: tuple | None = None,
 ):
-    """fn(L, R) -> (C, Ls, Rs), each [n_samples] float32 on `device`, for
-    tensors L, R of n_samples on `device`.  `buckets` is the device plan
-    (`plans_from_numpy`); built here when not given."""
+    """fn(x) -> y: x [batch, 2, n_samples] on `device` -> y [batch, 3,
+    n_samples] float32, each row an independent signal.  Every row's
+    segments are rows of one omnibus call, and the spill carry is one
+    vectorised add.  `buckets` is the device plan (`plans_from_numpy`);
+    built here when not given."""
     for b in config.bands:
         check_geometry(b.block_size, b.hop_size)
     plans = _plan_buckets(config, chunk)  # geometry is per chunk
@@ -147,21 +152,39 @@ def build_offline_chunked_fn(
         buckets = plans_from_numpy(plans, device)
     oplan = make_omnibus_plan(buckets, chunk)
 
-    def fn(L: torch.Tensor, R: torch.Tensor):
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        batch = x.shape[0]
         if oplan is None:  # every bucket's gains are zero
-            z = torch.zeros(n_samples, dtype=torch.float32, device=device)
-            return z, z.clone(), z.clone()
+            return torch.zeros((batch, 3, n_samples), dtype=torch.float32, device=device)
         width = chunk + oplan.halo
-        x = torch.zeros((2, n_pad + oplan.halo), dtype=torch.float32, device=device)
-        x[0, :n_samples] = L
-        x[1, :n_samples] = R
-        segs = x.unfold(1, width, chunk).transpose(0, 1).contiguous()  # [n_seg, 2, width]
+        xp = torch.zeros((batch, 2, n_pad + oplan.halo), dtype=torch.float32, device=device)
+        xp[..., :n_samples] = x
+        segs = xp.unfold(-1, width, chunk).transpose(1, 2).reshape(batch * n_seg, 2, width).contiguous()
         main, spill = omnibus_lcr_batch(segs, oplan)
+        main = main.unflatten(0, (batch, n_seg))
         # Spill carry: segment i's tail lands on segment i + 1's head
         # (chunk >= halo, so it reaches no further).
-        main[1:, :, : oplan.halo] += spill[:-1]
-        full = main.transpose(0, 1).reshape(3, n_pad)
-        return full[0, :n_samples], full[1, :n_samples], full[2, :n_samples]
+        main[:, 1:, :, : oplan.halo] += spill.unflatten(0, (batch, n_seg))[:, :-1]
+        return main.transpose(1, 2).reshape(batch, 3, n_pad)[..., :n_samples]
+
+    return fn
+
+
+def build_offline_chunked_fn(
+    config: UpmixConfig,
+    n_samples: int,
+    chunk: int = CHUNK_SAMPLES,
+    device="cuda",
+    buckets: tuple | None = None,
+):
+    """fn(L, R) -> (C, Ls, Rs), each [n_samples] float32 on `device`, for
+    tensors L, R of n_samples on `device`: `build_offline_rows_fn` on one
+    row."""
+    rows = build_offline_rows_fn(config, n_samples, chunk=chunk, device=device, buckets=buckets)
+
+    def fn(L: torch.Tensor, R: torch.Tensor):
+        y = rows(torch.stack([L.float(), R.float()])[None])[0]
+        return y[0], y[1], y[2]
 
     return fn
 

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels at first use.
 
 `nvcc` compiles every `csrc/*.cu` (a plain C interface, no PyTorch
-headers) for sm_90a into one library under `upmix_tpu_torch/_build/`,
+headers) for sm_90a, one process per source, all started together, and
+links the objects into one library under `upmix_tpu_torch/_build/`,
 keyed by a hash of the flags and of every source and header under
-`csrc/`, and the library is bound with ctypes.  Nothing here runs at
+`csrc/`; the library is bound with ctypes.  Nothing here runs at
 import time: machines without a GPU or nvcc import the package and use
 the plain versions.
 """
@@ -25,7 +26,7 @@ HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -63,14 +64,31 @@ def load() -> ctypes.CDLL:
     build_seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, SOURCES)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed = ["link"]
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -79,7 +97,9 @@ def load() -> ctypes.CDLL:
     lib.omni_inverse.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
     lib.pool_inverse.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
-    for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse, lib.pool_inverse, lib.pool_floor):
+    lib.fused_lcr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, p]
+    for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse, lib.pool_inverse, lib.pool_floor,
+               lib.fused_lcr):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
