@@ -7,11 +7,14 @@ Drives the port's main paths: the offline upmix of bench.py's config
 2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`; the
 same config sharded, two files of 2^21 samples on a data 2 x seq 4 mesh
 of the one card, through `ShardedUpmixer`, and in batches through
-`BatchUpmixer`; and the serving pool of the stream server's default
+`BatchUpmixer`; the serving pool of the stream server's default
 config (the Bela setup: edges 0/500/2000/8000 Hz, 48 kHz, hardware block
-2048) at 2048 streams, through `make_stream_pool(cfg, 2048, 2048)`.
-Phases, one line each or more, any failure exits nonzero (phases 10-13
-run between 5 and 6):
+2048) at 2048 streams, through `make_stream_pool(cfg, 2048, 2048)`; the
+two probes through their entry points (`ops.int8_dot` check and bench,
+`ops.overhead_probe.run_configs`); and the CLI in process on WAV files
+(offline, --streaming, --pipe, --serve).  Phases, one line each or more,
+any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
+8):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -46,7 +49,8 @@ run between 5 and 6):
      torch.profiler;
   9. a JSON line of per-kernel results (launches from the main paths'
      runs; bounds from this run's shapes and the least work of each
-     function: its FFTs or its bytes, whichever takes longer), then the
+     function: its FFTs or its bytes, whichever takes longer; a kernel
+     whose bound is more than 105% of its time fails the run), then the
      last line {"ok": true, "device": {...}};
  10. fused kernel parity: K2 against its plain version in float64 on the
      card, on the three buckets the sharded path routes to it, at the
@@ -59,7 +63,33 @@ run between 5 and 6):
      to each other and within 1e-3 of Upmixer;
  13. timing: the sharded path's realtime factor; K2 alone per bucket
      against K1 alone on the same bucket and against the plain version;
-     K2's bound and design lines; the profiler's idle share.
+     K2's bound and design lines; the profiler's idle share;
+ 14. dot-chain parity (K4): each of the seven variants' kernel against its
+     plain version at M = K = 512, after one apply and over a chain of 64:
+     the int8 rungs bit for bit, the float rungs within
+     int8_dot.APPLY_TOLERANCE after one apply and the coarse
+     int8_dot.CHAIN_TOLERANCE over the chain; then the probe's own
+     run, `check` (each
+     variant's SNR after 640 applies against float64, the script's check
+     line, with the plain version's beside it) and `bench` (the script's
+     min-of-visits at M = 512 and 4224), which must launch every variant;
+ 15. dot-chain timing: one call of 64 applies at M = 512 per variant, its
+     plain version, the bound (the products at the unit's dense peak) and
+     the yardsticks (chained torch.matmul in FP32 and bf16, torch._int_mm);
+ 16. overhead probe (K5): bit for bit in its six configurations, the
+     probe's own run (`run_configs`), then each configuration's kernel
+     alone (64 calls queued back to back behind a sleeping kernel, CUDA
+     events: with L2 cold, the calls rotating over 340 MB of inputs and
+     outputs, and with L2 warm, the same call repeated), its
+     plain version, its bound (bytes from HBM) and the share of it, and
+     an empty launch; a JSON line of the per-variant and
+     per-configuration rows;
+ 17. the app on the card: `cli.main` offline (split stems of two 2^21-
+     sample WAVs) must launch K1 and write stems equal to
+     `Upmixer.process_np` + `scale_lcr` bit for bit, with --meter's
+     realtime factor beside phase 5's; --streaming and --pipe on a short
+     WAV must launch K3 (the pipe's output as long as its input); --serve
+     answers a ping and two jobs.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -106,6 +136,12 @@ BATCH_FILES, BATCH_SIZE, BATCH_SAMPLES = 3, 2, 2**20
 # tensor cores and HBM3.
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# A kernel's bound may be at most 105% of its time (timing noise).
+BOUND_SLACK = 1.05
+# Copies of the overhead probe's x that its cold timing rotates over, and
+# the calls it times back to back.
+K5_SETS = 8
+K5_CALLS = 64
 
 
 def bound(flop: float, nbytes: float):
@@ -149,10 +185,33 @@ def time_ms(fn, loops: int = 7, iters: int = 3) -> float:
     return best
 
 
-def device_share(fn, iters: int = 5) -> str:
-    """Device time by kernel and the device's busy share over `iters`
-    calls of fn, from torch.profiler.  Only the kernels' own rows count:
-    an operator's row repeats the device time of the kernels it launched."""
+def queued_ms(fn, calls: int) -> float:
+    """ms per call of `calls` calls of fn run back to back on the device:
+    they are queued behind a sleeping kernel, so no host gap falls between
+    them (the start event must still be pending when the last is queued)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2 * 10**7
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / calls
+        cycles *= 4
+    fail(f"could not queue {calls} calls ahead of the device")
+
+
+def kernel_rows(fn, iters: int):
+    """([(device us, kernel name)], wall us) over `iters` calls of fn, from
+    torch.profiler.  Only the kernels' own rows count: an operator's row
+    repeats the device time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,6 +228,13 @@ def device_share(fn, iters: int = 5) -> str:
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
+    return rows, wall_us
+
+
+def device_share(fn, iters: int = 5) -> str:
+    """Device time by kernel and the device's busy share over `iters`
+    calls of fn."""
+    rows, wall_us = kernel_rows(fn, iters)
     busy = sum(t for t, _ in rows)
     if busy == 0:
         return "no device time recorded (not measured)"
@@ -349,8 +415,14 @@ def main():
     }]
     kernels.append(sharded_phases(smi, dev))
     kernels += pool_phases(smi, dev)
+    kernels += probe_phases(smi, dev)
+    app_phases(smi, dev, audio_s / path_ms * 1e3)
 
-    # 9. results
+    # 9. results.  A kernel faster than its bound means the bound does not
+    # bound what was timed (bytes served by L2, say): a fault of this script.
+    for k in kernels:
+        if k["bound_ms"] > BOUND_SLACK * k["ms"]:
+            fail(f"{k['name']} took {k['ms']:.4f} ms, under its bound {k['bound_ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -564,9 +636,11 @@ def pool_phases(smi: str, dev) -> list:
         fail(f"pool kernel parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
     del hist, t, carries, got, got_c, ref, ref_c
     window = torch.randn((S, 2, plan.window), device=dev, generator=torch.Generator(dev).manual_seed(2))
+    floor_err = 0.0
     for mode in ("copy", "frame"):
-        same = torch.equal(pool_floor.pool_floor(window, hw, mode, plan),
-                           pool_floor_plain(window, hw, mode, plan))
+        got_f, ref_f = pool_floor.pool_floor(window, hw, mode, plan), pool_floor_plain(window, hw, mode, plan)
+        same = torch.equal(got_f, ref_f)
+        floor_err = max(floor_err, float((got_f - ref_f).abs().max()))
         print(f"floor parity {mode}: bit-exact {same}", flush=True)
         if not same:
             fail(f"floor kernel ({mode}) differs from its plain version")
@@ -741,7 +815,7 @@ def pool_phases(smi: str, dev) -> list:
             "source": "upmix_tpu_torch/csrc/pool.cu",
             "replaces": "scripts/bench_pool_floor.py:53",
             "launches": k6_launches,
-            "max_abs_err": 0.0,
+            "max_abs_err": floor_err,
             "ms": floor["copy"][0],
             "plain_ms": floor["copy"][1],
             "bound_ms": floor["copy"][2],
@@ -749,6 +823,314 @@ def pool_phases(smi: str, dev) -> list:
             "library_ms": None,
         },
     ]
+
+
+def probe_phases(smi: str, dev) -> list:
+    """Phases 14-16 on the two probes; returns the K4 and K5 result entries
+    and prints the per-variant and per-configuration rows as a JSON line."""
+    from upmix_tpu_torch.ops import int8_dot
+    from upmix_tpu_torch.ops import overhead_probe as op
+    from upmix_tpu_torch.ops.int8_dot import (
+        APPLY_TOLERANCE, CHAIN, CHAIN_TOLERANCE, EXACT, PEAK, UNIT, VARIANTS, flop_per_apply, int8_dot_chain,
+        int8_dot_chain_plain, make_consts, start_x,
+    )
+
+    # 14. K4 parity: each variant's kernel against its plain version at the
+    # script's M = K = 512, after one apply and over a chain of 64: the int8
+    # rungs bit for bit, the float rungs within int8_dot.APPLY_TOLERANCE
+    # after one apply and int8_dot.CHAIN_TOLERANCE (coarse) over the chain.
+    consts = {v: make_consts(v, dev) for v in VARIANTS}
+    x = torch.from_numpy(start_x(512)).to(dev)
+    rows = {}
+    for v in VARIANTS:
+        rows[v] = {"variant": v}
+        for chain, limit in ((1, APPLY_TOLERANCE), (CHAIN, CHAIN_TOLERANCE.get(v))):
+            got = int8_dot_chain(x, v, chain, consts[v])
+            ref = int8_dot_chain_plain(x, v, chain, consts[v])
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            exact = bool(torch.equal(got, ref))
+            rows[v][f"max_rel_err_chain_{chain}"] = rel
+            rows[v]["max_abs_err"] = err
+            print(f"K4 parity {v} (M=512, chain {chain}): max abs err {err:.3e}, relative {rel:.3e}, exact {exact} "
+                  f"(bar: {'bit for bit' if v in EXACT else f'relative <= {limit:g}'})", flush=True)
+            if not (exact if v in EXACT else rel <= limit) or not bool(torch.isfinite(got).all()):
+                fail(f"dot-chain kernel {v} differs from its plain version at chain {chain}: relative {rel:.3e}")
+    del got, ref
+
+    # The probe's own run through its entry points: check (every variant's
+    # SNR against float64 after 64 x 10 applies, the script's check line)
+    # and bench (the script's interleaved min-of-visits at M = 512 and 4224).
+    int8_dot.LAUNCHES = 0
+    int8_dot.LAUNCHES_BY_VARIANT = {}
+    snrs = int8_dot.check(VARIANTS, device=dev)
+    bench = int8_dot.bench(VARIANTS)
+    torch.cuda.synchronize()
+    k4_launches = int8_dot.LAUNCHES
+    by_variant = dict(int8_dot.LAUNCHES_BY_VARIANT)
+    print(f"K4 run: check + bench, dot-chain kernel launches {k4_launches} ({by_variant})", flush=True)
+    if k4_launches == 0 or any(by_variant.get(v, 0) == 0 for v in VARIANTS):
+        fail("the dot-chain probe's run launched no kernel for some variant")
+    # The plain version's SNR over the same chain, beside the kernel's.
+    w64 = torch.from_numpy(int8_dot.make_weights().astype(np.float64)).to(dev)
+    ref = x.double()
+    for _ in range(CHAIN * int8_dot.INNER):
+        ref = ref @ w64
+    ref = ref.cpu().numpy()
+    for v in VARIANTS:
+        y = x
+        for _ in range(int8_dot.INNER):
+            y = int8_dot_chain_plain(y, v, CHAIN, consts[v])
+        rows[v]["snr_db"] = snrs[v]
+        rows[v]["plain_snr_db"] = int8_dot.snr_db(ref, y.double().cpu().numpy())
+        print(f"K4 check {v}: kernel SNR {snrs[v]:.1f} dB, plain version {rows[v]['plain_snr_db']:.1f} dB "
+              f"over {CHAIN * int8_dot.INNER} applies (bar 60 dB: {'meets' if snrs[v] >= 60 else 'misses'})",
+              flush=True)
+
+    # 15. K4 timing: one call (chain 64) at M = 512 against the plain version,
+    # the bound (the products at the unit's dense peak) and the yardsticks.
+    w32 = consts["fp32"].weights[0]
+    wbf = consts["bf16x1"].weights[0].to(dev)
+    wi8 = consts["int8x1"].weights[0]
+    xi8 = torch.clamp(torch.round(x * (127.0 / 8.0)), -127, 127).to(torch.int8)
+
+    def chained(fn, a):
+        for _ in range(CHAIN):
+            a = fn(a)
+        return a
+
+    library = {
+        "fp32": lambda: chained(lambda a: torch.matmul(a, w32), x),
+        "bf16x1": lambda: chained(lambda a: torch.matmul(a, wbf), x.to(torch.bfloat16)),
+        "int8x1": lambda: [torch._int_mm(xi8, wi8) for _ in range(CHAIN)],
+    }
+    for v in VARIANTS:
+        k_ms = time_ms(lambda: int8_dot_chain(x, v, CHAIN, consts[v]))
+        p_ms = time_ms(lambda: int8_dot_chain_plain(x, v, CHAIN, consts[v]), loops=3, iters=1)
+        b_ms = CHAIN * flop_per_apply(v, 512) / PEAK[UNIT[v]] * 1e3
+        lib_ms = time_ms(library[v]) if v in library else None
+        ms_big, us_big, share_big = bench[(v, int8_dot.SMS * int8_dot.ROWS)]
+        rows[v].update({"M": 512, "launches": by_variant[v], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "library_ms": lib_ms, "peak_share": b_ms / k_ms,
+                        "M_all_sms": int8_dot.SMS * int8_dot.ROWS, "us_apply_all_sms": us_big,
+                        "peak_share_all_sms": share_big})
+        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+        print(f"K4 timing [{smi}] {v}: kernel {k_ms:.3f} ms per call of {CHAIN} applies at M=512 "
+              f"({b_ms / k_ms:.1%} of the {UNIT[v]} peak; bound {b_ms:.4f} ms, operations), plain {p_ms:.3f} ms, "
+              f"library {lib}; at M={int8_dot.SMS * int8_dot.ROWS} {us_big:.2f} us per apply "
+              f"({share_big:.1%} of peak)", flush=True)
+    del consts, x, w64
+
+    # 16. K5: parity bit for bit in all six configurations, the probe's own
+    # run (its entry point), then each configuration's kernel alone.
+    x5, rng = op.make_inputs(device=dev)
+    weights = {c: op.make_weights(c[1], rng, dev) for c in op.CONFIGS}
+    seed = torch.tensor(0.25, device=dev)
+    k5_err = 0.0
+    for c in op.CONFIGS:
+        out, spill = op.overhead_probe(x5, seed, weights[c], c[0], c[2])
+        ref_out, ref_spill = op.overhead_probe_plain(x5, seed, weights[c], c[0], c[2])
+        same = bool(torch.equal(out, ref_out) and torch.equal(spill, ref_spill))
+        k5_err = max(k5_err, float((out - ref_out).abs().max()), float((spill - ref_spill).abs().max()))
+        print(f"K5 parity views={c[0]} weights={c[1]} halo={c[2]}: bit-exact {same}", flush=True)
+        if not same:
+            fail(f"overhead probe kernel differs from its plain version at {c}")
+    del out, spill, ref_out, ref_spill
+    op.LAUNCHES = 0
+    script_rows = op.run_configs()
+    torch.cuda.synchronize()
+    k5_launches = op.LAUNCHES
+    print(f"K5 run: the probe's six configurations, kernel launches {k5_launches}", flush=True)
+    if k5_launches == 0:
+        fail("the overhead probe's run launched no kernel")
+    # The bound takes every byte from HBM, but x (17 MB) and out (25 MB) of
+    # a call repeated on the same tensors stay in the 50 MB L2, and even
+    # with cold inputs L2 can absorb one call's writes and drain them in
+    # the host's gap before the next.  So the kernel's time is that of
+    # K5_CALLS calls queued back to back, rotating over K5_SETS copies of
+    # x that each keep their output (340 MB): all but the last 50 MB of
+    # their writes must reach HBM inside the timed span.
+    n_tiles = op.N // op.TILE
+    xs = [x5] + [x5.clone() for _ in range(K5_SETS - 1)]
+    k5_rows = []
+    for c, (_, _, _, script_ms) in zip(op.CONFIGS, script_rows):
+        fn = lambda: op.overhead_probe(x5, seed, weights[c], c[0], c[2])  # noqa: E731
+        ring, turn = [None] * K5_SETS, iter(range(10**9))
+
+        def cold():
+            i = next(turn) % K5_SETS
+            ring[i] = None
+            ring[i] = op.overhead_probe(xs[i], seed, weights[c], c[0], c[2])
+
+        for _ in range(K5_SETS):
+            cold()
+        cold_ms = queued_ms(cold, K5_CALLS)
+        warm_ms = queued_ms(fn, K5_CALLS)
+        del ring
+        p_ms = time_ms(lambda: op.overhead_probe_plain(x5, seed, weights[c], c[0], c[2]))
+        b_ms = op.bound_bytes(op.N, c[2]) / HBM_BYTES_PER_S * 1e3
+        k5_rows.append({"views": c[0], "weights": c[1], "halo": c[2], "script_ms": script_ms,
+                        "device_ms": cold_ms, "device_ms_l2_warm": warm_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_share": b_ms / cold_ms, "staged_mb": op.staged_bytes(c[0]) / 1e6})
+        print(f"K5 timing [{smi}] views={c[0]} weights={c[1]} halo={c[2]}: script protocol {script_ms:.4f} ms; "
+              f"device {cold_ms:.4f} ms = {cold_ms * 1e3 / n_tiles:.3f} us per block back to back with L2 cold, at "
+              f"{b_ms / cold_ms:.1%} of the bound {b_ms:.4f} ms (bytes from HBM); "
+              f"{warm_ms:.4f} ms with L2 warm; plain {p_ms:.4f} ms; staged {op.staged_bytes(c[0]) / 1e6:.1f} MB",
+              flush=True)
+    del xs
+    empty_ms = time_ms(lambda: op.empty_launch(n_tiles, 100), iters=1) / 100
+    print(f"K5 floor [{smi}]: an empty launch of {n_tiles} blocks {empty_ms * 1e3:.2f} us (100 from one host "
+          f"call); through the wrapper {script_rows[-2][3] * 1e3:.2f} us a call", flush=True)
+    print(json.dumps({"k4_variants": list(rows.values()), "k5_configs": k5_rows,
+                      "k5_empty_launch_ms": empty_ms}), flush=True)
+    del x5, weights
+    torch.cuda.empty_cache()
+    k4, k5 = rows["bf16x3"], k5_rows[-1]
+    return [
+        {
+            "name": "int8_dot_chain",
+            "route": "cuda",
+            "source": "upmix_tpu_torch/csrc/int8_dot.cu",
+            "replaces": "scripts/bench_int8_dot.py:68",
+            "launches": k4_launches,
+            "max_abs_err": k4["max_abs_err"],
+            "ms": k4["ms"],
+            "plain_ms": k4["plain_ms"],
+            "bound_ms": k4["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": None,
+        },
+        {
+            "name": "overhead_probe",
+            "route": "cuda",
+            "source": "upmix_tpu_torch/csrc/overhead_probe.cu",
+            "replaces": "scripts/bench_overhead_probe.py:34",
+            "launches": k5_launches,
+            "max_abs_err": k5_err,
+            "ms": k5["device_ms"],
+            "plain_ms": k5["plain_ms"],
+            "bound_ms": k5["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+    ]
+
+
+class _Pipe:
+    """A text stream with a byte buffer, standing in for stdin or stdout."""
+
+    def __init__(self, data: bytes = b""):
+        import io
+
+        self.buffer = io.BytesIO(data)
+
+    def write(self, text):
+        self.buffer.write(text.encode())
+
+    def flush(self):
+        pass
+
+
+def app_phases(smi: str, dev, path_rtf: float):
+    """Phase 17: the app and CLI on the card, in process."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from upmix_tpu_torch import cli
+    from upmix_tpu_torch.app import load_stereo, scale_lcr
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.io import read_wav, write_wav
+    from upmix_tpu_torch.models.offline import Upmixer
+    from upmix_tpu_torch.ops import omnibus, pool
+
+    work = Path(__file__).resolve().parent / "upmix_tpu_torch" / "_build" / "app_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        rng = np.random.default_rng(0)
+        L = rng.standard_normal(N_SAMPLES).astype(np.float32)
+        R = rng.standard_normal(N_SAMPLES).astype(np.float32)
+        for name in ("song.wav", "again.wav"):
+            write_wav(work / name, np.stack([L, R], 1), int(SR))
+        edges = ",".join(str(int(e)) for e in BAND_EDGES)
+
+        # Offline: split stems, two files (the second runs on warm plans).
+        omnibus.LAUNCHES = 0
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main([str(work / "song.wav"), str(work / "again.wav"), "--out-dir", str(work / "out"),
+                           "--export-mode", "split", "--band-edges", edges, "--meter"])
+        launches = omnibus.LAUNCHES
+        lines = stdout.getvalue().splitlines()
+        meters = [ln for ln in lines if "x realtime" in ln]
+        print(f"app e2e: cli.main offline split on 2 x {N_SAMPLES} samples: rc {rc}, omnibus launches "
+              f"{launches}; " + "; ".join(meters) + f" (phase 5's kernel path {path_rtf:.1f}x realtime, "
+              "the CLI's includes WAV load and write, and the plan build on the first file)", flush=True)
+        if rc != 0 or launches == 0:
+            fail("the CLI's offline run failed or launched no omnibus kernel")
+        stems = [p for p in lines if p.endswith(".wav") and Path(p).name.startswith("song_")]
+        got = {Path(p).name.split("_")[1]: read_wav(p)[0] for p in stems}
+        l64, r64, _, peak_in = load_stereo(work / "song.wav")
+        cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
+        C, Ls, Rs, _ = scale_lcr(*Upmixer(cfg, device=dev).process_np(l64.astype(np.float32),
+                                                                   r64.astype(np.float32)), peak_in)
+        same = (np.array_equal(got["C"][:, 0], C.astype(np.float32).astype(np.float64))
+                and np.array_equal(got["Ls"][:, 0], Ls.astype(np.float32).astype(np.float64))
+                and np.array_equal(got["Rs"][:, 1], Rs.astype(np.float32).astype(np.float64)))
+        print(f"app e2e: stems equal Upmixer.process_np + scale_lcr bit for bit: {same}", flush=True)
+        if not same:
+            fail("the CLI's stems differ from Upmixer + scale_lcr")
+
+        # Streaming and pipe on a short WAV of the stream server's config.
+        n = 16 * POOL_HW
+        write_wav(work / "short.wav", np.stack([L[:n], R[:n]], 1), int(POOL_SR))
+        pool.LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([str(work / "short.wav"), "--streaming", "--out-dir", str(work / "stream")])
+        stream_launches = pool.LAUNCHES
+        raw = np.stack([L[:n], R[:n]], 1).astype("<f4").tobytes()
+        src, dst = _Pipe(raw), _Pipe()
+        saved = sys.stdin, sys.stdout
+        pool.LAUNCHES = 0
+        try:
+            sys.stdin, sys.stdout = src, dst
+            rc_pipe = cli.main(["-", "--pipe", "--sr", str(int(POOL_SR))])
+        finally:
+            sys.stdin, sys.stdout = saved
+        pipe_launches = pool.LAUNCHES
+        out = np.frombuffer(dst.buffer.getvalue(), dtype="<f4").reshape(-1, 2)
+        print(f"app e2e: --streaming on {n} samples rc {rc}, pool kernel launches {stream_launches}; --pipe rc "
+              f"{rc_pipe}, {out.shape[0]} frames out of {n} in, pool kernel launches {pipe_launches}, finite "
+              f"{bool(np.isfinite(out).all())}", flush=True)
+        if rc or rc_pipe or stream_launches == 0 or pipe_launches == 0:
+            fail("--streaming or --pipe failed or launched no pool kernel")
+        if out.shape[0] != n or not np.isfinite(out).all():
+            fail("--pipe output is not as long as its input or not finite")
+
+        # The job server: a ping and two jobs.
+        jobs = "\n".join([json.dumps({"cmd": "ping"}),
+                          json.dumps({"in": str(work / "song.wav"), "out_dir": str(work / "jobs")}),
+                          json.dumps({"in": str(work / "short.wav"), "out_dir": str(work / "jobs")})]) + "\n"
+        saved = sys.stdin
+        omnibus.LAUNCHES = 0
+        stdout = io.StringIO()
+        try:
+            sys.stdin = io.StringIO(jobs)
+            with contextlib.redirect_stdout(stdout):
+                rc = cli.main(["-", "--serve", "--band-edges", edges])
+        finally:
+            sys.stdin = saved
+        resps = [json.loads(ln) for ln in stdout.getvalue().splitlines()]
+        print(f"app e2e: --serve rc {rc}, omnibus launches {omnibus.LAUNCHES}, responses "
+              + json.dumps([{k: r[k] for k in r if k in ("ok", "pong", "audio_seconds", "wall_s")} for r in resps]),
+              flush=True)
+        if rc or len(resps) != 3 or not all(r["ok"] for r in resps) or omnibus.LAUNCHES == 0:
+            fail("--serve did not answer the ping and both jobs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 if __name__ == "__main__":

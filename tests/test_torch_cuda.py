@@ -274,3 +274,74 @@ def test_batch_upmixer_pipelined_on_cuda(cuda):
     for f, a, b in zip(files, seq, piped):
         np.testing.assert_array_equal(a, b)
         assert a.shape == (3, f.shape[-1])
+
+
+@pytest.mark.parametrize("variant", ["bf16x3", "bf16x1", "int8x3", "int8x3f", "int8x1", "fp32", "tf32x3"])
+def test_dot_chain_kernel_matches_plain(cuda, variant):
+    # K4: the integer variants take the plain version's float ops in its
+    # order (exact products): bit for bit.  The float ones differ in each
+    # product's own sum order: within int8_dot.APPLY_TOLERANCE after one
+    # apply, int8_dot.CHAIN_TOLERANCE (coarse) over a chain of 8.
+    from upmix_tpu_torch.ops import int8_dot
+
+    consts = int8_dot.make_consts(variant, cuda)
+    x = torch.from_numpy(int8_dot.start_x(64)).to(cuda)
+    for chain in (1, 8):
+        before = int8_dot.LAUNCHES
+        got = int8_dot.int8_dot_chain(x, variant, chain, consts)
+        torch.cuda.synchronize()
+        assert int8_dot.LAUNCHES - before == 1
+        ref = int8_dot.int8_dot_chain_plain(x, variant, chain, consts)
+        assert bool(torch.isfinite(got).all())
+        if variant in int8_dot.EXACT:
+            assert torch.equal(got, ref)
+        else:
+            limit = int8_dot.APPLY_TOLERANCE if chain == 1 else int8_dot.CHAIN_TOLERANCE[variant]
+            assert float((got - ref).abs().max() / ref.abs().max()) <= limit
+    assert torch.equal(int8_dot.int8_dot_chain(x, variant, 0, consts), x)
+
+
+def test_dot_chain_kernel_rejects_what_it_does_not_take(cuda):
+    from upmix_tpu_torch.ops import int8_dot
+
+    consts = int8_dot.make_consts("bf16x3", cuda)
+    x = torch.zeros((64, 512), device=cuda)
+    for bad in (x.double(), torch.zeros((48, 512), device=cuda), torch.zeros((512, 64), device=cuda).t()):
+        with pytest.raises(ValueError):
+            int8_dot.int8_dot_chain(bad, "bf16x3", 1, consts)
+    with pytest.raises(ValueError):  # K other than 512
+        int8_dot.int8_dot_chain(torch.zeros((64, 256), device=cuda), "bf16x3", 1,
+                                int8_dot.make_consts("bf16x3", cuda, 256))
+    with pytest.raises(ValueError):  # consts on another device
+        int8_dot.int8_dot_chain(x, "bf16x3", 1, int8_dot.make_consts("bf16x3", "cpu"))
+
+
+@pytest.mark.parametrize("config", [(1, 0, 128), (2, 0, 128), (4, 0, 128), (4, 16, 128), (4, 56, 128),
+                                    (4, 56, 49152)])
+def test_overhead_probe_bit_exact(cuda, config):
+    from upmix_tpu_torch.ops import overhead_probe as op
+
+    n_views, n_weights, halo = config
+    for n, tile in ((8 * 4096, 4096), (4 * 8192, 8192), (6 * 1000, 1000)):
+        x, rng = op.make_inputs(n, tile, cuda)
+        weights = op.make_weights(n_weights, rng, cuda)
+        seed = torch.tensor(0.125, device=cuda)
+        before = op.LAUNCHES
+        out, spill = op.overhead_probe(x, seed, weights, n_views, halo, tile)
+        torch.cuda.synchronize()
+        assert op.LAUNCHES - before == 1
+        ref, ref_spill = op.overhead_probe_plain(x, seed, weights, n_views, halo, tile)
+        assert torch.equal(out, ref) and torch.equal(spill, ref_spill)
+
+
+def test_overhead_probe_rejects_what_it_does_not_take(cuda):
+    from upmix_tpu_torch.ops import overhead_probe as op
+
+    x, rng = op.make_inputs(4 * 1024, 1024, cuda)
+    seed = torch.zeros((), device=cuda)
+    with pytest.raises(ValueError):
+        op.overhead_probe(x.double(), seed.double(), [], 1, 128, 1024)
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        op.overhead_probe(x, seed, [torch.zeros((128, 128), device=cuda).t()[:, :64]], 1, 128, 1024)
+    with pytest.raises(ValueError):  # a length the 16-byte staging cannot take
+        op.overhead_probe(x[..., :-2].contiguous(), seed, [], 1, 128, 1024, n=3 * 1024)

@@ -1,7 +1,8 @@
 """The torch port must run where jax is not installed: importing every
 module of upmix_tpu_torch and running an Upmixer, a BatchUpmixer, a
-ShardedUpmixer on a CPU mesh and a stream pool leaves jax, and every
-module of the JAX package, unimported.
+ShardedUpmixer on a CPU mesh, a stream pool, both probes' plain versions
+and the CLI on a WAV file leaves jax, and every module of the JAX
+package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -15,8 +16,9 @@ from helpers import cpu_child_env
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 import numpy as np
+import torch
 import upmix_tpu_torch
 from upmix_tpu_torch import BatchUpmixer, ShardedUpmixer, UpmixConfig, Upmixer, make_mesh, make_stream_pool
 
@@ -24,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(upmix_tpu_torch.__path__, "upmix_
 for name in names:
     importlib.import_module(name)
 for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
-            "ops.fused", "parallel.sharded", "models.batch"):
+            "ops.fused", "parallel.sharded", "models.batch", "ops.int8_dot", "ops.overhead_probe", "app",
+            "cli", "io.wav", "metrics"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
@@ -42,6 +45,21 @@ for engine in ("cuda", "torch"):
     for _ in range(5):
         out = pool.push_blocks(np.random.default_rng(1).standard_normal((3, 256)), np.ones((3, 256)))
     assert np.isfinite(out[0].numpy()).all() and out[0].abs().max() > 0
+from upmix_tpu_torch import cli
+from upmix_tpu_torch.io import read_wav, write_wav
+from upmix_tpu_torch.ops import int8_dot, overhead_probe
+y = int8_dot.int8_dot_chain(torch.ones((32, 64)), "int8x3", 2, int8_dot.make_consts("int8x3", "cpu", 64))
+assert torch.isfinite(y).all()
+x, rng = overhead_probe.make_inputs(4 * 256, 256, "cpu")
+out, spill = overhead_probe.overhead_probe(x, torch.zeros(()), overhead_probe.make_weights(2, rng, "cpu"), 4, 8, 256)
+assert out.shape == (1, 3, 1024) and not spill.any()
+with tempfile.TemporaryDirectory() as tmp:
+    wav = os.path.join(tmp, "in.wav")
+    write_wav(wav, np.stack([L, 0.5 * L], 1), 8000)
+    assert cli.main([wav, "--out-dir", tmp, "--band-edges", "0,400,1600", "--max-block-size", "512",
+                     "--device", "cpu"]) == 0
+    outs = [f for f in os.listdir(tmp) if f.startswith("in_Sum_")]
+    assert len(outs) == 1 and read_wav(os.path.join(tmp, outs[0]))[0].shape == (3000, 2)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_package = sorted(m for m in sys.modules if m == "upmix_tpu" or m.startswith("upmix_tpu."))

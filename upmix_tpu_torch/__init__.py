@@ -4,7 +4,7 @@ The offline whole-file upmix (one file, a batch of files, or sharded
 over a mesh of devices), block streaming and the multi-stream serving
 pool run here on PyTorch tensors; the JAX package's Pallas
 kernels on these paths are hand-written CUDA kernels for Hopper
-(`csrc/omnibus.cu`, `csrc/pool.cu`).  The layout mirrors `upmix_tpu/`
+(`csrc/*.cu`).  The layout mirrors `upmix_tpu/`
 so each module's counterpart is easy to find:
 
   - config: UpmixConfig / BandSpec / bucket_bands / EPS, the port's own
@@ -23,6 +23,10 @@ so each module's counterpart is easy to find:
     sharding over the devices of one process)
   - models.streaming: StreamingUpmixer, BatchStreamingUpmixer,
     CudaStreamPool, make_stream_pool
+  - ops.int8_dot, ops.overhead_probe: the two measurement probes (the
+    precision rungs of a chained product; the fixed cost of a launch)
+  - app, cli: the offline, streaming, pipe and job-server entry points
+    (`python -m upmix_tpu_torch.cli`); io.wav, metrics, utils.logging
 
 This package never imports jax or anything of the JAX package: the
 machines it runs on need not have them.  Importing it does not import
@@ -30,6 +34,8 @@ torch either; the entry points below load on first use.
 """
 
 from upmix_tpu_torch.config import EPS, BandSpec, UpmixConfig, bucket_bands
+
+__version__ = "0.2.0"
 
 _MODELS = (
     "Upmixer",
@@ -44,7 +50,7 @@ _MODELS = (
     "mix_stereo_sum",
 )
 
-__all__ = ["EPS", "BandSpec", "UpmixConfig", "bucket_bands", *_MODELS]
+__all__ = ["EPS", "BandSpec", "UpmixConfig", "bucket_bands", "__version__", *_MODELS]
 
 
 def __getattr__(name):

@@ -98,8 +98,11 @@ def load() -> ctypes.CDLL:
     lib.pool_inverse.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
     lib.fused_lcr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, p]
+    lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.overhead_probe.argtypes = [p, ll, p, p, i, i, i, i, p, p, i, p]
+    lib.empty_launch.argtypes = [i, i, p]
     for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse, lib.pool_inverse, lib.pool_floor,
-               lib.fused_lcr):
+               lib.fused_lcr, lib.dot_chain, lib.overhead_probe, lib.empty_launch):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
