@@ -6,9 +6,14 @@ Marked `gpu`: skipped where no CUDA device is present.  On a GPU machine
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Small configs cover the kernel's edges that the bench config does not:
-hops below the 64-wide output tile, kept-bin counts that are not
-multiples of the tile, depth splits, and several segments per launch.
+Small configs cover the kernels' edges that the bench config does not:
+blocks from 128 to 65536 points (odd and even powers of two, the
+two-stage split), overlaps 0.5 to 0.875, several segments per launch,
+one band that keeps every bin (a 16384-point frame whose Rs goes alone;
+a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
+32768 bucket split); the bench config covers each of its block sizes,
+256 to 65536.  Launch counts are read from the wrappers'
+`launches_per_bucket`.
 """
 
 import numpy as np
@@ -18,7 +23,12 @@ import torch
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import Upmixer, _plan_buckets, build_offline_fn, plans_from_numpy
 from upmix_tpu_torch.ops import omnibus
-from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch, omnibus_lcr_batch_plain
+from upmix_tpu_torch.ops.omnibus import (
+    launches_per_bucket,
+    make_omnibus_plan,
+    omnibus_lcr_batch,
+    omnibus_lcr_batch_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -42,12 +52,15 @@ CASES = [
     (([0.0, 2000.0], dict(sr=8000.0, max_block_size=512, overlap=0.5)), 1024),
     (([0, 100, 200, 400, 800, 1200, 1600, 2400, 3200], dict(sr=8000.0, max_block_size=1024)), 2048),
     (([0.0, 400.0], dict(sr=8000.0, max_block_size=4096)), 8192),
+    (([0.0, 400.0], dict(sr=8000.0, max_block_size=32768)), 32768),
+    (([0.0], dict(sr=8000.0, max_block_size=16384)), 16384),
+    (([0.0], dict(sr=8000.0, max_block_size=65536)), 65536),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_kernel_matches_plain_float64(cuda, case):
-    # FP32 products against float64 FFTs: ~120 dB in practice; 90 dB bar.
+    # FP32 FFTs against float64 FFTs: ~135 dB in practice; 90 dB bar.
     (edges, kw), chunk = CASES[case]
     cfg = UpmixConfig.make(edges, **kw)
     plan = make_omnibus_plan(plans_from_numpy(_plan_buckets(cfg, chunk), cuda), chunk)
@@ -58,10 +71,31 @@ def test_kernel_matches_plain_float64(cuda, case):
     before = omnibus.LAUNCHES
     got = torch.cat(omnibus_lcr_batch(x, plan), dim=-1)
     torch.cuda.synchronize()
-    assert omnibus.LAUNCHES - before == 3 * len(plan.buckets)
+    assert omnibus.LAUNCHES - before == sum(launches_per_bucket(b.block) for b in plan.buckets)
     ref = torch.cat(omnibus_lcr_batch_plain(x.double(), plan), dim=-1)
     for o in range(3):
         assert _snr(ref[:, o], got[:, o]) > 90.0
+
+
+def test_kernel_each_bench_block_size_and_repeatable(cuda):
+    # Each block size of bench.py's config (256 to 65536, the widest
+    # through the two-stage split) alone and all together, at one 65536
+    # chunk of two segments: >= 80 dB against float64, and two calls give
+    # the same bits (the overlap-add has no atomics).
+    cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0)
+    chunk = 65536
+    plan = make_omnibus_plan(plans_from_numpy(_plan_buckets(cfg, chunk), cuda), chunk)
+    assert sorted(b.block for b in plan.buckets) == [256, 1024, 4096, 16384, 65536]
+    x = torch.randn((2, 2, chunk + plan.halo), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    for sub in [make_omnibus_plan([b], chunk) for b in plan.buckets] + [plan]:
+        xb = x[..., : chunk + sub.halo].contiguous()
+        got = torch.cat(omnibus_lcr_batch(xb, sub), dim=-1)
+        again = torch.cat(omnibus_lcr_batch(xb, sub), dim=-1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        ref = torch.cat(omnibus_lcr_batch_plain(xb.double(), sub), dim=-1)
+        for o in range(3):
+            assert _snr(ref[:, o], got[:, o]) >= 80.0, ([b.block for b in sub.buckets], o)
 
 
 def test_kernel_rejects_float64(cuda):
@@ -97,13 +131,15 @@ POOL_CASES = {
     "h64": (([0.0, 400.0, 1600.0], 8000.0), 256),
     "block_over_hw": (([0.0, 400.0, 1600.0], 8000.0), 128),
     "bela_48k": (([0.0, 500.0, 2000.0, 8000.0], 48000.0), 2048),
+    "hw8192_split": (([0.0, 500.0, 2000.0, 8000.0], 48000.0), 8192),
+    "one_band_every_bin": (([0.0], 8000.0), 4096),
 }
 
 
 @pytest.mark.parametrize("case", list(POOL_CASES))
 @pytest.mark.parametrize("S,hops", [(1, 1), (5, 1), (5, 3)])
 def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
-    # FP32 products against float64 FFTs; mixed t with nonzero carries,
+    # FP32 FFTs against float64 FFTs; mixed t with nonzero carries,
     # stream 0 below the warmup with a carry it must hold.
     from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
@@ -121,7 +157,7 @@ def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
     before = pool.LAUNCHES
     out, new = pool_step_lcr(hist, t, carries, plan, hops)
     torch.cuda.synchronize()
-    assert pool.LAUNCHES - before == 3 * len(plan.buckets)
+    assert pool.LAUNCHES - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     ref, ref_new = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
     assert torch.equal(out == 0, ref == 0)  # not-ready hops are exact zeros
     if bool((ref != 0).any()):  # else no stream was ready: all zeros, checked above
@@ -132,12 +168,44 @@ def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
             assert torch.equal(n[0], c[0])  # stream 0 not ready: carry held
 
 
+@pytest.mark.parametrize("hops", [1, 4])
+def test_pool_kernel_zeros_and_nan_isolation(cuda, hops):
+    # The stream server's config at 64 streams with mixed t and nonzero
+    # carries: >= 80 dB, exact zeros where the plain version has them, and
+    # a NaN in one stream's history leaves every other stream's output and
+    # carries as they were, and finite.
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    S, hw = 64, 2048
+    plan = make_pool_plan(cfg, hw, S, device=cuda)
+    K = plan.warmup
+    rng = np.random.default_rng(40 + hops)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=cuda)
+    t = torch.as_tensor(rng.integers(1, K + 4, S), dtype=torch.int32, device=cuda)
+    carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block)) * 0.1, dtype=torch.float32, device=cuda)
+               for b in plan.buckets]
+    out, new = pool_step_lcr(hist, t, carries, plan, hops)
+    ref, ref_new = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
+    assert bool((ref == 0).any()) and bool((out[ref == 0] == 0).all())
+    assert _snr(ref, out) >= 80.0
+    for r, n in zip(ref_new, new):
+        assert _snr(r, n) >= 80.0
+    bad = hist.clone()
+    bad[7, 1, -100] = float("nan")
+    out_nan, new_nan = pool_step_lcr(bad, t, carries, plan, hops)
+    others = torch.arange(S, device=cuda) != 7
+    assert bool(torch.isfinite(out_nan[others]).all()) and torch.equal(out_nan[others], out[others])
+    for a, b in zip(new_nan, new):
+        assert bool(torch.isfinite(a[others]).all()) and torch.equal(a[others], b[others])
+
+
 @pytest.mark.parametrize("mode", ["copy", "frame"])
 def test_pool_floor_bit_exact(cuda, mode):
     from upmix_tpu_torch.ops.pool import make_pool_plan
     from upmix_tpu_torch.ops.pool_floor import pool_floor, pool_floor_plain
 
-    for (edges, sr), hw in POOL_CASES.values():
+    for (edges, sr), hw in (POOL_CASES[k] for k in ("h64", "block_over_hw", "bela_48k")):  # windows that fit a block
         cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
         plan = make_pool_plan(cfg, hw, 7, device=cuda)
         hist = torch.randn((7, 2, plan.window), device=cuda, generator=torch.Generator(cuda).manual_seed(hw))
@@ -160,7 +228,7 @@ def test_cuda_pool_matches_torch_engine(cuda):
         before = pool.LAUNCHES
         got = torch.stack(pool_.push_blocks(b[:, 0], b[:, 1]))
         want = torch.stack(ref.push_blocks(b[:, 0], b[:, 1]))
-        assert pool.LAUNCHES - before == 2 * 3 * len(pool_.plan.buckets)
+        assert pool.LAUNCHES - before == 2 * sum(pool.launches_per_bucket(b.block) for b in pool_.plan.buckets)
         if t < pool_.warmup_blocks - 1:
             assert torch.all(got == 0)
         assert torch.equal(got, want)
@@ -185,7 +253,7 @@ def test_engines_on_cuda_launch_the_pool_kernel(cuda):
 
     before = pool.LAUNCHES
     got = torch.stack(StreamingUpmixer(cfg, hw, device=cuda).process_signal(x[0, 0], x[0, 1]))
-    assert pool.LAUNCHES - before == 3 * len(plan.buckets)
+    assert pool.LAUNCHES - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     assert torch.equal(got[:, : (K - 1) * hw] == 0, ref[0, :, : (K - 1) * hw] == 0)
     assert _snr(ref[0], got) > 90.0
 
@@ -197,7 +265,7 @@ def test_engines_on_cuda_launch_the_pool_kernel(cuda):
         blk = x[..., i * hw : (i + 1) * hw]
         pushed.append(torch.stack(single.push_block(blk[0, 0], blk[0, 1])))
         batched.append(torch.stack(batch.push_blocks(blk[:, 0], blk[:, 1])))
-    assert pool.LAUNCHES - before == 2 * n * 3 * len(plan.buckets)
+    assert pool.LAUNCHES - before == 2 * n * sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     assert _snr(ref[0], torch.cat(pushed, dim=-1)) > 90.0
     assert _snr(ref.transpose(0, 1), torch.cat(batched, dim=-1)) > 90.0
 
@@ -219,11 +287,11 @@ FUSED_CASES = {
 def test_fused_kernel_matches_plain_float64(cuda, case, S):
     # FP32 products against float64 FFTs: ~120 dB in practice; 90 dB bar.
     from upmix_tpu_torch.ops import fused
-    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain, takes_fused
-    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets
+    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain
+    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
 
     (edges, kw), chunk = FUSED_CASES[case]
-    buckets = [b for b in plans_from_numpy(_plan_seq_buckets(UpmixConfig.make(edges, **kw)), cuda) if takes_fused(b)]
+    _, buckets = route_buckets(plans_from_numpy(_plan_seq_buckets(UpmixConfig.make(edges, **kw)), cuda), chunk)
     assert buckets
     rng = np.random.default_rng(S)
     for b in buckets:
@@ -240,18 +308,21 @@ def test_fused_kernel_matches_plain_float64(cuda, case, S):
 
 def test_sharded_upmixer_launches_both_kernels(cuda):
     # A 2 x 4 mesh on one card: per call one K2 launch per narrow bucket
-    # and three K1 launches per wide bucket; matches the float64 whole-file
+    # and K1's launches per wide bucket; matches the float64 whole-file
     # path and the unsharded Upmixer.
     from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
+    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
 
     cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0)
     su = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 4}, devices=[cuda] * 8))
     x = torch.randn((2, 2, 2**18), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    omni, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), "cpu"), 2**16)
     k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
     y = su.process_batch(x)
     torch.cuda.synchronize()
-    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == (6, 3)
+    want = (sum(launches_per_bucket(b.block) for b in omni.buckets), len(narrow))
+    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == want == (3, 3)
     for i in range(2):
         ref = build_offline_fn(cfg, 2**18, chunk=0, device=cuda)(x[i, 0].double(), x[i, 1].double())
         for o in range(3):
@@ -269,7 +340,7 @@ def test_batch_upmixer_pipelined_on_cuda(cuda):
     bu = BatchUpmixer(cfg, 4096, 2, device=cuda)
     before = omnibus.LAUNCHES
     seq = list(bu.process_files(files))
-    assert omnibus.LAUNCHES - before == 2 * 3 * 2  # two batches, three launches per bucket
+    assert omnibus.LAUNCHES - before == 2 * 2  # two batches, one launch per bucket (512 and 256)
     piped = list(bu.process_files(files, pipeline=True))
     for f, a, b in zip(files, seq, piped):
         np.testing.assert_array_equal(a, b)

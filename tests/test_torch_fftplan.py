@@ -1,0 +1,339 @@
+"""The FFT kernels' factorization (csrc/fft.cuh, omnibus.cu, pool.cu),
+stated in torch float64 from the plans' own tables, against the plain
+versions and the JAX package's two-stage banded transform.
+
+The statement follows the kernels step by step: the radix-2/radix-4
+passes in place with the plans' float32 twiddle tables, bins read at
+their digit-reversed positions, the packed-stereo forward transform and
+its unpacking at the kept bins, the Hermitian packing of C + i Ls (and
+of Rs of two frames) into one inverse, the two-stage split B = N1 x N2
+of the 65536 bucket with its stage-2 sums over the columns and its
+stage-2 rows only where a bin lands, and the pool kernel's gate (frames
+from the first ready hop, the carry added at it).  Only the twiddles'
+rounding to float32 separates it from float64 FFTs: >= 120 dB against
+the plain versions run in float64.  The JAX package's two-stage
+transform runs in float32, so the bar there is 100 dB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import snr_db
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
+from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
+from upmix_tpu.ops.fftmm import irfft_real_banded, make_real_banded_plan, rfft_real_banded
+from upmix_tpu.ops.pallas_omnibus import make_bd_sub
+from upmix_tpu_torch.config import UpmixConfig
+from upmix_tpu_torch.models.offline import _plan_buckets, plans_from_numpy
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, WIDE_N2, digit_positions, pass_twiddles, radices
+from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
+from upmix_tpu_torch.ops.mask import mask_sum
+from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch_plain
+from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr_plain
+
+BENCH = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0, max_block_size=65536))
+POOL = ([0.0, 500.0, 2000.0, 8000.0], dict(sr=48000.0, hw_block_size=2048))
+CHUNK = 65536  # the smallest chunk of the bench config (the LCM of its blocks)
+
+
+def _csnr(ref, got) -> float:
+    ref, got = np.asarray(ref), np.asarray(got)
+    return snr_db(np.concatenate([ref.real, ref.imag]), np.concatenate([got.real, got.imag]))
+
+
+def _cplx(table) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(table), dtype=torch.float64)
+    return torch.complex(t[:, 0], t[:, 1])
+
+
+def _passes(n: int):
+    """(radix, span L, offset into pass_twiddles) of each forward pass."""
+    out, L, off = [], n, 0
+    for r in radices(n):
+        out.append((r, L, off))
+        off += (r - 1) * (L // r)
+        L //= r
+    return out
+
+
+def fft_forward(z: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """csrc/fft.cuh::fft_forward over the last axis: in place, bins left
+    digit-reversed."""
+    n = z.shape[-1]
+    for r, L, off in _passes(n):
+        M = L // r
+        x = z.reshape(*z.shape[:-1], n // L, r, M)
+        if r == 2:
+            a, b = x[..., 0, :], x[..., 1, :]
+            y = [a + b, (a - b) * tw[off : off + M]]
+        else:
+            s02, d02 = x[..., 0, :] + x[..., 2, :], x[..., 0, :] - x[..., 2, :]
+            s13, d13 = x[..., 1, :] + x[..., 3, :], x[..., 1, :] - x[..., 3, :]
+            y = [s02 + s13, (d02 - 1j * d13) * tw[off : off + M],
+                 (s02 - s13) * tw[off + M : off + 2 * M], (d02 + 1j * d13) * tw[off + 2 * M : off + 3 * M]]
+        z = torch.stack(y, dim=-2).reshape(z.shape)
+    return z
+
+
+def fft_inverse(z: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """csrc/fft.cuh::fft_inverse: the forward passes undone in reverse
+    order with conjugate twiddles, unnormalised; bins in digit-reversed
+    order, samples out in natural order."""
+    n = z.shape[-1]
+    for r, L, off in reversed(_passes(n)):
+        M = L // r
+        x = z.reshape(*z.shape[:-1], n // L, r, M)
+        if r == 2:
+            a, b = x[..., 0, :], x[..., 1, :] * tw[off : off + M].conj()
+            y = [a + b, a - b]
+        else:
+            y0 = x[..., 0, :]
+            y1, y2, y3 = (x[..., k, :] * tw[off + (k - 1) * M : off + k * M].conj() for k in (1, 2, 3))
+            s02, d02, s13, d13 = y0 + y2, y0 - y2, y1 + y3, y1 - y3
+            y = [s02 + s13, d02 + 1j * d13, s02 - s13, d02 - 1j * d13]
+        z = torch.stack(y, dim=-2).reshape(z.shape)
+    return z
+
+
+def hermitian(u: torch.Tensor, v: torch.Tensor, B: int, lo: int) -> torch.Tensor:
+    """Full spectra [..., B] of two real outputs packed as u + i v, from
+    their kept bins [..., K] (only the real parts at DC and Nyquist)."""
+    K = u.shape[-1]
+    k = torch.arange(lo, lo + K)
+    edge = (k == 0) | (2 * k == B)
+    w = torch.zeros((*u.shape[:-1], B), dtype=torch.complex128)
+    w[..., k] = torch.where(edge, torch.complex(u.real, v.real), u + 1j * v)
+    mid = ~edge
+    w[..., B - k[mid]] = u[..., mid].conj() + 1j * v[..., mid].conj()
+    return w
+
+
+def unpack_mask(Z: torch.Tensor, Zm: torch.Tensor, gains: torch.Tensor):
+    """L and R at the kept bins from the packed spectrum, through the mask:
+    (C, Ls, Rs) complex [..., K]."""
+    XL = (Z + Zm.conj()) / 2
+    XR = (Z - Zm.conj()) / 2j
+    c_re, c_im, l_re, l_im, r_re, r_im = mask_sum(XL.real, XL.imag, XR.real, XR.imag, gains)
+    return torch.complex(c_re, c_im), torch.complex(l_re, l_im), torch.complex(r_re, r_im)
+
+
+def pair_rs(rs: torch.Tensor) -> torch.Tensor:
+    """Rs of frames 2j and 2j + 1 as (u, v) of one transform; an odd last
+    frame goes alone.  rs: [S, F, K] -> ([S, ceil(F/2), K] twice)."""
+    F = rs.shape[1]
+    if F % 2:
+        rs = torch.cat([rs, torch.zeros_like(rs[:, :1])], dim=1)
+    return rs[:, 0::2], rs[:, 1::2]
+
+
+def unpair(y: torch.Tensor, F: int) -> torch.Tensor:
+    """The real outputs of pair_rs's transforms: [S, ceil(F/2), B] -> [S, F, B]."""
+    return torch.stack([y.real, y.imag], dim=2).flatten(1, 2)[:, :F]
+
+
+def single_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
+    """Windowed inverse frames [S, 3, F, B] of one bucket (B <= FFT_MAX)
+    from frames [S, 2, F, B], as omnibus.cu and pool.cu compute them."""
+    B, K, lo = b.block, b.kept, b.lo
+    tw = _cplx(b.twiddles)
+    pos = torch.as_tensor(digit_positions(B))
+    k = torch.arange(lo, lo + K)
+    aw, sw = b.analysis_window.double(), b.synthesis_window.double()
+    Z = fft_forward(torch.complex(frames[:, 0] * aw, frames[:, 1] * aw), tw)
+    c, ls, rs = unpack_mask(Z[..., pos[k]], Z[..., pos[(B - k) % B]], b.gains.double())
+    F = frames.shape[2]
+
+    def inverse(u, v):
+        w = torch.zeros((*u.shape[:-1], B), dtype=torch.complex128)
+        w[..., pos] = hermitian(u, v, B, lo)
+        return fft_inverse(w, tw) * (sw / B)
+
+    y01 = inverse(c, ls)
+    y2 = unpair(inverse(*pair_rs(rs)), F)
+    return torch.stack([y01.real, y01.imag, y2], dim=1)
+
+
+def two_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
+    """The same for a bucket over FFT_MAX through the two-stage split."""
+    B, K, lo, w = b.block, b.kept, b.lo, b.wide
+    n1, n2 = w.n1, WIDE_N2
+    tw1, twB = _cplx(b.twiddles), _cplx(w.stage2)
+    pos1 = torch.as_tensor(digit_positions(n1))
+    aw, sw = b.analysis_window.double(), b.synthesis_window.double()
+    z = torch.complex(frames[:, 0] * aw, frames[:, 1] * aw)  # [S, F, B]
+    cols = z.unflatten(-1, (n1, n2)).transpose(-1, -2)  # [S, F, b, a]: z[a * N2 + b]
+    A = fft_forward(cols, tw1)  # column b's N1-point FFT, rows digit-reversed
+    bvec = torch.arange(n2)
+
+    def bin_value(kk):  # sum_b A[kk mod N1, b] w_B^(kk b): launch 1's partials, summed
+        return (A[..., pos1[kk % n1]] * twB[(kk[None, :] * bvec[:, None]) % B]).sum(dim=-2)
+
+    k = torch.arange(lo, lo + K)
+    c, ls, rs = unpack_mask(bin_value(k), bin_value((B - k) % B), b.gains.double())
+    rows, ptr, ent = (t.tolist() for t in (w.rows, w.row_ptr, w.entries))
+
+    def inverse(u, v):
+        U = torch.zeros((*u.shape[:-1], n2, n1), dtype=torch.complex128)
+        for r, row in enumerate(rows):  # stage 2 backwards, only where a bin lands, a tile of bins at a time
+            acc = 0
+            for e in ent[ptr[r] : ptr[r + 1]]:
+                j, mirror = e >> 1, e & 1
+                kk = lo + j
+                edge = kk == 0 or 2 * kk == B
+                if edge:
+                    val = torch.complex(u[..., j].real, v[..., j].real)
+                elif mirror:
+                    val, kk = u[..., j].conj() + 1j * v[..., j].conj(), B - kk
+                else:
+                    val = u[..., j] + 1j * v[..., j]
+                acc = acc + val[..., None] * twB[(kk * bvec) % B].conj()
+            U[..., :, pos1[row]] += acc
+        y = fft_inverse(U, tw1).transpose(-1, -2).flatten(-2)  # sample a * N2 + b
+        return y * (sw / B)
+
+    y01 = inverse(c, ls)
+    y2 = unpair(inverse(*pair_rs(rs)), frames.shape[2])
+    return torch.stack([y01.real, y01.imag, y2], dim=1)
+
+
+def bucket_frames(frames, b):
+    return single_stage_frames(frames, b) if b.block <= FFT_MAX else two_stage_frames(frames, b)
+
+
+@pytest.fixture(scope="module")
+def bench_plan():
+    cfg = UpmixConfig.make(BENCH[0], **BENCH[1])
+    return make_omnibus_plan(plans_from_numpy(_plan_buckets(cfg, CHUNK), "cpu"), CHUNK)
+
+
+def test_positions_and_tables():
+    # fft_forward is a DFT with bins at digit_positions; fft_inverse is its
+    # inverse times n, with the float32 tables.
+    rng = np.random.default_rng(0)
+    for n in (2, 4, 8, 32, 128, 512, 2048):
+        z = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        tw = _cplx(pass_twiddles(n))
+        Z = fft_forward(z, tw)
+        pos = torch.as_tensor(digit_positions(n))
+        assert sorted(pos.tolist()) == list(range(n))
+        assert _csnr(torch.fft.fft(z).numpy(), Z[pos].numpy()) > 135
+        assert _csnr(z.numpy() * n, fft_inverse(Z, tw).numpy()) > 135
+        assert pass_twiddles(n).dtype == np.float32
+
+
+@pytest.mark.parametrize("block", [256, 1024, 4096, 16384, 65536])
+def test_factorization_matches_plain_offline(bench_plan, block):
+    # Every bucket of bench.py's config, the 65536 one through the
+    # two-stage split, against omnibus_lcr_batch_plain in float64.
+    (b,) = [b for b in bench_plan.buckets if b.block == block]
+    _check_offline_bucket(b, CHUNK, 2, block)
+
+
+def test_factorization_tiled_split():
+    # A split bucket whose inverse takes its kept bins in several tiles of
+    # fftplan.WIDE_KT (a first band to 400 Hz at 8 kHz and 32768 points:
+    # K = 2049), against the plain version in float64.
+    cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=32768)
+    (b,) = [b for b in plans_from_numpy(_plan_buckets(cfg, 32768), "cpu") if b is not None and b.block == 32768]
+    assert b.kept == 2049 and b.wide.tiles == 5
+    _check_offline_bucket(b, 32768, 1, 3)
+
+
+def _check_offline_bucket(b, chunk: int, S: int, seed: int) -> None:
+    sub = make_omnibus_plan([b], chunk)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((S, 2, chunk + b.spill)))
+    F = chunk // b.hop
+    rec = bucket_frames(frame_signal(x[..., : chunk + b.spill], b.block, b.hop, F), b)
+    got = overlap_add(rec, b.hop)
+    ref = torch.cat(omnibus_lcr_batch_plain(x, sub), dim=-1)
+    for o in range(3):
+        assert snr_db(ref[:, o].numpy(), got[:, o].numpy()) >= 120.0, (b.block, o)
+
+
+@pytest.mark.parametrize("hw", [2048, 8192])
+@pytest.mark.parametrize("hops", [1, 3])
+def test_factorization_matches_plain_pool(hops, hw):
+    # The pool's buckets with the pool kernel's gate: frames from the first
+    # ready hop i0 on, the carry added at i0 * hw; positions past hops * hw
+    # are the new carry.  At hw 8192 the 32768 bucket takes the two-stage
+    # split.
+    cfg = UpmixConfig.streaming(POOL[0], sr=POOL[1]["sr"], hw_block_size=hw)
+    S = 4
+    plan = make_pool_plan(cfg, hw, S, device="cpu")
+    K = plan.warmup
+    rng = np.random.default_rng(hops)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)))
+    t = torch.tensor([1, K - 1, K, K + 3], dtype=torch.int32)
+    carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block))) for b in plan.buckets]
+    ref, ref_c = pool_step_lcr_plain(hist, t, carries, plan, hops)
+    i0 = (K - t).clamp(0, hops)
+    out = torch.zeros((S, 3, hops * hw), dtype=torch.float64)
+    for b, carry, rc in zip(plan.buckets, carries, ref_c):
+        F = hops * b.passes
+        frames = frame_signal(hist[..., : (F - 1) * b.hop + b.block], b.block, b.hop, F)
+        ready = (torch.arange(F)[None, :] >= (i0 * b.passes)[:, None])[:, None, :, None]
+        rec = bucket_frames(torch.where(ready, frames, 0.0), b) * ready  # not-ready frames: zeros
+        acc = torch.nn.functional.pad(overlap_add(rec, b.hop), (0, b.hop))  # [S, 3, hops * hw + B]
+        for s in range(S):
+            c0 = int(i0[s]) * hw
+            acc[s, :, c0 : c0 + b.block] += carry[s]
+        out += acc[..., : hops * hw]
+        assert snr_db(rc.numpy(), acc[..., hops * hw :].numpy()) >= 120.0
+    assert torch.equal(out == 0, ref == 0)
+    assert snr_db(ref.numpy(), out.numpy()) >= 120.0
+
+
+def test_two_stage_split_matches_jax_banded():
+    # The 65536 bucket: the row count of the JAX kernel's stage-1
+    # restriction, and the split's forward and inverse against
+    # fftmm.rfft_real_banded / irfft_real_banded (float32) on one channel.
+    jcfg = JaxUpmixConfig.make(BENCH[0], **BENCH[1])
+    (jp,) = [p for p in jax_plan_buckets(jcfg, CHUNK) if p.block_size == 65536]
+    (b,) = plans_from_numpy([jp], "cpu")
+    w = b.wide
+    assert (w.n1, b.block // w.n1) == (65536 // 128, 128)
+    positive = {w.rows[r].item() for r in range(len(w.rows))
+                for e in w.entries[w.row_ptr[r] : w.row_ptr[r + 1]].tolist() if not e & 1}
+    R = make_bd_sub(jp, 1, (0,)).R
+    assert -(-(max(positive) + 1) // 8) * 8 == R
+
+    rng = np.random.default_rng(7)
+    xl = rng.standard_normal(b.block)
+    frames = torch.as_tensor(np.stack([xl, np.zeros_like(xl)]))[None, :, None, :]  # [1, 2, 1, B]
+    lo, hi = b.lo, b.lo + b.kept - 1
+    rp = make_real_banded_plan(b.block, lo, hi, n1=w.n1)
+    jre, jim = rfft_real_banded((xl * jp.analysis_window).astype(np.float32), rp)
+    bins = np.arange(rp.n1)[:, None] + rp.n1 * np.asarray(rp.cols)[None, :]
+    keep = (bins >= lo) & (bins <= hi)
+    jax_x = (np.asarray(jre, np.float64) + 1j * np.asarray(jim, np.float64))[keep][np.argsort(bins[keep])]
+
+    # Forward: the split's L spectrum at the kept bins (R = 0, so X_L = Z).
+    z = torch.complex(frames[:, 0] * b.analysis_window.double(), frames[:, 1])
+    A = fft_forward(z.unflatten(-1, (w.n1, WIDE_N2)).transpose(-1, -2), _cplx(b.twiddles))
+    k = torch.arange(lo, hi + 1)
+    pos1 = torch.as_tensor(digit_positions(w.n1))
+    twB = _cplx(w.stage2)
+    got = (A[..., pos1[k % w.n1]] * twB[(k[None, :] * torch.arange(WIDE_N2)[:, None]) % b.block]).sum(-2)
+    assert _csnr(jax_x, got[0, 0].numpy()) >= 100.0
+
+    # Inverse: one real output from those bins through the split (unwindowed)
+    # against irfft_real_banded of the same half spectrum.
+    half = np.zeros((rp.n1, len(rp.cols)), np.complex128)
+    half[keep] = jax_x[np.argsort(np.argsort(bins[keep]))]
+    y_jax = np.asarray(irfft_real_banded(half.real.astype(np.float32), half.imag.astype(np.float32), rp))
+    u = torch.as_tensor(jax_x)[None, None]
+    zero = torch.zeros_like(u)
+    U = torch.zeros((1, 1, WIDE_N2, w.n1), dtype=torch.complex128)
+    full = hermitian(u, zero, b.block, lo)[0, 0]
+    bvec = torch.arange(WIDE_N2)
+    for r, row in enumerate(w.rows.tolist()):
+        acc = 0
+        for e in w.entries[w.row_ptr[r] : w.row_ptr[r + 1]].tolist():
+            kk = lo + (e >> 1)
+            kk = b.block - kk if e & 1 and 0 < kk < b.block // 2 else kk
+            acc = acc + full[kk] * twB[(kk * bvec) % b.block].conj()
+        U[0, 0, :, pos1[row]] += acc
+    y = (fft_inverse(U, _cplx(b.twiddles)).transpose(-1, -2).flatten(-2) / b.block).real[0, 0]
+    assert snr_db(y_jax, y.numpy()) >= 100.0

@@ -20,6 +20,7 @@ from upmix_tpu.ops.pallas_pool import pool_step_lcr as jax_pool_step_lcr
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.streaming import CudaStreamPool
 from upmix_tpu_torch.ops import pool
+from upmix_tpu_torch.ops.fftplan import pass_twiddles
 from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor, pool_floor_plain
 
@@ -274,7 +275,8 @@ def test_plan_declines_only_what_it_cannot_run():
     for S in (1, 5, 13):  # no group rule
         plan = make_pool_plan(cfg, HW, S, device="cpu")
         assert plan.n_streams == S and plan.window == 4 * HW
-        assert all(b.w_fwd is None for b in plan.buckets)  # weights only for the kernel
+        for b in plan.buckets:  # the FFT kernel's twiddles; no direct-DFT weights
+            assert torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block))) and not hasattr(b, "w_fwd")
     assert make_pool_plan(cfg, 100, 8, device="cpu") is None  # hop does not divide hw
     mixed = UpmixConfig(sr=8000.0, bands=(
         UpmixConfig.make([0.0], sr=8000.0, max_block_size=512).bands[0],

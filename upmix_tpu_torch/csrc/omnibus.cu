@@ -1,251 +1,87 @@
-// Omnibus offline upmix for Hopper (sm_90a): every bucket of a config,
-// framing -> windowed banded DFT -> gain x center mask summed over bands
-// -> inverse with the synthesis window -> overlap-add, merged into one
-// [S, 3, chunk + halo] output.
+// Omnibus offline upmix for Hopper (sm_90a), one bucket per launch (two
+// over 16384 points): framing -> windowed FFT -> gain x center mask summed
+// over bands -> inverse FFTs with the synthesis window -> overlap-add, into
+// one [S, 3, chunk + halo] output that every bucket of a config adds into.
 //
 // Replaces upmix_tpu/ops/pallas_omnibus.py::omnibus_lcr_batch (the TPU
 // kernel of the offline main path).  What it computes is the same; how is
 // thought through again for the card:
 //
-//   * Transform: the direct banded DFT for every bucket.  Each bucket keeps
-//     K bins, so forward and inverse are real products against the
-//     precomputed weight slices of ops/dftmm.py ([B, 2K] with the analysis
-//     window folded in, [2K, B] with the synthesis window, 2/N and the
-//     DC/Nyquist halves folded in).  10 * (chunk/H) * B * K multiply-adds
-//     per bucket: about 7.5e10 for the 6-band 44.1 kHz config per 2^21
-//     samples.
-//   * Bound: FP32 FMA throughput of the two products (about 70 FMAs per
-//     byte of weights and signal read); memory only for the small mask pass
-//     and the output.  Products run as FP32 FMA on the SIMT cores, never
-//     TF32 (about three decimal digits, below the 60 dB bar).
-//   * Design: three launches per bucket, all on the caller's stream.
-//       1. forward_kernel: a 64x64x16 shared-memory tiled GEMM with
-//          implicit framing (row (s, ch, f) reads x[s, ch, f*H + n]
-//          directly, no frame tensor) and a split over the block length
-//          when the bucket has too few output tiles to fill the SMs.
-//          Each split writes its own partial: no atomics.
-//       2. mask_kernel: sums the partials in a fixed order, then per band
-//          gain -> mask -> band sum (ops/mask.py::mask_sum line for line).
-//       3. inverse_kernel: the same tiled GEMM, with the overlap-add folded
-//          into the product: output sample q*H + r of bucket b is
-//          sum_g sum_j spec[q - g, j] * w_inv[j, g*H + r], so each output
-//          element is owned by one thread (no atomics) and the B/H frames
-//          that cover it are summed inside the dot product.  Buckets add
-//          into the output in a fixed launch order (the widest spill first,
-//          which stores instead of adding), so the result is deterministic
-//          run to run.
+//   * Work: the function's own algorithm, FP32 FFTs in shared memory
+//     (fft.cuh): per frame one packed-stereo forward FFT and 1.5
+//     Hermitian-packed inverse FFTs (2 when a frame's Rs goes alone).  The
+//     bench config does about 6.3e9 FLOP of FFTs per 2^21-sample chunk.
+//   * Bound: by operations, 6.29e9 FLOP of FFTs per chunk (0.094 ms at
+//     the FP32 peak); the bytes (x read, y written) take a seventh of
+//     that.  The FFT passes are bound by shared-memory traffic, a radix-4
+//     butterfly reading and writing its four values once per pass, so
+//     the design keeps a frame's whole path on chip: the forward FFT, the
+//     mask (mask.cuh, the one statement of the mask on the card) and the
+//     inverse of a frame never leave shared memory; device memory sees x
+//     once and y's overlap-add.
+//   * The kernels are fft.cuh's, with OmniSink as the epilogue: a thread
+//     block owns T output hops of one segment (ops/omnibus.py::
+//     launch_geometry picks T and the G frames a pass), the first bucket
+//     of a plan zeroes its span, the others add, in the plan's fixed
+//     launch order.  Buckets over 16384 points take the two-stage split,
+//     two launches, its partials in `part`.
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
-#include "mask.cuh"
-#include "tile.cuh"
+#include "fft.cuh"
 
 namespace {
 
-// part[z, m, n] = sum_{k in split z} x[m / F, (m % F) * H + k] * w[k, n]
-// m = (s * 2 + ch) * F + f over M = S * 2 * F rows; n < N = 2K.
-__global__ void __launch_bounds__(THREADS)
-forward_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ part,
-               int M, int N, int F, int H, int B, long long x_row, int depth) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Ws[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * depth;
-  const int k_end = min(B, k_begin + depth);
+// Rows y [S, 3, width]: zeroed (accumulate = 0) or added into.
+struct OmniSink {
+  float* y;
+  long long width;
+  int accumulate;
 
-  // Loads: A as 4 rows x 1 column per thread, W as 4 depth rows x 1 column.
-  const int a_col = tid & (BK - 1);
-  const int a_row = tid / BK;  // 0..15, plus 16 * i
-  const float* a_ptr[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_row + 16 * i;
-    a_ok[i] = m < M;
-    const int mm = a_ok[i] ? m : 0;
-    a_ptr[i] = x + (long long)(mm / F) * x_row + (long long)(mm % F) * H;
-  }
-  const int w_col = tid & (BN - 1);
-  const int w_row = tid / BN;  // 0..3, plus 4 * i
-  const int n = n0 + w_col;
-  const bool w_ok = n < N;
+  __device__ int first_frame(int) const { return 0; }
 
-  float acc[TM][TN] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + a_col;
-      As[a_col][a_row + 16 * i] = (a_ok[i] && k < k_end) ? a_ptr[i][k] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = w_row + 4 * i;
-      const int k = k0 + kr;
-      Ws[kr][w_col] = (w_ok && k < k_end) ? w[(long long)k * N + n] : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Ws, acc, tid / (BN / TN), tid % (BN / TN));
-    __syncthreads();
+  __device__ void init(int s, long long p) const {
+    if (accumulate) return;
+    float* r = y + (long long)s * 3 * width + p;
+    r[0] = 0.f;
+    r[width] = 0.f;
+    r[2 * width] = 0.f;
   }
 
-  float* out = part + (long long)blockIdx.z * M * N;
-  const int r0 = m0 + (tid / (BN / TN)) * TM;
-  const int c0 = n0 + (tid % (BN / TN)) * TN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (r0 + i >= M) break;
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      if (c0 + j < N) out[(long long)(r0 + i) * N + c0 + j] = acc[i][j];
-  }
-}
-
-// spec[s, o, f, :] = masked, band-summed (re | im) of output o (C, Ls, Rs)
-// from the forward partials of frame f: per band gain -> mask -> sum
-// (mask.cuh, exactly ops/mask.py::mask_sum).
-__global__ void __launch_bounds__(THREADS)
-mask_kernel(const float* __restrict__ part, const float* __restrict__ gains, float* __restrict__ spec,
-            int S, int F, int K, int nb, int P) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)S * F * K) return;
-  const int j = (int)(idx % K);
-  const long long sf = idx / K;
-  const int f = (int)(sf % F);
-  const long long s = sf / F;
-  const int N = 2 * K;
-  const long long M = 2LL * S * F;
-  const long long row_l = (2 * s) * F + f;
-  const long long row_r = (2 * s + 1) * F + f;
-
-  float lre = 0.f, lim = 0.f, rre = 0.f, rim = 0.f;
-  for (int p = 0; p < P; ++p) {  // fixed order: deterministic
-    const float* pp = part + (long long)p * M * N;
-    lre += pp[row_l * N + j];
-    lim += pp[row_l * N + K + j];
-    rre += pp[row_r * N + j];
-    rim += pp[row_r * N + K + j];
-  }
-
-  float m[6];
-  mask_sum_bin(lre, lim, rre, rim, gains, K, nb, j, m);
-  float* out = spec + ((3 * s) * F + f) * N + j;
-  const long long o_stride = (long long)F * N;
-  out[0] = m[0];
-  out[K] = m[1];
-  out[o_stride] = m[2];
-  out[o_stride + K] = m[3];
-  out[2 * o_stride] = m[4];
-  out[2 * o_stride + K] = m[5];
-}
-
-// y[so, q*H + r] (+)= sum_{g < B/H} sum_{j < N2} spec[so, q - g, j] * w_inv[j, g*H + r]
-// over rows m = so * Fq + q (so = s * 3 + o, Fq = F + B/H - 1) and r < H:
-// the inverse product and the overlap-add in one.
-__global__ void __launch_bounds__(THREADS)
-inverse_kernel(const float* __restrict__ spec, const float* __restrict__ w_inv, float* __restrict__ y,
-               int S, int F, int H, int B, int N2, long long y_row, int accumulate) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Ws[BK][BN + 4];
-  const int Kf = B / H;
-  const int Fq = F + Kf - 1;
-  const int M = S * 3 * Fq;
-  const int D = Kf * N2;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  const int a_col = tid & (BK - 1);
-  const int a_row = tid / BK;
-  const float* a_base[4];
-  int a_q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_row + 16 * i;
-    const int mm = m < M ? m : 0;
-    a_base[i] = spec + (long long)(mm / Fq) * F * N2;
-    a_q[i] = m < M ? mm % Fq : -F - Kf;  // out of range: every f < 0
-  }
-  const int w_col = tid & (BN - 1);
-  const int w_row = tid / BN;
-  const int r = n0 + w_col;
-  const bool w_ok = r < H;
-
-  float acc[TM][TN] = {};
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    {
-      const int kk = k0 + a_col;
-      const int g = kk / N2;
-      const int j = kk - g * N2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int f = a_q[i] - g;
-        As[a_col][a_row + 16 * i] =
-            (kk < D && f >= 0 && f < F) ? a_base[i][(long long)f * N2 + j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = w_row + 4 * i;
-      const int kk = k0 + kr;
-      const int g = kk / N2;
-      const int j = kk - g * N2;
-      Ws[kr][w_col] = (w_ok && kk < D) ? w_inv[(long long)j * B + g * H + r] : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Ws, acc, tid / (BN / TN), tid % (BN / TN));
-    __syncthreads();
-  }
-
-  const int row0 = m0 + (tid / (BN / TN)) * TM;
-  const int col0 = n0 + (tid % (BN / TN)) * TN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = row0 + i;
-    if (m >= M) break;
-    float* yrow = y + (long long)(m / Fq) * y_row + (long long)(m % Fq) * H;
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int c = col0 + jj;
-      if (c >= H) continue;
-      yrow[c] = accumulate ? yrow[c] + acc[i][jj] : acc[i][jj];
-    }
-  }
-}
+  __device__ float* at(int s, int o, long long p) const { return y + ((long long)s * 3 + o) * width + p; }
+};
 
 }  // namespace
 
 extern "C" {
 
-// part: [splits, M, N] with M = S * 2 * F rows of x [S, 2, x_row].
-int omni_forward(const float* x, const float* w_fwd, float* part, int M, int N, int F, int H,
-                 int B, long long x_row, int splits, void* stream) {
-  int depth = cdiv(B, splits);
-  depth = cdiv(depth, BK) * BK;
-  const dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
-  forward_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(x, w_fwd, part, M, N, F, H, B,
-                                                              x_row, depth);
-  return (int)cudaGetLastError();
+// y: [S, 3, width]; writes (accumulate = 0) or adds into y[..., :F*H + B - H]
+// from x [S, 2, width]; T hops per block, G frames a pass.
+int omni_bucket(const float* x, float* y, const float* aw, const float* sw, const float* gains, const float* tw,
+                int S, int B, int H, int K, int lo, int nb, int F, int T, int G, int pair, long long width,
+                int accumulate, void* stream) {
+  return launch_frames(x, width, OmniSink{y, width, accumulate}, bucket_args(aw, sw, gains, tw, B, H, K, lo, nb), S,
+                       F, F + B / H - 1, T, G, pair, stream);
 }
 
-// spec: [S, 3, F, 2K] from part [P, S * 2 * F, 2K] and gains [nb, K].
-int omni_mask(const float* part, const float* gains, float* spec, int S, int F, int K, int nb,
-              int P, void* stream) {
-  const long long total = (long long)S * F * K;
-  mask_kernel<<<cdiv(total, THREADS), THREADS, 0, (cudaStream_t)stream>>>(part, gains, spec, S,
-                                                                          F, K, nb, P);
-  return (int)cudaGetLastError();
+// part: [S, F, N2 / cols, 2K] complex from x [S, 2, width].
+int omni_wide_forward(const float* x, float* part, const float* aw, const float* tw1, const float* stage2, int S,
+                      int B, int H, int K, int lo, int n1, int cols, int F, long long width, void* stream) {
+  const WideArgs w{reinterpret_cast<const float2*>(tw1), reinterpret_cast<const float2*>(stage2),
+                   nullptr, nullptr, nullptr, nullptr, n1, cols, 0, 0};
+  return launch_wide_forward(x, width, part, OmniSink{nullptr, width, 1},
+                             bucket_args(aw, nullptr, nullptr, tw1, B, H, K, lo, 0), w, S, F, stream);
 }
 
-// y: [S, 3, y_row]; writes (accumulate = 0) or adds into y[..., :F*H + B - H].
-int omni_inverse(const float* spec, const float* w_inv, float* y, int S, int F, int H, int B,
-                 int N2, long long y_row, int accumulate, void* stream) {
-  const long long M = (long long)S * 3 * (F + B / H - 1);
-  const dim3 grid(cdiv(M, BM), cdiv(H, BN), 1);
-  inverse_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(spec, w_inv, y, S, F, H, B, N2,
-                                                              y_row, accumulate);
-  return (int)cudaGetLastError();
+// y: [S, 3, width], written (accumulate = 0) or added into, from part.
+int omni_wide_inverse(const float* part, float* y, const float* sw, const float* gains, const float* tw1,
+                      const float* stage2, const int* rows, const int* row_ptr, const int* entries,
+                      const int* tile_ptr, int n_tiles, int kt, int S, int B, int H, int K, int lo, int nb, int n1,
+                      int cols, int F, int T, long long width, int accumulate, void* stream) {
+  const WideArgs w{reinterpret_cast<const float2*>(tw1), reinterpret_cast<const float2*>(stage2),
+                   rows, row_ptr, entries, tile_ptr, n1, cols, n_tiles, kt};
+  return launch_wide_inverse(part, OmniSink{y, width, accumulate}, bucket_args(nullptr, sw, gains, tw1, B, H, K, lo, nb),
+                             w, S, F, F + B / H - 1, T, stream);
 }
 
 }  // extern "C"

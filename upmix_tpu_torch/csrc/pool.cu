@@ -2,42 +2,40 @@
 // blocks, for every stream at once, with per-stream warmup gating and the
 // per-bucket overlap-add carries.  Plus the pool's floor probe.
 //
-// pool_inverse replaces, with omnibus.cu's forward and mask kernels, the
-// TPU kernel upmix_tpu/ops/pallas_pool.py::pool_step_lcr (body
-// _build_pool_kernel).  What it computes is the same; how is thought
-// through again for the card:
+// The pool step replaces the TPU kernel
+// upmix_tpu/ops/pallas_pool.py::pool_step_lcr (body _build_pool_kernel).
+// What it computes is the same; how is thought through again for the card:
 //
 //   * Per bucket (block B, hop H, P = hw/H frames per block, K kept bins)
 //     and stream, F = hops * P frames of the history [S, 2, (nq-1+hops)*hw]
-//     go through the direct banded DFT: the forward product is
-//     omnibus.cu's forward_kernel (implicit framing: frame f of row
-//     (s, ch) starts at f*H, so over hops this is the omnibus step with
-//     chunk = hops*hw), the mask is omnibus.cu's mask_kernel.  Work: 10 *
-//     P * B * K multiply-adds per stream, bucket and block (4.67e7 for the
-//     48 kHz / 2048 Bela config), 1.9e11 FLOP per block at 2048 streams.
-//   * Bound: FP32 FMA throughput of the two products (2.85 ms per block
-//     at 2048 streams at 67 TFLOP/s); the bytes (history 134 MB, carries
-//     333 MB read and written, outputs 50 MB) take about 0.25 ms at
-//     3.35 TB/s.
-//     Products are FP32 FMA on the SIMT cores, never TF32.
-//   * Design of pool_inverse_kernel: the inverse product, the overlap-add,
-//     the carry and the gate in one launch per bucket.  Output position
-//     n = q*H + r (q < F + B/H) of row (s, o) is
-//         sum_{g < B/H, f = q - g, f0 <= f < F} spec[s, o, f] . w_inv[:, g*H + r]
-//       + carry[s, o, n - i0*hw]   (when 0 <= n - i0*hw < B)
+//     (frame f at f*H) go through fft.cuh's kernels (packed-stereo FFT,
+//     mask.cuh's mask, Hermitian-packed inverse FFTs) with PoolSink as the
+//     epilogue: frames_kernel, one thread block per stream, G frames a pass
+//     in shared memory, up to 16384 points; the two-stage split in two
+//     launches over that (a hardware block of 8192 or more samples).
+//   * Bound: by bytes, 0.852 GB per block at 2048 streams for the 48 kHz /
+//     2048 Bela config (history read, carries read and written, outputs
+//     written: 0.254 ms at 3.35 TB/s); its FFTs are 9.02e9 FLOP (0.135 ms
+//     at the FP32 peak).  So nothing but those bytes goes through device
+//     memory: a frame's spectra stay in shared memory from the forward
+//     FFT to the inverse, and one launch per bucket does the overlap-add,
+//     the carry and the gate (a split bucket's partial spectra alone go
+//     through device memory, between its two launches).
+//   * A stream's output positions n (q*H + r, q < F + B/H) take
+//         carry[s, o, n - i0*hw]   (when 0 <= n - i0*hw < B)
+//       + sum_{frames f0 <= f < F covering n} frame_f[n - f*H]
 //     where i0 = clamp(warmup - t[s], 0, hops) is the first ready hop and
 //     f0 = i0 * P its first frame.  Positions n < hops*hw are the output
-//     (zero below i0*hw), the rest the new carry (the carry as it was
-//     when no hop is ready).  Not-ready hops come first in a call, since
-//     t + i grows, so this equals hop-by-hop gating with the carry
-//     chained, and a carry loaded with t < warmup waits for the first
-//     ready hop.  Frames of not-ready hops are skipped by a select, never
-//     multiplied by zero, so a NaN in one stream stays in its own rows.
-//     Rows run q-major (m = q * 3S + s*3 + o): a 64-row tile shares q
-//     once 3S >= 64, so it sums only the frames g that exist for that q
-//     (P + B/H - 1 products per row group instead of B/H per row: the
-//     8192 bucket has P = 1 and B/H = 4).  Every output element is owned
-//     by one thread and buckets add in a fixed order: deterministic.
+//     (zero below i0*hw, where nothing lands), the rest the new carry (the
+//     carry as it was when no hop is ready).  Not-ready hops come first in
+//     a call, since t + i grows, so this equals hop-by-hop gating with the
+//     carry chained.  Frames of not-ready hops are skipped (PoolSink::
+//     first_frame), never multiplied by zero, and a block's frames are its
+//     own stream's, so a NaN stays in its own rows.  A block first writes
+//     the carry term (or adds it to the previous bucket's output), then
+//     adds its frames in order: every output element is owned by one
+//     block and buckets add in a fixed order, so the result is
+//     deterministic.
 //
 // floor_kernel replaces the probe scripts/bench_pool_floor.py
 // (main.make_call), which DMAs each group's whole [G, window] history of
@@ -53,108 +51,44 @@
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
+#include "fft.cuh"
 #include "tile.cuh"
 
 namespace {
 
-__device__ __forceinline__ int first_ready_hop(const int* t, int s, int warmup, int hops) {
-  return min(max(warmup - t[s], 0), hops);
-}
+// out [S, 3, hops*hw] (written, or added into when accumulate), carries
+// [S, 3, B], t [S].
+struct PoolSink {
+  float* out;
+  const float* carry_in;
+  float* carry_out;
+  const int* t;
+  int B, hw, hops, warmup, per_hop, accumulate;
 
-__global__ void __launch_bounds__(THREADS)
-pool_inverse_kernel(const float* __restrict__ spec, const float* __restrict__ w_inv,
-                    const float* __restrict__ carry_in, const int* __restrict__ t,
-                    float* __restrict__ out, float* __restrict__ carry_out, int S, int F, int H,
-                    int B, int N2, int hw, int hops, int warmup, int accumulate) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Ws[BK][BN + 4];
-  const int Kf = B / H;
-  const int P = hw / H;
-  const int SO = S * 3;
-  const int M = (F + Kf) * SO;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  __device__ int ready_hop(int s) const { return min(max(warmup - t[s], 0), hops); }
 
-  // Frames that exist for this tile's output positions q: f = q - g in [0, F).
-  const int q_first = m0 / SO;
-  const int q_last = min(m0 + BM - 1, M - 1) / SO;
-  const int k_begin = max(0, q_first - (F - 1)) * N2;
-  const int k_end = (min(Kf - 1, q_last) + 1) * N2;
+  __device__ int first_frame(int s) const { return ready_hop(s) * per_hop; }
 
-  const int a_col = tid & (BK - 1);
-  const int a_row = tid / BK;
-  const float* a_base[4];
-  int a_q[4], a_f0[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_row + 16 * i;
-    const bool ok = m < M;
-    const int so = ok ? m % SO : 0;
-    a_base[i] = spec + (long long)so * F * N2;
-    a_q[i] = ok ? m / SO : -F - Kf;  // out of range: every f < 0
-    a_f0[i] = first_ready_hop(t, so / 3, warmup, hops) * P;
-  }
-  const int w_col = tid & (BN - 1);
-  const int w_row = tid / BN;
-  const int r = n0 + w_col;
-  const bool w_ok = r < H;
-
-  float acc[TM][TN] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    {
-      const int kk = k0 + a_col;
-      const int g = kk / N2;
-      const int j = kk - g * N2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int f = a_q[i] - g;
-        As[a_col][a_row + 16 * i] =
-            (kk < k_end && f >= a_f0[i] && f < F) ? a_base[i][(long long)f * N2 + j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = w_row + 4 * i;
-      const int kk = k0 + kr;
-      const int g = kk / N2;
-      const int j = kk - g * N2;
-      Ws[kr][w_col] = (w_ok && kk < k_end) ? w_inv[(long long)j * B + g * H + r] : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Ws, acc, tid / (BN / TN), tid % (BN / TN));
-    __syncthreads();
-  }
-
-  const int out_row = hops * hw;
-  const int row0 = m0 + (tid / (BN / TN)) * TM;
-  const int col0 = n0 + (tid % (BN / TN)) * TN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = row0 + i;
-    if (m >= M) break;
-    const int q = m / SO;
-    const int so = m % SO;
-    const int i0 = first_ready_hop(t, so / 3, warmup, hops);
-    const float* cin = carry_in + (long long)so * B;
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int c = col0 + jj;
-      if (c >= H) continue;
-      const int n = q * H + c;
-      const int cpos = n - i0 * hw;
-      const float v = acc[i][jj] + ((cpos >= 0 && cpos < B) ? cin[cpos] : 0.f);
-      if (n < out_row) {
-        const float e = n >= i0 * hw ? v : 0.f;
-        float* o = out + (long long)so * out_row + n;
-        *o = accumulate ? *o + e : e;
+  __device__ void init(int s, long long n) const {
+    const long long row = (long long)hops * hw;
+    const long long cpos = n - (long long)ready_hop(s) * hw;
+    for (int o = 0; o < 3; ++o) {
+      const long long so = (long long)s * 3 + o;
+      const float c = (cpos >= 0 && cpos < B) ? carry_in[so * B + cpos] : 0.f;
+      if (n < row) {
+        float* e = out + so * row + n;
+        *e = accumulate ? *e + c : c;
       } else {
-        const int jpos = n - out_row;
-        carry_out[(long long)so * B + jpos] = i0 < hops ? v : cin[jpos];
+        carry_out[so * B + n - row] = c;
       }
     }
   }
-}
+
+  __device__ float* at(int s, int o, long long n) const {
+    const long long so = (long long)s * 3 + o, row = (long long)hops * hw;
+    return n < row ? out + so * row + n : carry_out + so * B + n - row;
+  }
+};
 
 constexpr int MAX_FLOOR_BUCKETS = 8;  // ops/pool_floor.py: MAX_BUCKETS
 
@@ -204,15 +138,42 @@ floor_kernel(const float* __restrict__ hist, float* __restrict__ out, int W, int
 extern "C" {
 
 // out: [S, 3, hops*hw], written (accumulate = 0) or added into;
-// carry_in, carry_out: [S, 3, B]; spec: [S, 3, F, N2]; t: [S] int32.
-int pool_inverse(const float* spec, const float* w_inv, const float* carry_in, const int* t,
-                 float* out, float* carry_out, int S, int F, int H, int B, int N2, int hw,
-                 int hops, int warmup, int accumulate, void* stream) {
-  const long long M = (long long)(F + B / H) * S * 3;
-  const dim3 grid(cdiv(M, BM), cdiv(H, BN), 1);
-  pool_inverse_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      spec, w_inv, carry_in, t, out, carry_out, S, F, H, B, N2, hw, hops, warmup, accumulate);
-  return (int)cudaGetLastError();
+// carry_in, carry_out: [S, 3, B]; hist: [S, 2, width]; t: [S] int32;
+// F = hops * P frames, G a pass.
+int pool_bucket(const float* hist, const float* carry_in, const int* t, float* out, float* carry_out,
+                const float* aw, const float* sw, const float* gains, const float* tw, int S, int B, int H, int K,
+                int lo, int nb, int hw, int hops, int warmup, int G, int pair, long long width, int accumulate,
+                void* stream) {
+  const int F = hops * (hw / H);
+  const PoolSink sink{out, carry_in, carry_out, t, B, hw, hops, warmup, hw / H, accumulate};
+  return launch_frames(hist, width, sink, bucket_args(aw, sw, gains, tw, B, H, K, lo, nb), S, F, F + B / H,
+                       F + B / H, G, pair, stream);
+}
+
+// The two-stage split, launch 1: part [S, F, N2 / cols, 2K] complex from
+// the frames of ready hops.
+int pool_wide_forward(const float* hist, const int* t, float* part, const float* aw, const float* tw1,
+                      const float* stage2, int S, int B, int H, int K, int lo, int n1, int cols, int hw, int hops,
+                      int warmup, long long width, void* stream) {
+  const PoolSink sink{nullptr, nullptr, nullptr, t, B, hw, hops, warmup, hw / H, 1};
+  const WideArgs w{reinterpret_cast<const float2*>(tw1), reinterpret_cast<const float2*>(stage2),
+                   nullptr, nullptr, nullptr, nullptr, n1, cols, 0, 0};
+  return launch_wide_forward(hist, width, part, sink, bucket_args(aw, nullptr, nullptr, tw1, B, H, K, lo, 0), w,
+                             S, hops * (hw / H), stream);
+}
+
+// Launch 2: out and the new carries as pool_bucket writes them, from part.
+int pool_wide_inverse(const float* part, const float* carry_in, const int* t, float* out, float* carry_out,
+                      const float* sw, const float* gains, const float* tw1, const float* stage2, const int* rows,
+                      const int* row_ptr, const int* entries, const int* tile_ptr, int n_tiles, int kt, int S, int B,
+                      int H, int K, int lo, int nb, int n1, int cols, int hw, int hops, int warmup, int accumulate,
+                      void* stream) {
+  const int F = hops * (hw / H);
+  const PoolSink sink{out, carry_in, carry_out, t, B, hw, hops, warmup, hw / H, accumulate};
+  const WideArgs w{reinterpret_cast<const float2*>(tw1), reinterpret_cast<const float2*>(stage2),
+                   rows, row_ptr, entries, tile_ptr, n1, cols, n_tiles, kt};
+  return launch_wide_inverse(part, sink, bucket_args(nullptr, sw, gains, tw1, B, H, K, lo, nb), w, S, F, F + B / H,
+                             F + B / H, stream);
 }
 
 // out: [S, 3, hw] from hist [S, 2, W]; geom: n_buckets (B, M) pairs.

@@ -92,16 +92,19 @@ def load() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.omni_forward.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
-    lib.omni_mask.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.omni_inverse.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
-    lib.pool_inverse.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.omni_bucket.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ll, i, p]
+    lib.omni_wide_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ll, p]
+    lib.omni_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, ll, i, p]
+    lib.pool_bucket.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ll, i, p]
+    lib.pool_wide_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ll, p]
+    lib.pool_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
     lib.fused_lcr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, p]
     lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.overhead_probe.argtypes = [p, ll, p, p, i, i, i, i, p, p, i, p]
     lib.empty_launch.argtypes = [i, i, p]
-    for fn in (lib.omni_forward, lib.omni_mask, lib.omni_inverse, lib.pool_inverse, lib.pool_floor,
+    for fn in (lib.omni_bucket, lib.omni_wide_forward, lib.omni_wide_inverse, lib.pool_bucket,
+               lib.pool_wide_forward, lib.pool_wide_inverse, lib.pool_floor,
                lib.fused_lcr, lib.dot_chain, lib.overhead_probe, lib.empty_launch):
         fn.restype = ctypes.c_int
     _lib = lib

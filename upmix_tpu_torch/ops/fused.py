@@ -11,8 +11,8 @@ go through the windowed banded DFT, gain x center mask summed over the
 bucket's bands, the inverse and the overlap-add; `spill` is the part past
 `chunk`, which the caller adds into the next segment's head.  The plan
 is the bucket's device record (`ops/omnibus.py::OmnibusBucket`: geometry,
-windows, kept-bin gains and, on a CUDA device, the f32 direct-DFT
-weights); `chunk` is read from x.  There is no bf16 hi/lo weight split:
+windows, kept-bin gains and, for the kernel, the f32 direct-DFT weights
+that `with_direct_weights` adds); `chunk` is read from x.  There is no bf16 hi/lo weight split:
 that exists only for Mosaic.
 
 On a CUDA tensor `fused_bucket_lcr_batch` launches `csrc/fused.cu`; on a
@@ -22,15 +22,18 @@ no fallback between the two.
 Routing.  The port's omnibus takes any bucket, so nothing is left over as
 on the TPU; the sharded path sends a bucket here when the JAX package's
 gate for building a fused plan admits it (hop | block and B * 2K * 4 <=
-7 MiB per direction, `upmix_tpu/models/offline.py:320`): on the card one
-launch per bucket whose spectra never leave shared memory, instead of
-the omnibus's three launches through device memory.
+7 MiB per direction, `upmix_tpu/models/offline.py:320`), and only such
+buckets carry the direct-DFT weights (`parallel/sharded.py::route_buckets`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from upmix_tpu_torch.ops.dftmm import make_direct_plan
 from upmix_tpu_torch.ops.omnibus import (
     OmnibusBucket,
     make_bucket,
@@ -50,10 +53,34 @@ _SMEM_BUDGET = 100 * 1024
 _TILE_ROWS = 64  # the inverse's row tile (csrc/tile.cuh: BM); 3 T rows fit one
 
 # The device record of a bucket is the omnibus's (geometry, windows,
-# kept-bin gains and weights), built from a `_BucketPlan` of either
-# package; None for a bucket whose gains are all zero.
+# kept-bin gains), built from a `_BucketPlan` of either package; None for
+# a bucket whose gains are all zero.
 FusedBucket = OmnibusBucket
-make_fused_bucket = make_bucket
+
+
+def with_direct_weights(bucket: FusedBucket) -> FusedBucket:
+    """The bucket with the direct-DFT weight slices the kernel multiplies
+    by ([B, 2K] with the analysis window, [2K, B] with the synthesis
+    window), on the bucket's device; a CPU bucket is returned as it is
+    (the plain version needs none)."""
+    device = bucket.gains.device
+    if device.type == "cpu" or bucket.w_fwd is not None:
+        return bucket
+    dp = make_direct_plan(
+        bucket.block, bucket.lo, bucket.lo + bucket.kept - 1,
+        bucket.analysis_window.cpu().numpy(), bucket.synthesis_window.cpu().numpy(),
+    )
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+
+    return dataclasses.replace(bucket, w_fwd=dev(dp.w_fwd), w_inv=dev(dp.w_inv))
+
+
+def make_fused_bucket(p, device) -> FusedBucket | None:
+    """Device record of one bucket plan for the fused kernel, weights included."""
+    b = make_bucket(p, device)
+    return None if b is None else with_direct_weights(b)
 
 
 def tile_frames(bucket: FusedBucket) -> int:
@@ -107,7 +134,9 @@ def _fused_cuda(x: torch.Tensor, b: FusedBucket, chunk: int) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the fused kernel takes a contiguous float32 tensor")
     if b.w_fwd is None or b.w_fwd.device != x.device:
-        raise ValueError(f"bucket lives on {b.gains.device}, input on {x.device}")
+        raise ValueError(
+            f"bucket lives on {b.gains.device} without direct weights (with_direct_weights), input on {x.device}"
+        )
     T = tile_frames(b)
     if T < 1:
         raise ValueError(f"bucket B={b.block} K={b.kept}: its spectra do not fit the kernel's block")

@@ -14,13 +14,17 @@ overlap-add into [0, chunk + B - H).  Every bucket adds into one output;
 segment's head.
 
 On a CUDA tensor `omnibus_lcr_batch` launches the kernels of
-`csrc/omnibus.cu` (direct banded DFT products in FP32); on a CPU tensor
-it runs `omnibus_lcr_batch_plain` (torch.fft).  There is no fallback
-between the two.
+`csrc/omnibus.cu` (FP32 FFTs in shared memory, `csrc/fft.cuh`): one
+launch per bucket up to `fftplan.FFT_MAX` points, two for a wider one
+(the two-stage split; `launches_per_bucket`), at the geometry
+`launch_geometry` gives.  On a CPU tensor it runs
+`omnibus_lcr_batch_plain` (torch.fft).  There is no fallback between
+the two.
 
 What the TPU plan needed only for Mosaic has no counterpart here: no
-tile LCM or minimum tile, no lookahead views, no two-stage transform, no
-bf16 hi/lo weight pairs.  The plan is the list of live buckets.
+tile LCM or minimum tile, no lookahead views, no bf16 hi/lo weight
+pairs.  The plan is the list of live buckets with their windows, gains
+and FFT tables (`ops/fftplan.py`).
 """
 
 from __future__ import annotations
@@ -30,20 +34,65 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from upmix_tpu_torch.ops.dftmm import make_direct_plan
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, WIDE_N2, launches_per_bucket, pass_twiddles, twiddles, wide_split
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
 
-# CUDA kernel launches made by omnibus_lcr_batch (three per bucket).
+# CUDA kernel launches made by omnibus_lcr_batch (launches_per_bucket each).
 LAUNCHES = 0
 
-_TILE = 64  # output tile of the forward kernel (csrc/omnibus.cu: BM = BN)
+FRAME_TILE = 8192  # complex values of the frames one thread block transforms at a time
+SMEM_TARGET = 75 * 1024  # shared memory per block for G > 1: three blocks share an SM (228 KB, 1 KB a block reserved)
+_THREADS = 512  # csrc/fft.cuh: FFT_THREADS
+_SMEM = 227 * 1024  # shared memory one block can use on sm_90
+_SM_THREADS = 2048
+
+
+@dataclass(frozen=True, eq=False)
+class WideTables:
+    """The two-stage split of a bucket over FFT_MAX points on its device
+    (`fftplan.WideSplit`)."""
+
+    n1: int
+    cols: int
+    kt: int  # kept bins per tile of the inverse
+    stage2: torch.Tensor  # [B, 2]: exp(-2 pi i m / B), the stage-2 twiddles
+    rows: torch.Tensor  # int32 [R]
+    row_ptr: torch.Tensor  # int32 [R + 1]
+    entries: torch.Tensor  # int32
+    tile_ptr: torch.Tensor  # int32 [tiles + 1]
+
+    @property
+    def groups(self) -> int:
+        return WIDE_N2 // self.cols
+
+    @property
+    def tiles(self) -> int:
+        return self.tile_ptr.numel() - 1
+
+
+def make_wide_tables(block: int, hop: int, lo: int, kept: int, device) -> WideTables | None:
+    """The split's tables on `device` for a block over FFT_MAX, else None."""
+    if block <= FFT_MAX:
+        return None
+    if hop % WIDE_N2:
+        raise NotImplementedError(f"block {block} / hop {hop}: the two-stage split needs a hop divisible by {WIDE_N2}")
+    w = wide_split(block, lo, kept)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return WideTables(
+        n1=w.n1, cols=w.cols, kt=w.kt, stage2=dev(twiddles(block), np.float32), rows=dev(w.rows, np.int32),
+        row_ptr=dev(w.row_ptr, np.int32), entries=dev(w.entries, np.int32), tile_ptr=dev(w.tile_ptr, np.int32),
+    )
 
 
 @dataclass(frozen=True, eq=False)
 class OmnibusBucket:
     """One live bucket on its device: geometry, windows, kept-bin gains,
-    and on a CUDA device the direct-DFT weight slices the kernel uses."""
+    the FFT kernels' tables, and the direct-DFT weight slices where the
+    bucket goes to the fused kernel (ops/fused.py: `with_direct_weights`)."""
 
     block: int
     hop: int
@@ -51,8 +100,10 @@ class OmnibusBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    w_fwd: torch.Tensor | None  # [B, 2K]
-    w_inv: torch.Tensor | None  # [2K, B]
+    twiddles: torch.Tensor  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when wide)
+    wide: WideTables | None  # the two-stage split, for B > FFT_MAX
+    w_fwd: torch.Tensor | None = None  # [B, 2K], fused kernel only
+    w_inv: torch.Tensor | None = None  # [2K, B], fused kernel only
 
     @property
     def kept(self) -> int:
@@ -87,13 +138,10 @@ def make_bucket(p, device) -> OmnibusBucket | None:
     lo, hi = int(nz[0]), int(nz[-1])
     device = torch.device(device)
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+    def dev(a, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
-    w_fwd = w_inv = None
-    if device.type == "cuda":
-        dp = make_direct_plan(B, lo, hi, p.analysis_window, p.synthesis_window)
-        w_fwd, w_inv = dev(dp.w_fwd), dev(dp.w_inv)
+    wide = make_wide_tables(B, H, lo, hi - lo + 1, device)
     return OmnibusBucket(
         block=B,
         hop=H,
@@ -101,9 +149,77 @@ def make_bucket(p, device) -> OmnibusBucket | None:
         analysis_window=dev(p.analysis_window),
         synthesis_window=dev(p.synthesis_window),
         gains=dev(p.gains[:, lo : hi + 1]),
-        w_fwd=w_fwd,
-        w_inv=w_inv,
+        twiddles=dev(pass_twiddles(B if wide is None else wide.n1)),
+        wide=wide,
     )
+
+
+def frame_pass(block: int, kept: int) -> tuple:
+    """(G, pair) of csrc/fft.cuh's frames_kernel: G frames one thread
+    block transforms at a time, the largest power of two with G * B <=
+    FRAME_TILE complex values whose frames and Rs spectra fit SMEM_TARGET
+    (so that three blocks share an SM), else one; with one, `pair` when
+    the Rs spectra of two frames fit beside it in a block's shared memory,
+    so that they share one inverse transform."""
+    G = max(1, FRAME_TILE // block)
+    while G > 1 and _frames_smem(block, kept, G, False) > SMEM_TARGET:
+        G //= 2
+    return G, G == 1 and _frames_smem(block, kept, 1, True) <= _SMEM
+
+
+def _frames_smem(block: int, kept: int, G: int, pair: bool) -> int:
+    return 8 * (G * block + (2 if pair else G) * kept)
+
+
+@dataclass(frozen=True)
+class Launch:
+    """How a bucket's frames are launched (csrc/fft.cuh): frames_kernel, or
+    for a split bucket wide_inverse_kernel (its wide_forward_kernel runs
+    one block per column group and frame)."""
+
+    frames: int  # G: frames a pass (1 for the split)
+    pair: bool  # Rs of two frames share one inverse transform
+    hops: int  # T: output hops per thread block
+    blocks: int  # thread blocks
+
+
+def launch_geometry(b, F: int, rows: int, n_sm: int | None, n_hops: int | None = None) -> Launch:
+    """The launch of bucket b (an OmnibusBucket or PoolBucket) over F frames
+    of `rows` rows with n_hops output hops each (default F + B/H - 1, the
+    offline span): T from hops_per_block on n_sm SMs, or every hop in one
+    block per row when n_sm is None (the pool)."""
+    B, H, K, w = b.block, b.hop, b.kept, b.wide
+    Kf = B // H
+    n_hops = F + Kf - 1 if n_hops is None else n_hops
+    if w is None:
+        G, pair = frame_pass(B, K)
+        smem, groups = _frames_smem(B, K, G, pair), 1
+    else:
+        G, pair = 1, True
+        smem, groups = 8 * (w.cols * w.n1 + 6 * w.kt), w.groups
+    T = n_hops if n_sm is None else hops_per_block(n_hops, Kf, G, rows * groups, n_sm, smem)
+    return Launch(frames=G, pair=pair, hops=T, blocks=rows * groups * -(-n_hops // T))
+
+
+def hops_per_block(n_hops: int, overlap: int, G: int, rows: int, n_sm: int, smem: int) -> int:
+    """T: output hops per thread block of a bucket with `overlap` = B/H
+    frames per hop, G frames per pass and `rows` independent rows
+    (segments, or segments x column groups).  A block computes T +
+    overlap - 1 frames, rounded up to G; T minimises the passes per SM
+    over the waves of blocks the card holds."""
+    per_sm = max(1, min(_SM_THREADS // _THREADS, _SMEM // smem))
+    best = None
+    for m in range(1, 257):
+        T = m * G - (overlap - 1)
+        if T < 1:
+            continue
+        blocks = rows * -(-n_hops // T)
+        cost = -(-blocks // (n_sm * per_sm)) * m
+        if best is None or cost < best[0]:
+            best = (cost, T)
+        if T >= n_hops:
+            break
+    return best[1]
 
 
 @dataclass(frozen=True, eq=False)
@@ -151,16 +267,6 @@ def omnibus_lcr(x: torch.Tensor, plan: OmnibusPlan):
     return main[0], spill[0]
 
 
-def _splits(M: int, N: int, B: int, n_sm: int) -> int:
-    """Depth splits of the forward product: double until the grid holds
-    two waves of blocks, keeping at least 1024 samples per split."""
-    tiles = -(-M // _TILE) * -(-N // _TILE)
-    P = 1
-    while tiles * P < 2 * n_sm and B // (2 * P) >= 1024:
-        P *= 2
-    return P
-
-
 def _launched(rc: int, what: str) -> None:
     global LAUNCHES
     LAUNCHES += 1
@@ -181,34 +287,37 @@ def _omnibus_cuda(x: torch.Tensor, plan: OmnibusPlan) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, b in enumerate(plan.buckets):
-        if b.w_fwd is None or b.w_fwd.device != dev:
+        if b.twiddles.device != dev:
             raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
-        B, H, K = b.block, b.hop, b.kept
+        B, H, K, w = b.block, b.hop, b.kept, b.wide
         F = plan.chunk // H
-        M = S * 2 * F
-        P = _splits(M, 2 * K, B, n_sm)
-        part = torch.empty((P, M, 2 * K), dtype=torch.float32, device=dev)
-        spec = torch.empty((S, 3, F, 2 * K), dtype=torch.float32, device=dev)
+        geo = launch_geometry(b, F, S, n_sm)
+        common = (b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr())
+        if w is None:
+            _launched(
+                lib.omni_bucket(
+                    x.data_ptr(), y.data_ptr(), b.analysis_window.data_ptr(), *common,
+                    S, B, H, K, b.lo, b.gains.shape[0], F, geo.hops, geo.frames, int(geo.pair), width, int(i > 0),
+                    stream,
+                ),
+                "omni_bucket",
+            )
+            continue
+        part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
         _launched(
-            lib.omni_forward(
-                x.data_ptr(), b.w_fwd.data_ptr(), part.data_ptr(),
-                M, 2 * K, F, H, B, width, P, stream,
+            lib.omni_wide_forward(
+                x.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(), b.twiddles.data_ptr(),
+                w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, F, width, stream,
             ),
-            "omni_forward",
+            "omni_wide_forward",
         )
         _launched(
-            lib.omni_mask(
-                part.data_ptr(), b.gains.data_ptr(), spec.data_ptr(),
-                S, F, K, b.gains.shape[0], P, stream,
+            lib.omni_wide_inverse(
+                part.data_ptr(), y.data_ptr(), *common, w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
+                w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, b.gains.shape[0],
+                w.n1, w.cols, F, geo.hops, width, int(i > 0), stream,
             ),
-            "omni_mask",
-        )
-        _launched(
-            lib.omni_inverse(
-                spec.data_ptr(), b.w_inv.data_ptr(), y.data_ptr(),
-                S, F, H, B, 2 * K, width, int(i > 0), stream,
-            ),
-            "omni_inverse",
+            "omni_wide_inverse",
         )
     return y
 

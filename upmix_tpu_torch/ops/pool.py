@@ -15,10 +15,13 @@ hop H, P = hw/H frames per block, kept bins lo..lo+K-1) and hop i:
     and leaves that stream's carries as they were;
   - carries chain across the hops of one call.
 
-On a CUDA tensor `pool_step_lcr` launches the kernels (the forward
-product and mask of `csrc/omnibus.cu`, the gated inverse with the
-overlap-add and carries of `csrc/pool.cu`); on a CPU tensor it runs
-`pool_step_lcr_plain` (torch.fft).  There is no fallback between the two.
+On a CUDA tensor `pool_step_lcr` launches `csrc/pool.cu`'s kernels: the
+frames through FFTs in shared memory (`csrc/fft.cuh`), the mask, the
+gated overlap-add and the carries, one launch per bucket, two for a
+bucket over `fftplan.FFT_MAX` points (the two-stage split; from a
+hardware block of 8192 samples at the streaming configs' 4 x hw cap;
+`launches_per_bucket`).  On a CPU tensor it runs `pool_step_lcr_plain`
+(torch.fft).  There is no fallback between the two.
 
 What the TPU plan needed only for Mosaic has no counterpart: no group of
 streams per grid step (so no n_streams % group rule), no 8 MB bound on the
@@ -36,18 +39,19 @@ import torch
 import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
-from upmix_tpu_torch.ops.dftmm import make_direct_plan
+from upmix_tpu_torch.ops.fftplan import launches_per_bucket, pass_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
+from upmix_tpu_torch.ops.omnibus import WideTables, launch_geometry, make_wide_tables
 
-# CUDA kernel launches made by pool_step_lcr (three per bucket).
+# CUDA kernel launches made by pool_step_lcr (launches_per_bucket each).
 LAUNCHES = 0
 
 
 @dataclass(frozen=True, eq=False)
 class PoolBucket:
-    """One live bucket on its device: geometry, windows, kept-bin gains,
-    and on a CUDA device the direct-DFT weight slices."""
+    """One live bucket on its device: geometry, windows, kept-bin gains
+    and the FFT kernels' tables."""
 
     block: int
     hop: int
@@ -56,8 +60,8 @@ class PoolBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    w_fwd: torch.Tensor | None  # [B, 2K]
-    w_inv: torch.Tensor | None  # [2K, B]
+    twiddles: torch.Tensor  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when split)
+    wide: WideTables | None  # the two-stage split, for B > FFT_MAX
 
     @property
     def kept(self) -> int:
@@ -79,8 +83,7 @@ class PoolPlan:
 
 def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, device) -> PoolPlan | None:
     """Device plan from `_StreamBucketPlan` records (numpy arrays) of
-    either package; None when every bucket's gains are zero.  The weight
-    slices are built on a CUDA device only."""
+    either package; None when every bucket's gains are zero."""
     device = torch.device(device)
 
     def dev(a):
@@ -92,10 +95,7 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
         if not len(nz):
             continue  # a dead bucket contributes nothing
         lo, hi = int(nz[0]), int(nz[-1])
-        w_fwd = w_inv = None
-        if device.type == "cuda":
-            dp = make_direct_plan(p.block_size, lo, hi, p.analysis_window, p.synthesis_window)
-            w_fwd, w_inv = dev(dp.w_fwd), dev(dp.w_inv)
+        wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device)
         buckets.append(
             PoolBucket(
                 block=p.block_size,
@@ -105,8 +105,8 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
                 analysis_window=dev(p.analysis_window),
                 synthesis_window=dev(p.synthesis_window),
                 gains=dev(p.gains[:, lo : hi + 1]),
-                w_fwd=w_fwd,
-                w_inv=w_inv,
+                twiddles=dev(pass_twiddles(p.block_size if wide is None else wide.n1)),
+                wide=wide,
             )
         )
     if not buckets:
@@ -171,7 +171,6 @@ def _launched(rc: int, what: str) -> None:
 
 def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     from upmix_tpu_torch.ops import _build
-    from upmix_tpu_torch.ops.omnibus import _splits
 
     _check_inputs(hist, t, carries, plan, hops)
     dev = hist.device
@@ -179,46 +178,48 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
         raise ValueError("the pool kernel takes a contiguous float32 history")
     if any(c.dtype != torch.float32 or not c.is_contiguous() or c.device != dev for c in carries):
         raise ValueError("the pool kernel takes contiguous float32 carries on the history's device")
+    if any(b.twiddles.device != dev for b in plan.buckets):
+        raise ValueError(f"plan buckets live on {plan.buckets[0].gains.device}, input on {dev}")
     lib = _build.load()
     S, _, width = hist.shape
-    hw = plan.hw
+    hw, nq = plan.hw, plan.warmup
     t32 = t.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     new = []
     for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
-        if b.w_fwd is None or b.w_fwd.device != dev:
-            raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
-        B, H, K = b.block, b.hop, b.kept
-        F = hops * b.passes
-        M = S * 2 * F
-        splits = _splits(M, 2 * K, B, n_sm)
-        part = torch.empty((splits, M, 2 * K), dtype=torch.float32, device=dev)
-        spec = torch.empty((S, 3, F, 2 * K), dtype=torch.float32, device=dev)
+        B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
         carry_out = torch.empty((S, 3, B), dtype=torch.float32, device=dev)
-        _launched(
-            lib.omni_forward(
-                hist.data_ptr(), b.w_fwd.data_ptr(), part.data_ptr(),
-                M, 2 * K, F, H, B, width, splits, stream,
-            ),
-            "omni_forward",
-        )
-        _launched(
-            lib.omni_mask(
-                part.data_ptr(), b.gains.data_ptr(), spec.data_ptr(),
-                S, F, K, b.gains.shape[0], splits, stream,
-            ),
-            "omni_mask",
-        )
-        _launched(
-            lib.pool_inverse(
-                spec.data_ptr(), b.w_inv.data_ptr(), carry.data_ptr(), t32.data_ptr(),
-                out.data_ptr(), carry_out.data_ptr(),
-                S, F, H, B, 2 * K, hw, hops, plan.warmup, int(i > 0), stream,
-            ),
-            "pool_inverse",
-        )
+        io = (carry.data_ptr(), t32.data_ptr(), out.data_ptr(), carry_out.data_ptr())
+        if w is None:
+            geo = launch_geometry(b, hops * b.passes, S, None, hops * b.passes + B // H)
+            _launched(
+                lib.pool_bucket(
+                    hist.data_ptr(), *io, b.analysis_window.data_ptr(), b.synthesis_window.data_ptr(),
+                    b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq,
+                    geo.frames, int(geo.pair), width, int(i > 0), stream,
+                ),
+                "pool_bucket",
+            )
+        else:
+            part = torch.empty((S, hops * b.passes, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
+            _launched(
+                lib.pool_wide_forward(
+                    hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+                    b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
+                    width, stream,
+                ),
+                "pool_wide_forward",
+            )
+            _launched(
+                lib.pool_wide_inverse(
+                    part.data_ptr(), *io, b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(),
+                    w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(),
+                    w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, nb, w.n1, w.cols, hw, hops, nq,
+                    int(i > 0), stream,
+                ),
+                "pool_wide_inverse",
+            )
         new.append(carry_out)
     return out, tuple(new)
 
