@@ -21,7 +21,7 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
   3. kernel parity: the omnibus kernel against its plain version run in
      float64 on the card, per bucket and for the whole plan (>= 80 dB),
      and two calls bit-identical; each plan's device bytes and build
-     seconds (offline, sharded, pool);
+     seconds (offline, sharded, pool: windows, gains and FFT tables);
   4. end to end: Upmixer must launch the kernel (launches_per_bucket per
      bucket), and its output must
      match the float64 whole-file torch.fft path at bench.py's three
@@ -63,9 +63,10 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
      whose bound is more than 105% of its time fails the run; K1's and
      K3's library_ms is the cuFFT yardstick of their transforms), then
      the last line {"ok": true, "device": {...}};
- 10. fused kernel parity: K2 against its plain version in float64 on the
-     card, on the three buckets the sharded path routes to it, at the
-     sharded geometry (8 rows of one 2^19 chunk; >= 80 dB);
+ 10. fused kernel parity: K2 (K1's FFT kernels with an epilogue that
+     writes its span) against its plain version in float64 on the card, on
+     the three buckets the sharded path routes to it, at the sharded
+     geometry (8 rows of one 2^19 chunk; >= 80 dB), two calls bit-identical;
  11. sharded end to end: ShardedUpmixer on the 2 x 4 mesh must launch K2
      once per narrow bucket and K1 launches_per_bucket per wide bucket
      (3 and 3) per call, match the float64 whole-file path
@@ -74,10 +75,13 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
  12. BatchUpmixer.process_files, sequential and pipelined, bit-identical
      to each other and within 1e-3 of Upmixer;
  13. timing: the sharded path's realtime factor; K2 alone per bucket
-     against K1 alone on the same bucket and against the plain version;
-     K2's bound and design lines; the profiler's idle share;
+     against K1 alone on the same bucket (K2/K1), the plain version and a
+     cuFFT yardstick; K2's bound and design lines (its own FFTs at its
+     launch geometry); the profiler's idle share;
  14. dot-chain parity (K4): each of the seven variants' kernel against its
-     plain version at M = K = 512, after one apply and over a chain of 64:
+     plain version at K = 512 and both M the probe runs, 512 and 4224
+     (clusters of 2-8 CTAs and single CTAs, as the card's choice of
+     cluster size gives them), after one apply and over a chain of 64:
      the int8 rungs bit for bit, the float rungs within
      int8_dot.APPLY_TOLERANCE after one apply and the coarse
      int8_dot.CHAIN_TOLERANCE over the chain; then the probe's own
@@ -85,9 +89,13 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
      variant's SNR after 640 applies against float64, the script's check
      line, with the plain version's beside it) and `bench` (the script's
      min-of-visits at M = 512 and 4224), which must launch every variant;
- 15. dot-chain timing: one call of 64 applies at M = 512 per variant, its
-     plain version, the bound (the products at the unit's dense peak) and
-     the yardsticks (chained torch.matmul in FP32 and bf16, torch._int_mm);
+ 15. dot-chain timing: one call of 64 applies per variant at M = 512 and
+     at M = 4224, with the cluster size, the CTAs launched and the
+     clusters the card holds at once, each beside the one PyTorch call for
+     the same function where there is one (chained torch.matmul in FP32
+     with TF32 off for fp32, chained bf16 torch.matmul for bf16x1,
+     torch._int_mm for int8x1); at M = 512 the plain version and the
+     bound (the products at the unit's dense peak);
  16. overhead probe (K5): bit for bit in its six configurations, the
      probe's own run (`run_configs`), then each configuration's kernel
      alone (64 calls queued back to back behind a sleeping kernel, CUDA
@@ -202,7 +210,7 @@ def cufft_ms(rows, spec, block: int) -> float:
 
 
 def design_work(plan_buckets, S: int, chunk: int, n_sm: int):
-    """(FLOP, bytes) of K1's own work at its launch geometry
+    """(FLOP, bytes) of K1's or K2's own work at their launch geometry
     (`omnibus.launch_geometry`): every frame it computes (the B/H - 1
     recomputed at each block's left edge included), 5 N log2 N FLOP per
     complex FFT of N points (1 forward, 1.5 inverse per frame, 2 when a
@@ -225,7 +233,7 @@ def design_work(plan_buckets, S: int, chunk: int, n_sm: int):
             nbytes += 4 * (frames * 2 * B + 2 * 3 * S * width * (G + Kf - 1) / G)
         else:
             w = b.wide
-            flop += S * F * (5 * B * np.log2(w.n1) + 8 * 2 * K * 128)
+            flop += S * F * (5 * B * np.log2(w.n1) + 8 * 2 * K * w.n2)
             flop += geo.blocks * per_block * (1.5 * 5 * w.cols * w.n1 * np.log2(w.n1)
                                               + 1.5 * 8 * w.entries.numel() * w.cols)
             nbytes += 4 * S * F * 2 * B + 8 * S * F * w.groups * 2 * K * (1 + geo.blocks * per_block / (S * F))
@@ -537,6 +545,7 @@ def sharded_phases(smi: str, dev) -> dict:
     from upmix_tpu_torch.ops import fused, omnibus, pool, pool_floor
     from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain
     from upmix_tpu_torch.ops.omnibus import (
+        launch_geometry,
         launches_per_bucket,
         make_omnibus_plan,
         omnibus_lcr_batch,
@@ -554,8 +563,8 @@ def sharded_phases(smi: str, dev) -> dict:
     build_s = time.perf_counter() - t0
     print(f"sharded plan: mesh {SHARD_MESH} on one card, chunk {chunk} per shard, halo {splan.halo}; "
           f"K2 buckets {[b.block for b in narrow]}, K1 buckets {[b.block for b in omni_plan.buckets]}; "
-          f"{plan_bytes(omni_plan.buckets + narrow) / 1e6:.3f} MB on the device (the K2 buckets' direct-DFT "
-          f"weights {plan_bytes(narrow) / 1e6:.3f} MB), built in {build_s:.3f} s", flush=True)
+          f"{plan_bytes(omni_plan.buckets + narrow) / 1e6:.3f} MB on the device (the K2 buckets' "
+          f"{plan_bytes(narrow) / 1e6:.3f} MB: windows, gains, FFT twiddles), built in {build_s:.3f} s", flush=True)
     if [b.block for b in narrow] != [4096, 1024, 256] or [b.block for b in omni_plan.buckets] != [65536, 16384]:
         fail("bucket routing differs from 4096/1024/256 -> K2, 65536/16384 -> K1")
 
@@ -564,20 +573,27 @@ def sharded_phases(smi: str, dev) -> dict:
     xs = {b.block: torch.as_tensor(rng.standard_normal((S, 2, chunk + b.spill)), dtype=torch.float32,
                                    device=dev) for b in narrow}
     worst, max_abs_err = float("inf"), 0.0
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for b in narrow:
         x = xs[b.block]
         got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
+        again = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
         ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
         torch.cuda.synchronize()
         snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
         err = float((got.double() - ref).abs().max())
+        repeat = bool(torch.equal(got, again))
         max_abs_err = max(max_abs_err, err)
         worst = min(worst, *snrs)
-        print(f"K2 parity B={b.block} H={b.hop} K={b.kept} (S={S}, chunk {chunk}): "
-              + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs))
-              + f", max abs err {err:.3e} (bar >= {KERNEL_BAR_DB} dB)", flush=True)
+        geo = launch_geometry(b, chunk // b.hop, S, n_sm)
+        print(f"K2 parity B={b.block} H={b.hop} K={b.kept} (S={S}, chunk {chunk}; G {geo.frames}, pair {geo.pair}, "
+              f"T {geo.hops}, {geo.blocks} blocks): " + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs))
+              + f", max abs err {err:.3e} (bar >= {KERNEL_BAR_DB} dB); two calls bit-identical {repeat}", flush=True)
+        if not repeat:
+            fail(f"two calls of the fused kernel on bucket {b.block} differ")
     if not (worst >= KERNEL_BAR_DB):
         fail(f"fused kernel parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
+    del again
     del got, ref
 
     # 11. sharded end to end through the user's entry point
@@ -643,7 +659,7 @@ def sharded_phases(smi: str, dev) -> dict:
     path_ms = time_ms(lambda: su.process_batch(audio), loops=5, iters=1)
     print(f"timing [{smi}]: sharded path ({SHARD_MESH} on one card) {path_ms:.3f} ms for {SHARD_FILES} x "
           f"{SHARD_SAMPLES} samples = {audio_s / path_ms * 1e3:.1f}x realtime", flush=True)
-    k2_ms = k2_plain_ms = 0.0
+    k2_ms = k2_plain_ms = k2_lib_ms = 0.0
     parts = []
     for b in narrow:
         x = xs[b.block]
@@ -651,11 +667,15 @@ def sharded_phases(smi: str, dev) -> dict:
         t_k2 = time_ms(lambda: fused_bucket_lcr_batch(x, b))
         t_k1 = time_ms(lambda: omnibus_lcr_batch(x, sub))
         t_plain = time_ms(lambda: fused_bucket_lcr_batch_plain(x, b))
-        k2_ms, k2_plain_ms = k2_ms + t_k2, k2_plain_ms + t_plain
-        gflop = 20.0 * S * chunk // b.hop * b.block * b.kept / 1e9
-        parts.append(f"B={b.block} K2 {t_k2:.3f} ms ({gflop / t_k2:.1f} TFLOP/s), K1 {t_k1:.3f} ms "
-                     f"(K2/K1 {t_k2 / t_k1:.2f}), plain {t_plain:.3f} ms")
-    print(f"timing [{smi}]: per bucket (S={S}, chunk {chunk}): " + "; ".join(parts), flush=True)
+        rows, spec = cufft_inputs(x, b, chunk // b.hop)
+        t_lib = cufft_ms(rows, spec, b.block)
+        del rows, spec
+        k2_ms, k2_plain_ms, k2_lib_ms = k2_ms + t_k2, k2_plain_ms + t_plain, k2_lib_ms + t_lib
+        d_flop, _ = design_work([b], S, chunk, n_sm)
+        parts.append(f"B={b.block} K2 {t_k2:.3f} ms ({d_flop / t_k2 / 1e9:.2f} TFLOP/s of its own FFTs), K1 "
+                     f"{t_k1:.3f} ms (K2/K1 {t_k2 / t_k1:.2f}), plain {t_plain:.3f} ms, cuFFT yardstick {t_lib:.3f} ms")
+    print(f"timing [{smi}]: per bucket (S={S}, chunk {chunk}): " + "; ".join(parts)
+          + f"; cuFFT yardstick over the buckets {k2_lib_ms:.3f} ms", flush=True)
     # K2's bound over its three buckets, from the least work of the function:
     # the FFTs of every frame; x read once per bucket, y written once.
     k2_flop = sum(fft_flop(S * chunk // b.hop, b.block) for b in narrow)
@@ -663,17 +683,19 @@ def sharded_phases(smi: str, dev) -> dict:
     k2_bound, k2_by = bound(k2_flop, k2_bytes)
     print(f"bound [{smi}]: fused {k2_flop:.3e} FLOP by FFT, {k2_bytes / 1e9:.3f} GB over its three buckets -> "
           f"{k2_bound:.3f} ms ({k2_by}); kernel {k2_ms:.3f} ms, at {k2_bound / k2_ms:.1%} of it", flush=True)
-    d_flop = sum(20.0 * S * chunk // b.hop * b.block * b.kept for b in narrow)
-    d_bound, _ = bound(d_flop, k2_bytes + 4 * sum(4 * b.block * b.kept for b in narrow))
-    print(f"design [{smi}]: fused direct DFT {d_flop:.3e} FLOP -> {d_bound:.3f} ms at FP32 peak; "
-          f"kernel at {d_bound / k2_ms:.1%} of it ({d_flop / k2_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    # K2's own design: its FFTs (recomputed frames included) and bytes at its launch geometry.
+    d_flop, d_bytes = design_work(narrow, S, chunk, n_sm)
+    d_bound, d_by = bound(d_flop, d_bytes)
+    print(f"design [{smi}]: fused FFTs in shared memory {d_flop:.3e} FLOP, {d_bytes / 1e9:.3f} GB -> "
+          f"{d_bound:.3f} ms ({d_by}); kernel at {d_bound / k2_ms:.1%} of it "
+          f"({d_flop / k2_ms / 1e9:.2f} TFLOP/s)", flush=True)
     print(f"sharded profile: {device_share(lambda: su.process_batch(audio), iters=3)}", flush=True)
     del su, audio, y, xs
     torch.cuda.empty_cache()
     return {
         "name": "fused_bucket_lcr",
         "route": "cuda",
-        "source": "upmix_tpu_torch/csrc/fused.cu",
+        "source": "upmix_tpu_torch/csrc/omnibus.cu",
         "replaces": "upmix_tpu/ops/pallas_upmix.py:252",
         "launches": k2_launches,
         "max_abs_err": max_abs_err,
@@ -681,7 +703,7 @@ def sharded_phases(smi: str, dev) -> dict:
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
-        "library_ms": None,
+        "library_ms": k2_lib_ms,
     }
 
 
@@ -1013,29 +1035,36 @@ def probe_phases(smi: str, dev) -> list:
         int8_dot_chain_plain, make_consts, start_x,
     )
 
-    # 14. K4 parity: each variant's kernel against its plain version at the
-    # script's M = K = 512, after one apply and over a chain of 64: the int8
-    # rungs bit for bit, the float rungs within int8_dot.APPLY_TOLERANCE
-    # after one apply and int8_dot.CHAIN_TOLERANCE (coarse) over the chain.
+    # 14. K4 parity: each variant's kernel, at the cluster size the card's
+    # choice gives it, against its plain version at K = 512 and both M the
+    # probe's run gives it (512: clusters; 4224: a strip per SM, single
+    # CTAs), after one apply and over a chain of 64: the int8 rungs bit for
+    # bit, the float rungs within int8_dot.APPLY_TOLERANCE after one apply
+    # and int8_dot.CHAIN_TOLERANCE (coarse) over the chain.
     consts = {v: make_consts(v, dev) for v in VARIANTS}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {v: {"variant": v, "max_abs_err": 0.0} for v in VARIANTS}
+    for M in (512, int8_dot.SMS * int8_dot.ROWS):
+        xm = torch.from_numpy(start_x(M)).to(dev)
+        for v in VARIANTS:
+            cs = int8_dot.cluster_size(M, *int8_dot.card_clusters(v), n_sm)
+            for chain, limit in ((1, APPLY_TOLERANCE), (CHAIN, CHAIN_TOLERANCE.get(v))):
+                got = int8_dot_chain(xm, v, chain, consts[v])
+                ref = int8_dot_chain_plain(xm, v, chain, consts[v])
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                exact = bool(torch.equal(got, ref))
+                rows[v][f"max_rel_err_chain_{chain}{'' if M == 512 else '_all_sms'}"] = rel
+                rows[v]["max_abs_err"] = max(rows[v]["max_abs_err"], err)
+                print(f"K4 parity {v} (M={M}, cluster of {cs}, chain {chain}): max abs err {err:.3e}, relative "
+                      f"{rel:.3e}, exact {exact} (bar: {'bit for bit' if v in EXACT else f'relative <= {limit:g}'})",
+                      flush=True)
+                if not (exact if v in EXACT else rel <= limit) or not bool(torch.isfinite(got).all()):
+                    fail(f"dot-chain kernel {v} differs from its plain version at M = {M}, chain {chain}: "
+                         f"relative {rel:.3e}")
+    del got, ref, xm
     x = torch.from_numpy(start_x(512)).to(dev)
-    rows = {}
-    for v in VARIANTS:
-        rows[v] = {"variant": v}
-        for chain, limit in ((1, APPLY_TOLERANCE), (CHAIN, CHAIN_TOLERANCE.get(v))):
-            got = int8_dot_chain(x, v, chain, consts[v])
-            ref = int8_dot_chain_plain(x, v, chain, consts[v])
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            rel = err / float(ref.abs().max())
-            exact = bool(torch.equal(got, ref))
-            rows[v][f"max_rel_err_chain_{chain}"] = rel
-            rows[v]["max_abs_err"] = err
-            print(f"K4 parity {v} (M=512, chain {chain}): max abs err {err:.3e}, relative {rel:.3e}, exact {exact} "
-                  f"(bar: {'bit for bit' if v in EXACT else f'relative <= {limit:g}'})", flush=True)
-            if not (exact if v in EXACT else rel <= limit) or not bool(torch.isfinite(got).all()):
-                fail(f"dot-chain kernel {v} differs from its plain version at chain {chain}: relative {rel:.3e}")
-    del got, ref
 
     # The probe's own run through its entry points: check (every variant's
     # SNR against float64 after 64 x 10 applies, the script's check line)
@@ -1043,7 +1072,7 @@ def probe_phases(smi: str, dev) -> list:
     int8_dot.LAUNCHES = 0
     int8_dot.LAUNCHES_BY_VARIANT = {}
     snrs = int8_dot.check(VARIANTS, device=dev)
-    bench = int8_dot.bench(VARIANTS)
+    int8_dot.bench(VARIANTS)
     torch.cuda.synchronize()
     k4_launches = int8_dot.LAUNCHES
     by_variant = dict(int8_dot.LAUNCHES_BY_VARIANT)
@@ -1066,38 +1095,66 @@ def probe_phases(smi: str, dev) -> list:
               f"over {CHAIN * int8_dot.INNER} applies (bar 60 dB: {'meets' if snrs[v] >= 60 else 'misses'})",
               flush=True)
 
-    # 15. K4 timing: one call (chain 64) at M = 512 against the plain version,
-    # the bound (the products at the unit's dense peak) and the yardsticks.
-    w32 = consts["fp32"].weights[0]
-    wbf = consts["bf16x1"].weights[0].to(dev)
-    wi8 = consts["int8x1"].weights[0]
-    xi8 = torch.clamp(torch.round(x * (127.0 / 8.0)), -127, 127).to(torch.int8)
+    # 15. K4 timing: one call (chain 64) per rung at M = 512 and M = 4224
+    # (a strip per SM), beside the one PyTorch call for the same function
+    # where there is one; at M = 512 the plain version and the bound (the
+    # products at the unit's dense peak).
 
     def chained(fn, a):
         for _ in range(CHAIN):
             a = fn(a)
         return a
 
-    library = {
-        "fp32": lambda: chained(lambda a: torch.matmul(a, w32), x),
-        "bf16x1": lambda: chained(lambda a: torch.matmul(a, wbf), x.to(torch.bfloat16)),
-        "int8x1": lambda: [torch._int_mm(xi8, wi8) for _ in range(CHAIN)],
-    }
+    w32 = consts["fp32"].weights[0]
+    wbf = consts["bf16x1"].weights[0].to(dev)
+    wi8 = consts["int8x1"].weights[0]
+    for M in (512, int8_dot.SMS * int8_dot.ROWS):
+        xm = torch.from_numpy(start_x(M)).to(dev)
+        xi8 = torch.clamp(torch.round(xm * (127.0 / 8.0)), -127, 127).to(torch.int8)
+        library = {
+            "fp32": lambda: chained(lambda a: torch.matmul(a, w32), xm),
+            "bf16x1": lambda: chained(lambda a: torch.matmul(a, wbf), xm.to(torch.bfloat16)),
+            "int8x1": lambda: [torch._int_mm(xi8, wi8) for _ in range(CHAIN)],
+        }
+        for v in VARIANTS:
+            resident, at_once = int8_dot.card_clusters(v)
+            cs = int8_dot.cluster_size(M, resident, at_once, n_sm)
+            k_ms = time_ms(lambda: int8_dot_chain(xm, v, CHAIN, consts[v]))
+            lib_ms = time_ms(library[v]) if v in library else None
+            b_ms = CHAIN * flop_per_apply(v, M) / PEAK[UNIT[v]] * 1e3
+            us = k_ms * 1e3 / CHAIN
+            key = "" if M == 512 else "_all_sms"
+            rows[v].update({f"ms{key}": k_ms, f"library_ms{key}": lib_ms, f"us_apply{key}": us,
+                            f"bound_ms{key}": b_ms, f"peak_share{key}": b_ms / k_ms, f"cluster{key}": cs,
+                            f"ctas{key}": M // int8_dot.ROWS * cs, f"clusters_at_once{key}": at_once(cs)})
+            plain = ""
+            if M == 512:
+                p_ms = time_ms(lambda: int8_dot_chain_plain(xm, v, CHAIN, consts[v]), loops=3, iters=1)
+                rows[v].update({"M": 512, "launches": by_variant[v], "plain_ms": p_ms,
+                                "M_all_sms": int8_dot.SMS * int8_dot.ROWS})
+                plain = f", plain {p_ms:.3f} ms"
+            lib = f"{lib_ms:.3f} ms (kernel/library {k_ms / lib_ms:.2f})" if lib_ms is not None else "none"
+            print(f"K4 timing [{smi}] {v} M={M}: kernel {k_ms:.3f} ms per call of {CHAIN} applies = {us:.2f} us per "
+                  f"apply ({b_ms / k_ms:.1%} of the {UNIT[v]} peak; bound {b_ms:.4f} ms, operations){plain}; "
+                  f"library {lib}; cluster of {cs}, {M // int8_dot.ROWS * cs} CTAs, {at_once(cs)} clusters at once, "
+                  f"W {'resident' if resident(cs) else 'from L2'}",
+                  flush=True)
+    del xm, xi8
+    # What the cluster buys: each rung at M = 512 at every cluster size, and
+    # its us per apply from the slope between 1 and CHAIN applies (the rest
+    # of a call, launch and loads, is fixed).
+    x512 = torch.from_numpy(start_x(512)).to(dev)
     for v in VARIANTS:
-        k_ms = time_ms(lambda: int8_dot_chain(x, v, CHAIN, consts[v]))
-        p_ms = time_ms(lambda: int8_dot_chain_plain(x, v, CHAIN, consts[v]), loops=3, iters=1)
-        b_ms = CHAIN * flop_per_apply(v, 512) / PEAK[UNIT[v]] * 1e3
-        lib_ms = time_ms(library[v]) if v in library else None
-        ms_big, us_big, share_big = bench[(v, int8_dot.SMS * int8_dot.ROWS)]
-        rows[v].update({"M": 512, "launches": by_variant[v], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "library_ms": lib_ms, "peak_share": b_ms / k_ms,
-                        "M_all_sms": int8_dot.SMS * int8_dot.ROWS, "us_apply_all_sms": us_big,
-                        "peak_share_all_sms": share_big})
-        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
-        print(f"K4 timing [{smi}] {v}: kernel {k_ms:.3f} ms per call of {CHAIN} applies at M=512 "
-              f"({b_ms / k_ms:.1%} of the {UNIT[v]} peak; bound {b_ms:.4f} ms, operations), plain {p_ms:.3f} ms, "
-              f"library {lib}; at M={int8_dot.SMS * int8_dot.ROWS} {us_big:.2f} us per apply "
-              f"({share_big:.1%} of peak)", flush=True)
+        parts = []
+        resident, at_once = int8_dot.card_clusters(v)
+        for cs in int8_dot.CLUSTER_SIZES:
+            t_one = time_ms(lambda: int8_dot.dot_cuda(x512, v, 1, consts[v], cs))
+            t_all = time_ms(lambda: int8_dot.dot_cuda(x512, v, CHAIN, consts[v], cs))
+            slope = (t_all - t_one) * 1e3 / (CHAIN - 1)
+            parts.append(f"{cs}: {t_all:.3f} ms ({slope:.2f} us per apply, {t_one * 1e3 - slope:.1f} us fixed; "
+                         f"{at_once(cs)} clusters at once, W {'resident' if resident(cs) else 'from L2'})")
+        print(f"K4 clusters [{smi}] {v} M=512: " + "; ".join(parts), flush=True)
+    del x512
     del consts, x, w64
 
     # 16. K5: parity bit for bit in all six configurations, the probe's own

@@ -7,8 +7,9 @@ Marked `gpu`: skipped where no CUDA device is present.  On a GPU machine
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Small configs cover the kernels' edges that the bench config does not:
-blocks from 128 to 65536 points (odd and even powers of two, the
-two-stage split), overlaps 0.5 to 0.875, several segments per launch,
+blocks from 128 to 2^21 points (odd and even powers of two, the
+two-stage split, its N2 grown past 2^20 points), overlaps 0.5 to 0.875,
+K2 at every frame-pass size, several segments per launch,
 one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
 32768 bucket split); the bench config covers each of its block sizes,
@@ -306,6 +307,83 @@ def test_fused_kernel_matches_plain_float64(cuda, case, S):
             assert _snr(ref[:, o], got[:, o]) > 90.0, (b.block, o)
 
 
+# K2's buckets at every frame-pass size frame_pass picks for them (G
+# frames a pass: 16, 8, 4, 2, 1 with paired Rs) and a 65536-point bucket
+# that the gate admits (K <= 14), which takes the two-stage split:
+# (block, hop, first kept bin, kept bins, G, launches).
+FUSED_BUCKETS = {
+    "g16": (256, 64, 1, 95, 16, 1),
+    "g8": (512, 128, 0, 129, 8, 1),
+    "g4": (1024, 256, 3, 190, 4, 1),
+    "g2": (4096, 1024, 2, 190, 2, 1),
+    "g1_paired_8192": (8192, 2048, 0, 100, 1, 1),
+    "g1_paired_16384": (16384, 4096, 5, 50, 1, 1),
+    "split_65536": (65536, 16384, 1, 14, 1, 2),
+}
+
+
+def _bucket_plan(block, hop, lo, kept, seed):
+    """A live bucket of two bands keeping bins lo .. lo + kept - 1."""
+    from upmix_tpu_torch.models.offline import _BucketPlan
+    from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
+
+    aw = make_window("blackman_harris", block)
+    gains = np.zeros((2, block // 2 + 1), np.float32)
+    gains[:, lo : lo + kept] = np.random.default_rng(seed).uniform(0.1, 1.0, (2, kept))
+    return _BucketPlan(block, hop, 1, block, aw, design_wola_synthesis_window(aw, 1 - hop / block), gains)
+
+
+@pytest.mark.parametrize("case", list(FUSED_BUCKETS))
+@pytest.mark.parametrize("S", [1, 5])
+def test_fused_kernel_every_frame_pass(cuda, case, S):
+    # FP32 FFTs against float64 FFTs, >= 90 dB; two calls the same bits.
+    from upmix_tpu_torch.ops import fused
+    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain, takes_fused
+    from upmix_tpu_torch.ops.omnibus import frame_pass, make_bucket
+
+    block, hop, lo, kept, G, launches = FUSED_BUCKETS[case]
+    b = make_bucket(_bucket_plan(block, hop, lo, kept, S), cuda)
+    assert takes_fused(b) and b.kept == kept
+    if b.wide is None:
+        assert frame_pass(block, kept) == (G, G == 1)
+    chunk = 4 * block
+    x = torch.randn((S, 2, chunk + b.spill), device=cuda, generator=torch.Generator(cuda).manual_seed(S))
+    before = fused.LAUNCHES
+    got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES - before == launches
+    assert torch.equal(got, torch.cat(fused_bucket_lcr_batch(x, b), dim=-1))
+    ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
+    for o in range(3):
+        assert _snr(ref[:, o], got[:, o]) > 90.0, (case, o)
+
+
+def test_block_of_2p21_through_the_split(cuda):
+    # A 2^21-point bucket (the split's N2 grown to 256): K1 against its
+    # float64 plain version, >= 80 dB; the Upmixer at max_block_size 2^21
+    # runs on the card and matches the float64 whole-file path.
+    from upmix_tpu_torch.ops.omnibus import make_bucket
+
+    b = make_bucket(_bucket_plan(2**21, 2**19, 0, 700, 21), cuda)
+    assert (b.wide.n1, b.wide.n2, b.wide.cols) == (8192, 256, 1)
+    plan = make_omnibus_plan([b], 2**21)
+    x = torch.randn((1, 2, 2**21 + plan.halo), device=cuda, generator=torch.Generator(cuda).manual_seed(21))
+    got = torch.cat(omnibus_lcr_batch(x, plan), dim=-1)
+    ref = torch.cat(omnibus_lcr_batch_plain(x.double(), plan), dim=-1)
+    for o in range(3):
+        assert _snr(ref[:, o], got[:, o]) >= 80.0, o
+    cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0, max_block_size=2**21)
+    L, R = x[0, 0, : 2**21], x[0, 1, : 2**21]
+    up = Upmixer(cfg, device=cuda)
+    before = omnibus.LAUNCHES
+    out = up.process(L, R)
+    want_launches = sum(launches_per_bucket(bb.block) for bb in plans_from_numpy(_plan_buckets(cfg, 1), "cpu"))
+    assert omnibus.LAUNCHES - before == want_launches == 8  # 2^21 and 65536 split, four buckets of one launch
+    want = build_offline_fn(cfg, 2**21, chunk=0, device=cuda)(L.double(), R.double())
+    for r, g in zip(want, out):
+        assert _snr(r, g) >= 60.0
+
+
 def test_sharded_upmixer_launches_both_kernels(cuda):
     # A 2 x 4 mesh on one card: per call one K2 launch per narrow bucket
     # and K1's launches per wide bucket; matches the float64 whole-file
@@ -372,6 +450,32 @@ def test_dot_chain_kernel_matches_plain(cuda, variant):
     assert torch.equal(int8_dot.int8_dot_chain(x, variant, 0, consts), x)
 
 
+@pytest.mark.parametrize("M", [32, 96, 512, 4224])
+@pytest.mark.parametrize("variant", ["bf16x3", "bf16x1", "int8x3", "int8x3f", "int8x1", "fp32", "tf32x3"])
+def test_dot_chain_kernel_each_cluster_size(cuda, variant, M):
+    # The card's choice of cluster size at each M (one CTA a strip at
+    # 4224), and every size at M = 32, 96 and 512 (W resident or from L2,
+    # one wave or two): the int8 rungs bit for bit, the float rungs within
+    # APPLY_TOLERANCE after one apply and CHAIN_TOLERANCE over 64.
+    from upmix_tpu_torch.ops import int8_dot
+
+    resident, at_once = int8_dot.card_clusters(variant)
+    chosen = int8_dot.cluster_size(M, resident, at_once)
+    assert chosen == 1 if M == 4224 else chosen in int8_dot.CLUSTER_SIZES
+    consts = int8_dot.make_consts(variant, cuda)
+    x = torch.from_numpy(int8_dot.start_x(M)).to(cuda)
+    for cs in (None,) if M == 4224 else (None, *int8_dot.CLUSTER_SIZES):
+        for chain, limit in ((1, int8_dot.APPLY_TOLERANCE), (int8_dot.CHAIN, int8_dot.CHAIN_TOLERANCE.get(variant))):
+            got = int8_dot.dot_cuda(x, variant, chain, consts, cs)
+            ref = int8_dot.int8_dot_chain_plain(x, variant, chain, consts)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            if variant in int8_dot.EXACT:
+                assert torch.equal(got, ref), (cs, chain)
+            else:
+                assert float((got - ref).abs().max() / ref.abs().max()) <= limit, (cs, chain)
+
+
 def test_dot_chain_kernel_rejects_what_it_does_not_take(cuda):
     from upmix_tpu_torch.ops import int8_dot
 
@@ -380,6 +484,8 @@ def test_dot_chain_kernel_rejects_what_it_does_not_take(cuda):
     for bad in (x.double(), torch.zeros((48, 512), device=cuda), torch.zeros((512, 64), device=cuda).t()):
         with pytest.raises(ValueError):
             int8_dot.int8_dot_chain(bad, "bf16x3", 1, consts)
+    with pytest.raises(ValueError):  # a cluster size the kernel does not take
+        int8_dot.dot_cuda(x, "bf16x3", 1, consts, 16)
     with pytest.raises(ValueError):  # K other than 512
         int8_dot.int8_dot_chain(torch.zeros((64, 256), device=cuda), "bf16x3", 1,
                                 int8_dot.make_consts("bf16x3", cuda, 256))

@@ -15,6 +15,8 @@ the plain versions run in float64.  The JAX package's two-stage
 transform runs in float32, so the bar there is 100 dB.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,10 +28,19 @@ from upmix_tpu.ops.fftmm import irfft_real_banded, make_real_banded_plan, rfft_r
 from upmix_tpu.ops.pallas_omnibus import make_bd_sub
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import _plan_buckets, plans_from_numpy
-from upmix_tpu_torch.ops.fftplan import FFT_MAX, WIDE_N2, digit_positions, pass_twiddles, radices
+from upmix_tpu_torch.ops.fftplan import (
+    FFT_MAX,
+    WIDE_N2,
+    WIDE_TILE,
+    digit_positions,
+    inverse_bins,
+    pass_twiddles,
+    radices,
+    wide_split,
+)
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
-from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch_plain
+from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, make_wide_tables, omnibus_lcr_batch_plain
 from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr_plain
 
 BENCH = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0, max_block_size=65536))
@@ -45,6 +56,18 @@ def _csnr(ref, got) -> float:
 def _cplx(table) -> torch.Tensor:
     t = torch.as_tensor(np.asarray(table), dtype=torch.float64)
     return torch.complex(t[:, 0], t[:, 1])
+
+
+def cpu_plan(bucket_plans) -> tuple:
+    """plans_from_numpy on the CPU, each bucket over FFT_MAX given the
+    two-stage split's tables, which only a CUDA plan builds."""
+    out = []
+    for b in plans_from_numpy(bucket_plans, "cpu"):
+        if b.block > FFT_MAX:
+            wide = make_wide_tables(b.block, b.hop, b.lo, b.kept, "cpu")
+            b = dataclasses.replace(b, twiddles=torch.as_tensor(pass_twiddles(wide.n1)), wide=wide)
+        out.append(b)
+    return tuple(out)
 
 
 def _passes(n: int):
@@ -157,7 +180,7 @@ def single_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
 def two_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
     """The same for a bucket over FFT_MAX through the two-stage split."""
     B, K, lo, w = b.block, b.kept, b.lo, b.wide
-    n1, n2 = w.n1, WIDE_N2
+    n1, n2 = w.n1, w.n2
     tw1, twB = _cplx(b.twiddles), _cplx(w.stage2)
     pos1 = torch.as_tensor(digit_positions(n1))
     aw, sw = b.analysis_window.double(), b.synthesis_window.double()
@@ -204,7 +227,7 @@ def bucket_frames(frames, b):
 @pytest.fixture(scope="module")
 def bench_plan():
     cfg = UpmixConfig.make(BENCH[0], **BENCH[1])
-    return make_omnibus_plan(plans_from_numpy(_plan_buckets(cfg, CHUNK), "cpu"), CHUNK)
+    return make_omnibus_plan(cpu_plan(_plan_buckets(cfg, CHUNK)), CHUNK)
 
 
 def test_positions_and_tables():
@@ -235,9 +258,33 @@ def test_factorization_tiled_split():
     # fftplan.WIDE_KT (a first band to 400 Hz at 8 kHz and 32768 points:
     # K = 2049), against the plain version in float64.
     cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=32768)
-    (b,) = [b for b in plans_from_numpy(_plan_buckets(cfg, 32768), "cpu") if b is not None and b.block == 32768]
+    (b,) = [b for b in cpu_plan(_plan_buckets(cfg, 32768)) if b.block == 32768]
     assert b.kept == 2049 and b.wide.tiles == 5
     _check_offline_bucket(b, 32768, 1, 3)
+
+
+@pytest.mark.parametrize("log2b", range(17, 23))
+def test_wide_split_grows_n2(log2b):
+    # N2 = max(128, B / WIDE_TILE): N1 <= WIDE_TILE and a thread block
+    # takes at least one whole column at every block the config admits.
+    B = 2**log2b
+    w = wide_split(B, 3, 40)
+    assert w.n1 * w.n2 == B and w.n2 == max(WIDE_N2, B // WIDE_TILE)
+    assert 2 <= w.n1 <= WIDE_TILE and w.cols >= 1 and w.cols * w.n1 <= WIDE_TILE
+    assert w.groups * w.cols == w.n2
+    # Every bin of the inverse sits in one row of its tile.
+    assert sorted(int(e) for e in w.entries) == sorted(2 * j + m for _, j, m in inverse_bins(B, 3, 40))
+    t = make_wide_tables(B, B // 4, 3, 40, "cpu")
+    assert (t.n1, t.n2, t.groups) == (w.n1, w.n2, w.groups) and t.stage2.shape == (B, 2)
+
+
+def test_wide_split_limit_raises_at_plan_build():
+    # A thread block of the split owns whole rows of N2 positions: a hop
+    # that N2 does not divide raises when the plan is built, naming N2.
+    with pytest.raises(NotImplementedError, match="N2 = 256"):
+        make_wide_tables(2**21, 128 * 3, 0, 8, "cpu")
+    with pytest.raises(ValueError):
+        wide_split(16384, 0, 8)
 
 
 def _check_offline_bucket(b, chunk: int, S: int, seed: int) -> None:
@@ -291,7 +338,7 @@ def test_two_stage_split_matches_jax_banded():
     # fftmm.rfft_real_banded / irfft_real_banded (float32) on one channel.
     jcfg = JaxUpmixConfig.make(BENCH[0], **BENCH[1])
     (jp,) = [p for p in jax_plan_buckets(jcfg, CHUNK) if p.block_size == 65536]
-    (b,) = plans_from_numpy([jp], "cpu")
+    (b,) = cpu_plan([jp])
     w = b.wide
     assert (w.n1, b.block // w.n1) == (65536 // 128, 128)
     positive = {w.rows[r].item() for r in range(len(w.rows))

@@ -15,23 +15,22 @@ import torch
 
 from helpers import snr_db
 from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
+from upmix_tpu.models.offline import _PALLAS_WEIGHT_BYTES
 from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
 from upmix_tpu.ops.dftmm import make_direct_plan as jax_make_direct_plan
 from upmix_tpu.ops.pallas_upmix import fused_bucket_lcr_batch as jax_fused_bucket_lcr_batch
 from upmix_tpu.ops.pallas_upmix import make_fused_plan as jax_make_fused_plan
 from upmix_tpu_torch.config import UpmixConfig
-from upmix_tpu_torch.models.offline import plans_from_numpy
+from upmix_tpu_torch.models.offline import _plan_buckets, plans_from_numpy
 from upmix_tpu_torch.ops import fused
 from upmix_tpu_torch.ops.fused import (
     FUSED_WEIGHT_BYTES,
     fused_bucket_lcr,
     fused_bucket_lcr_batch,
     fused_bucket_lcr_batch_plain,
-    make_fused_bucket,
     takes_fused,
-    tile_frames,
 )
-from upmix_tpu_torch.ops.omnibus import make_omnibus_plan, omnibus_lcr_batch_plain
+from upmix_tpu_torch.ops.omnibus import launch_geometry, make_bucket, make_omnibus_plan, omnibus_lcr_batch_plain
 from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
 
 # tests/test_fftmm.py::test_pallas_fused_bucket_matches_fold: 8 kHz, max
@@ -57,7 +56,7 @@ def test_plain_matches_jax_interpret(bucket):
     p = jax_plan_buckets(JaxUpmixConfig.make(SMALL[0], **SMALL[1]), 4096)[bucket]
     fp = _jax_fused_plan(p, CHUNK)
     assert fp.n_tiles > 1
-    b = make_fused_bucket(p, "cpu")
+    b = make_bucket(p, "cpu")
     x = np.random.default_rng(bucket).standard_normal((3, 2, CHUNK + b.spill)).astype(np.float32)
     jmain, jspill = jax_fused_bucket_lcr_batch(jnp.asarray(x), fp, interpret=True)
     main, spill = fused_bucket_lcr_batch(torch.as_tensor(x), b)
@@ -115,12 +114,64 @@ def test_routing_on_the_default_config():
     assert [b.kept for b in narrow] == [190, 190, 95]
     for b in buckets:
         assert takes_fused(b) == (b.block * 2 * b.kept * 4 <= FUSED_WEIGHT_BYTES)
-    # Output frame positions per thread block: the spectra of T + 3 frames
-    # fit 100 KB, and 3 T rows one 64-row tile.
-    assert [tile_frames(b) for b in narrow] == [19, 19, 21]
+    # K2 runs K1's FFT kernels at K1's launch geometry: at the sharded
+    # path's 8 rows of a 2^19 chunk on 132 SMs, 2, 4 and 16 frames a pass.
+    geos = [launch_geometry(b, 2**19 // b.hop, 8, 132) for b in narrow]
+    assert [(g.frames, g.pair) for g in geos] == [(2, False), (4, False), (16, False)]
 
 
 def test_routing_all_to_one_kernel():
     cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
     omni, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), "cpu") + (None,), CHUNK)
     assert omni is None and [b.block for b in narrow] == [512, 256]
+
+
+# Seeded configs of tests/test_fuzz_configs.py's kind (its sample rates,
+# edge draws, windows, crossover, synthesis and rounding modes) within
+# the port's chunked domain (power-of-two blocks, overlaps whose hop
+# divides the block), with blocks up to 2^16 so both sides of the gate
+# are drawn.
+FUZZ_SRS = [8000.0, 16000.0, 22050.0, 44100.0, 48000.0, 96000.0, 192000.0]
+
+
+def _fuzz_params(seed):
+    rng = np.random.default_rng(seed)
+    sr = FUZZ_SRS[rng.integers(len(FUZZ_SRS))]
+    n_edges = int(rng.integers(1, 11))
+    lo = 10.0 if rng.random() < 0.3 else 0.0
+    edges = sorted([lo] + [float(e) for e in np.exp(rng.uniform(np.log(20.0), np.log(sr / 2), n_edges - 1))])
+    return dict(
+        band_edges=edges,
+        sr=sr,
+        overlap=(0.5, 0.75, 0.875, 0.9375)[rng.integers(4)],
+        window=("blackman_harris", "sqrt_hann", "hann", "blackman", "hamming", "rect")[rng.integers(6)],
+        xover_mode=("raised_cosine", "hard_zero")[rng.integers(2)],
+        synthesis=("wola", "analysis")[rng.integers(2)],
+        bin_rounding=("python", "cpp")[rng.integers(2)],
+        max_block_size=int(2 ** rng.integers(7, 17)),
+    )
+
+
+def test_gate_is_the_jax_gate_over_fuzz_configs():
+    # takes_fused admits exactly the live buckets that the JAX package
+    # builds a fused plan for (offline.py:397-403: hop | block and B x 2K
+    # x 4 <= 7 MiB), over 60 seeded configs; both outcomes are drawn.
+    seen = set()
+    for seed in range(20261017, 20261017 + 60):
+        params = _fuzz_params(seed)
+        try:
+            jcfg = JaxUpmixConfig.make(**params)
+        except ValueError:
+            continue
+        cfg = UpmixConfig.make(**params)
+        jax_gate = {}
+        for p in jax_plan_buckets(jcfg, 1):
+            nz = np.nonzero(p.gains.max(axis=0))[0]
+            if len(nz):
+                kept = int(nz[-1]) - int(nz[0]) + 1
+                jax_gate[p.block_size] = (p.block_size % p.hop_size == 0
+                                          and p.block_size * 2 * kept * 4 <= _PALLAS_WEIGHT_BYTES)
+        port = {b.block: takes_fused(b) for b in plans_from_numpy(_plan_buckets(cfg, 1), "cpu")}
+        assert port == jax_gate, (seed, params)
+        seen |= set(port.values())
+    assert seen == {True, False}

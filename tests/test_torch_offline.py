@@ -113,6 +113,30 @@ def test_chunked_matches_jax_chunked(n):
         assert snr_db(np.asarray(r), g.numpy()) > 80.0
 
 
+def test_block_of_2p21_on_the_chunked_path():
+    # max_block_size 2^21: the first band's block is 2^21 points.  A CPU
+    # plan builds no tables of the kernels' two-stage split (the plain
+    # version runs any block), so the chunked path runs it; the shortest
+    # input that fills the block, against the port's whole-file path and
+    # the float64 oracle.
+    edges, kw = BENCH[0], dict(sr=44100.0, max_block_size=2**21)
+    cfg = UpmixConfig.make(edges, **kw)
+    assert cfg.bands[0].block_size == 2**21
+    n = 2**21
+    L, R = make_stereo(n, cfg.sr, kind="mix", seed=21)
+    L32, R32 = L.astype(np.float32), R.astype(np.float32)
+    got = Upmixer(cfg, device="cpu").process_np(L32, R32)
+    whole = Upmixer(cfg, device="cpu", chunk=0).process_np(L32, R32)
+    ref = oracle_multiband(L32, R32, JaxUpmixConfig.make(edges, **kw))
+    for r, w, g in zip(ref, whole, got):
+        assert g.shape == (n,) and np.isfinite(g).all()
+        assert snr_db(w, g) >= 60.0
+        assert snr_db(r, g) >= 60.0
+    (wide,) = [b for b in plans_from_numpy(jax_plan_buckets(JaxUpmixConfig.make(edges, **kw), n), "cpu")
+               if b.block == 2**21]
+    assert wide.wide is None and wide.twiddles is None
+
+
 def test_plans_from_jax_give_bitwise_same_output():
     cfg = UpmixConfig.make(*BENCH[:1], **BENCH[1])
     n = 70000

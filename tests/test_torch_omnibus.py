@@ -8,6 +8,8 @@ relative error), the port's plain version uses float32 FFTs, so the bar
 is 80 dB SNR per output.
 """
 
+from dataclasses import fields
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,7 +99,11 @@ def test_plan_orders_buckets_and_drops_dead_ones():
     cfg = JaxUpmixConfig.make(*BENCH[:1], **BENCH[1])
     jplans = jax_plan_buckets(cfg, 4096)
     buckets = plans_from_numpy(jplans, "cpu")
-    assert all(b.w_fwd is None for b in buckets)  # weights only for the kernel
+    # The record holds the FFT kernels' tables and no direct-DFT weights; a
+    # CPU plan leaves out the 65536 bucket's split (its plain version needs none).
+    assert {f.name for f in fields(OmnibusBucket)} == {
+        "block", "hop", "lo", "analysis_window", "synthesis_window", "gains", "twiddles", "wide"}
+    assert [(b.block, b.wide is None, b.twiddles is None) for b in buckets if b.block > 16384] == [(65536, True, True)]
     assert [b.kept for b in buckets] == [224, 190, 190, 190, 95]
     plan = make_omnibus_plan(list(buckets) + [None], 65536)
     spills = [b.spill for b in plan.buckets]

@@ -275,8 +275,10 @@ def test_plan_declines_only_what_it_cannot_run():
     for S in (1, 5, 13):  # no group rule
         plan = make_pool_plan(cfg, HW, S, device="cpu")
         assert plan.n_streams == S and plan.window == 4 * HW
-        for b in plan.buckets:  # the FFT kernel's twiddles; no direct-DFT weights
-            assert torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block))) and not hasattr(b, "w_fwd")
+        for b in plan.buckets:  # windows, gains and the FFT kernel's twiddles: no direct-DFT weights
+            assert torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block))) and b.wide is None
+            assert [k for k, v in vars(b).items() if isinstance(v, torch.Tensor)] == [
+                "analysis_window", "synthesis_window", "gains", "twiddles"]
     assert make_pool_plan(cfg, 100, 8, device="cpu") is None  # hop does not divide hw
     mixed = UpmixConfig(sr=8000.0, bands=(
         UpmixConfig.make([0.0], sr=8000.0, max_block_size=512).bands[0],

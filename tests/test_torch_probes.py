@@ -125,19 +125,72 @@ def test_tf32_rounding_ties_away():
 @pytest.mark.parametrize("per_reg", (1, 2, 4))
 def test_fragment_order(per_reg):
     # The B operand of mma.sync m16n8k{8,16,32}: lane g*4 + t holds rows
-    # t*V + v and t*V + KT/2 + v of column g, V elements a register.
+    # t*V + v and t*V + KT/2 + v of column g, V elements a register;
+    # n-tile major, so the n-tiles of a CTA's columns are one range.
     Kw, N = 256, 64
     w = torch.arange(Kw * N, dtype=torch.float64).reshape(Kw, N)
     frags = int8_dot.pack_fragments(w, per_reg).reshape(-1, 32, 2, per_reg)
     kt, nt = 8 * per_reg, N // 8
-    for ks in range(Kw // kt):
+    ks_n = Kw // kt
+    for ks in range(ks_n):
         for n_tile in range(nt):
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
                 k0 = ks * kt + t * per_reg
-                got = frags[ks * nt + n_tile, lane]
+                got = frags[n_tile * ks_n + ks, lane]
                 assert torch.equal(got[0], w[k0 : k0 + per_reg, n_tile * 8 + g])
                 assert torch.equal(got[1], w[k0 + kt // 2 : k0 + kt // 2 + per_reg, n_tile * 8 + g])
+
+
+@pytest.mark.parametrize("cs", int8_dot.CLUSTER_SIZES)
+def test_cta_slices_are_contiguous(cs):
+    # CTA r of a cluster of cs reads its 512 / cs columns as one range of
+    # the packed weights, the mma rungs' fragments from offset r * (64 /
+    # cs) n-tiles: each range is the packing of those columns alone.
+    K = int8_dot.K_KERNEL
+    w = torch.from_numpy(int8_dot.make_weights(K))
+    nc = K // cs
+    for per_reg in (1, 2, 4):
+        frags = int8_dot.pack_fragments(w, per_reg).reshape(K // 8, -1)
+        for r in range(cs):
+            own = int8_dot.pack_fragments(w[:, r * nc : (r + 1) * nc], per_reg).reshape(nc // 8, -1)
+            assert torch.equal(frags[r * nc // 8 : (r + 1) * nc // 8], own)
+
+
+# What an H100 (132 SMs) reports for each rung's kernel by cluster size:
+# whether its CTAs keep their W columns resident (the kernel's shared
+# memory: A parts + W / size <= 227 KB), and how many clusters run at once
+# (cudaOccupancyMaxActiveClusters; PERF.md, section 6).
+H100_RESIDENT = {"bf16x1": {4, 8}, "bf16x3": {8}, "int8x1": {2, 4, 8}, "int8x3": {4, 8}, "int8x3f": {4, 8},
+                 "fp32": {8}, "tf32x3": set()}
+H100_AT_ONCE = {"bf16x1": {8: 30, 4: 30, 2: 198, 1: 264}, "bf16x3": {8: 15, 4: 92, 2: 132, 1: 132},
+                "int8x1": {8: 62, 4: 62, 2: 66, 1: 264}, "int8x3": {8: 30, 4: 30, 2: 132, 1: 132},
+                "int8x3f": {8: 30, 4: 30, 2: 132, 1: 132}, "fp32": {8: 15, 4: 92, 2: 198, 1: 264},
+                "tf32x3": {8: 15, 4: 30, 2: 66, 1: 132}}
+
+
+def _h100_pick(M, v):
+    return int8_dot.cluster_size(M, H100_RESIDENT[v].__contains__, H100_AT_ONCE[v].__getitem__)
+
+
+def test_cluster_size_from_m_and_the_card():
+    # M = 512 (16 strips): the smallest resident size that runs in one wave
+    # (bf16x1, int8), else the largest resident one (bf16x3 and fp32: 15
+    # clusters of 8 at once, a second wave, still faster than W from L2),
+    # else the largest that runs in one wave (tf32x3).  M = 4224 (a strip
+    # per SM): one CTA a strip.
+    assert {v: _h100_pick(512, v) for v in int8_dot.VARIANTS} == {
+        "bf16x3": 8, "bf16x1": 4, "int8x3": 4, "int8x3f": 4, "int8x1": 2, "fp32": 8, "tf32x3": 4}
+    assert {v: _h100_pick(32, v) for v in int8_dot.VARIANTS} == {
+        "bf16x3": 8, "bf16x1": 4, "int8x3": 4, "int8x3f": 4, "int8x1": 2, "fp32": 8, "tf32x3": 8}
+    for v in int8_dot.VARIANTS:
+        assert _h100_pick(4224, v) == 1 and _h100_pick(8192, v) == 1
+        for M in range(32, 8192 + 1, 32):
+            cs = _h100_pick(M, v)
+            assert cs in int8_dot.CLUSTER_SIZES and (M // 32 * cs <= int8_dot.SMS or cs == 1)
+    # Nothing resident and nothing in one wave: one CTA a strip.
+    assert int8_dot.cluster_size(512, lambda cs: False, lambda cs: 1) == 1
+    assert int8_dot.cluster_size(512, lambda cs: True, lambda cs: 99, n_sm=64) == 1
 
 
 def test_consts_and_checks():

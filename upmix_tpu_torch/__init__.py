@@ -9,8 +9,9 @@ so each module's counterpart is easy to find:
 
   - config: UpmixConfig / BandSpec / bucket_bands / EPS, the port's own
     copy of the JAX package's config (standard library only)
-  - ops.windows, ops.gains, ops.dftmm: numpy host plans (copies of the
-    JAX package's, pinned to it by tests)
+  - ops.windows, ops.gains: numpy host plans (copies of the JAX
+    package's, pinned to it by tests); ops.dftmm, the direct-DFT weights,
+    a pinned copy that no kernel reads; ops.fftplan: the FFT kernels' tables
   - ops.framing, ops.mask: tensor framing / overlap-add and the mask
   - ops.omnibus: the offline kernel's wrapper, its plain version and plan
   - ops.pool: the serving-pool step's wrapper, plain version and plan

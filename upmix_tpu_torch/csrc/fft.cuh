@@ -1,7 +1,7 @@
 // FP32 FFTs of power-of-two length in shared memory, run by one thread
-// block, and the kernels that omnibus.cu (K1) and pool.cu (K3) launch on
-// them: windowed stereo frames -> one packed complex FFT per frame -> L
-// and R at the kept bins -> gain x center mask x band sum (mask.cuh) ->
+// block, and the kernels that omnibus.cu (K1 and K2) and pool.cu (K3)
+// launch on them: windowed stereo frames -> one packed complex FFT per
+// frame -> L and R at the kept bins -> gain x center mask x band sum (mask.cuh) ->
 // Hermitian-packed inverse FFTs of the three outputs -> synthesis window
 // and overlap-add into the caller's epilogue (a Sink, below).
 //
@@ -35,7 +35,7 @@
 //     goes alone.
 //
 // Kernels, each templated on a Sink, the epilogue.  A Sink gives, for row
-// s (a segment of K1, a stream of K3):
+// s (a segment of K1 or K2, a stream of K3):
 //   int first_frame(int s)             frames below it are skipped: never
 //                                      read, so a NaN stays in its own row;
 //   void init(int s, long long p)      the start of the three outputs at
@@ -47,14 +47,15 @@
 //     output hops [bx T, bx T + T) of row s, starts them (init), and adds
 //     every frame that reaches them, G at a time, including the B/H - 1
 //     frames that reach in from the left, which the block to the left
-//     computes too (fused.cu's scheme).  Each output sample is owned by
+//     computes too.  Each output sample is owned by
 //     one block and summed in frame order: no atomics, the same bits every
 //     run.
 //   * wide_forward_kernel + wide_inverse_kernel (B > FFT_MAX, two
-//     launches): a 32768- or 65536-point frame does not fit one block's
+//     launches): a frame over 16384 points does not fit one block's
 //     227 KB, so it takes the two-stage split B = N1 x N2 of
 //     upmix_tpu/ops/fftmm.py:336-437, as the TPU kernel did
-//     (pallas_omnibus.py:377-409).  Launch 1: each block runs the N1-point
+//     (pallas_omnibus.py:377-409); N2 = 128, or B / 8192 past 2^20 points
+//     (ops/fftplan.py::wide_split), so N1 <= 8192.  Launch 1: each block runs the N1-point
 //     FFTs of `cols` of the N2 columns of one frame and sums, for each
 //     needed bin k (the kept bins and their mirrors), its columns' share
 //     of stage 2 with the twiddle w_B^(k b): N2/cols blocks per frame
@@ -226,6 +227,12 @@ struct WideArgs {
   const int* tile_ptr;   // pairs of tile t (bins t kt .. t kt + kt - 1) at tile_ptr[t] ..
   int n1, cols, n_tiles, kt;
 };
+
+// k b mod B, the stage-2 twiddle's index: unsigned, so the product wraps
+// mod 2^32, which B (a power of two) divides, at any block size.
+__device__ __forceinline__ unsigned stage2_index(int k, int b, int B) {
+  return ((unsigned)k * (unsigned)b) & (unsigned)(B - 1);
+}
 
 // C, Ls, Rs of kept bin j from the packed stereo spectrum values at bin k
 // (Z) and its mirror (Zm), through the mask.
@@ -455,7 +462,7 @@ wide_forward_kernel(const float* __restrict__ x, long long width, float2* __rest
     const int pos = fft_pos(k & (n1 - 1), log_n1);
     float2 acc = make_float2(0.f, 0.f);
     for (int c = 0; c < cols; ++c) {
-      const float2 v = cmul(buf[c * n1 + pos], w.stage2[(k * (b0 + c)) & (B - 1)]);
+      const float2 v = cmul(buf[c * n1 + pos], w.stage2[stage2_index(k, b0 + c, B)]);
       acc.x += v.x;
       acc.y += v.y;
     }
@@ -544,7 +551,7 @@ wide_inverse_kernel(const float2* __restrict__ part, Sink sink, BucketArgs a, Wi
             } else {
               val = make_float2(u.x - v.y, u.y + v.x);
             }
-            const float2 tv = cmulc(val, w.stage2[(kk * b) & (B - 1)]);
+            const float2 tv = cmulc(val, w.stage2[stage2_index(kk, b, B)]);
             acc.x += tv.x;
             acc.y += tv.y;
           }

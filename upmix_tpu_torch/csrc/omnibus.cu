@@ -4,8 +4,11 @@
 // one [S, 3, chunk + halo] output that every bucket of a config adds into.
 //
 // Replaces upmix_tpu/ops/pallas_omnibus.py::omnibus_lcr_batch (the TPU
-// kernel of the offline main path).  What it computes is the same; how is
-// thought through again for the card:
+// kernel of the offline main path), and upmix_tpu/ops/pallas_upmix.py::
+// fused_bucket_lcr_batch (K2), which computes the same function on one
+// bucket: ops/fused.py launches omni_bucket (and the split's pair) with
+// accumulate = 0.  What it computes is the same; how is thought through
+// again for the card:
 //
 //   * Work: the function's own algorithm, FP32 FFTs in shared memory
 //     (fft.cuh): per frame one packed-stereo forward FFT and 1.5

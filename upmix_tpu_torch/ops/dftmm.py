@@ -9,8 +9,10 @@ transform is one real product per direction against a precomputed slice:
 with the synthesis window, 2/N, and the 1/N weight of the DC and Nyquist
 bins folded into w_inv.  Angles are computed in float64 and the weights
 stored in float32, exactly as the JAX package does (tests pin them bit
-for bit).  The omnibus CUDA kernel multiplies by these slices;
-`rdft_direct` / `irdft_direct` are the plain tensor products.
+for bit).  No kernel of the port multiplies by these slices any more
+(its kernels run FFTs, `csrc/fft.cuh`); the copy stays, pinned by
+tests/test_torch_ops.py, with `rdft_direct` / `irdft_direct` the plain
+tensor products.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ plain table exp(-2 pi i m / n) of the two-stage split's stage 2.
 
 Blocks up to FFT_MAX points are one transform in one thread block.
 Wider blocks take the two-stage split B = N1 x N2 (`wide_split`), as
-`upmix_tpu/ops/fftmm.py::make_real_banded_plan` splits them: N1-point
+`upmix_tpu/ops/fftmm.py::make_real_banded_plan` splits them, with N2 =
+WIDE_N2 columns, or B / WIDE_TILE past WIDE_TILE x WIDE_N2 points so
+that one column's transform always fits a thread block: N1-point
 FFTs over the N2 columns of the frame, then, per needed bin k = k1 +
 N1 c, a direct sum over the columns with the combined twiddle
 w_B^(k b); the inverse computes stage-2 rows only where a bin lands
@@ -28,8 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 
 FFT_MAX = 16384  # widest one-block transform: 128 KB of complex float32
-WIDE_N2 = 128  # columns of the two-stage split (upmix_tpu/ops/pallas_omnibus.py: N2 = 128)
-WIDE_TILE = 8192  # complex values of one block's columns in the two-stage split
+WIDE_N2 = 128  # least columns of the two-stage split (upmix_tpu/ops/pallas_omnibus.py: N2 = 128)
+WIDE_TILE = 8192  # complex values of one block's columns in the two-stage split; the widest N1
 WIDE_KT = 512  # kept bins the split's inverse masks at a time (its shared memory: 48 bytes a bin)
 
 
@@ -115,14 +117,16 @@ def inverse_bins(block: int, lo: int, kept: int):
 
 
 def wide_split(block: int, lo: int, kept: int) -> WideSplit:
-    """The split B = N1 x N2 with N2 = WIDE_N2 and the inverse's stage-2
-    rows: only rows k1 = k mod N1 that some nonzero bin k lands on are
-    computed (the row restriction of pallas_omnibus.py:390-396), listed
-    per tile of kt kept bins, each tile's rows in order."""
-    n2 = WIDE_N2
+    """The split B = N1 x N2 with N2 = max(WIDE_N2, B / WIDE_TILE), so
+    that N1 <= WIDE_TILE and each block takes at least one column, and
+    the inverse's stage-2 rows: only rows k1 = k mod N1 that some nonzero
+    bin k lands on are computed (the row restriction of
+    pallas_omnibus.py:390-396), listed per tile of kt kept bins, each
+    tile's rows in order."""
+    if block & (block - 1) or block <= FFT_MAX:
+        raise ValueError(f"block {block}: the two-stage split takes powers of two over {FFT_MAX}")
+    n2 = max(WIDE_N2, block // WIDE_TILE)
     n1 = block // n2
-    if n1 > WIDE_TILE or n1 < 2:
-        raise NotImplementedError(f"block {block}: the two-stage split takes blocks up to {WIDE_TILE * n2}")
     kt = min(kept, WIDE_KT)
     tiles = [{} for _ in range(-(-kept // kt))]
     for k, j, mirror in inverse_bins(block, lo, kept):

@@ -1,4 +1,4 @@
-"""The fused bucket engine: one bucket over a batch of segments, one launch.
+"""The fused bucket engine: one bucket over a batch of segments.
 
 Port of `upmix_tpu/ops/pallas_upmix.py` (fused_bucket_lcr_batch, the TPU
 kernel that takes the buckets the omnibus leaves over), with the same
@@ -7,95 +7,57 @@ contract:
     x [S, 2, chunk + B - H] float32 -> (main [S, 3, chunk], spill [S, 3, B - H])
 
 Segment s's frames f = 0 .. chunk/H - 1 read x[s, :, f*H : f*H + B] and
-go through the windowed banded DFT, gain x center mask summed over the
-bucket's bands, the inverse and the overlap-add; `spill` is the part past
+go through the windowed FFT, gain x center mask summed over the bucket's
+bands, the inverse and the overlap-add; `spill` is the part past
 `chunk`, which the caller adds into the next segment's head.  The plan
-is the bucket's device record (`ops/omnibus.py::OmnibusBucket`: geometry,
-windows, kept-bin gains and, for the kernel, the f32 direct-DFT weights
-that `with_direct_weights` adds); `chunk` is read from x.  There is no bf16 hi/lo weight split:
-that exists only for Mosaic.
+is the bucket's device record (`ops/omnibus.py::OmnibusBucket`:
+geometry, windows, kept-bin gains, FFT tables); `chunk` is read from x.
 
-On a CUDA tensor `fused_bucket_lcr_batch` launches `csrc/fused.cu`; on a
-CPU tensor it runs `fused_bucket_lcr_batch_plain` (torch.fft).  There is
-no fallback between the two.
+This is the omnibus's function on one bucket, so on a CUDA tensor
+`fused_bucket_lcr_batch` launches the omnibus's kernels (`csrc/omnibus.cu`
+on `csrc/fft.cuh`) on that bucket alone, writing its span rather than
+adding into it: one launch up to `fftplan.FFT_MAX` points, two for a
+wider bucket (`launches_per_bucket`), at `omnibus.launch_geometry`.  On a CPU tensor it runs
+`fused_bucket_lcr_batch_plain` (torch.fft).  There is no fallback
+between the two.
 
 Routing.  The port's omnibus takes any bucket, so nothing is left over as
 on the TPU; the sharded path sends a bucket here when the JAX package's
 gate for building a fused plan admits it (hop | block and B * 2K * 4 <=
-7 MiB per direction, `upmix_tpu/models/offline.py:320`), and only such
-buckets carry the direct-DFT weights (`parallel/sharded.py::route_buckets`).
+7 MiB per direction, `upmix_tpu/models/offline.py:320`;
+`parallel/sharded.py::route_buckets`).
 """
 
 from __future__ import annotations
 
-import dataclasses
-
-import numpy as np
 import torch
 
-from upmix_tpu_torch.ops.dftmm import make_direct_plan
 from upmix_tpu_torch.ops.omnibus import (
     OmnibusBucket,
-    make_bucket,
+    check_kernel_tables,
+    launch_bucket,
     make_omnibus_plan,
     omnibus_lcr_batch_plain,
 )
 
-# CUDA kernel launches made by fused_bucket_lcr_batch (one per call).
+# CUDA kernel launches made by fused_bucket_lcr_batch (launches_per_bucket a call).
 LAUNCHES = 0
 
 # The JAX package's fused-plan gate: weight bytes per direction.
 FUSED_WEIGHT_BYTES = 7 << 20
 
-# Dynamic shared memory of one thread block (the spectra of its frames):
-# two blocks fit an SM's 228 KB beside their static tiles.
-_SMEM_BUDGET = 100 * 1024
-_TILE_ROWS = 64  # the inverse's row tile (csrc/tile.cuh: BM); 3 T rows fit one
-
 # The device record of a bucket is the omnibus's (geometry, windows,
-# kept-bin gains), built from a `_BucketPlan` of either package; None for
-# a bucket whose gains are all zero.
+# kept-bin gains, FFT tables), built by `omnibus.make_bucket` from a
+# `_BucketPlan` of either package.
 FusedBucket = OmnibusBucket
 
 
-def with_direct_weights(bucket: FusedBucket) -> FusedBucket:
-    """The bucket with the direct-DFT weight slices the kernel multiplies
-    by ([B, 2K] with the analysis window, [2K, B] with the synthesis
-    window), on the bucket's device; a CPU bucket is returned as it is
-    (the plain version needs none)."""
-    device = bucket.gains.device
-    if device.type == "cpu" or bucket.w_fwd is not None:
-        return bucket
-    dp = make_direct_plan(
-        bucket.block, bucket.lo, bucket.lo + bucket.kept - 1,
-        bucket.analysis_window.cpu().numpy(), bucket.synthesis_window.cpu().numpy(),
-    )
-
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
-
-    return dataclasses.replace(bucket, w_fwd=dev(dp.w_fwd), w_inv=dev(dp.w_inv))
-
-
-def make_fused_bucket(p, device) -> FusedBucket | None:
-    """Device record of one bucket plan for the fused kernel, weights included."""
-    b = make_bucket(p, device)
-    return None if b is None else with_direct_weights(b)
-
-
-def tile_frames(bucket: FusedBucket) -> int:
-    """Output frame positions T per thread block of the kernel: as many as
-    the spectra of its T + B/H - 1 frames (3 x 2K floats each) allow in
-    `_SMEM_BUDGET`, and 3 T rows within one 64-row tile; 0 when not even
-    one fits."""
-    n_frames = _SMEM_BUDGET // (3 * 2 * bucket.kept * 4)
-    return max(0, min(n_frames - (bucket.block // bucket.hop - 1), _TILE_ROWS // 3))
-
-
 def takes_fused(bucket: FusedBucket) -> bool:
-    """The routing gate: the bucket's weights within FUSED_WEIGHT_BYTES per
-    direction and at least one frame position per block."""
-    return bucket.block * 2 * bucket.kept * 4 <= FUSED_WEIGHT_BYTES and tile_frames(bucket) > 0
+    """The routing gate, the JAX package's (`upmix_tpu/models/offline.py:
+    320`): hop | block and the bucket's direct-DFT weights, B x 2K
+    float32, within FUSED_WEIGHT_BYTES per direction.  The kernel builds no
+    such weights; the gate keeps the JAX package's routing."""
+    return bucket.block % bucket.hop == 0 and bucket.block * 2 * bucket.kept * 4 <= FUSED_WEIGHT_BYTES
 
 
 def _chunk(x: torch.Tensor, bucket: FusedBucket) -> int:
@@ -127,30 +89,25 @@ def fused_bucket_lcr(x: torch.Tensor, bucket: FusedBucket):
     return main[0], spill[0]
 
 
-def _fused_cuda(x: torch.Tensor, b: FusedBucket, chunk: int) -> torch.Tensor:
+def _launched(rc: int, what: str) -> None:
     global LAUNCHES
+    LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def _fused_cuda(x: torch.Tensor, b: FusedBucket, chunk: int) -> torch.Tensor:
     from upmix_tpu_torch.ops import _build
 
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the fused kernel takes a contiguous float32 tensor")
-    if b.w_fwd is None or b.w_fwd.device != x.device:
-        raise ValueError(
-            f"bucket lives on {b.gains.device} without direct weights (with_direct_weights), input on {x.device}"
-        )
-    T = tile_frames(b)
-    if T < 1:
-        raise ValueError(f"bucket B={b.block} K={b.kept}: its spectra do not fit the kernel's block")
+    check_kernel_tables(b, x.device)
     lib = _build.load()
     S, _, width = x.shape
     y = torch.empty((S, 3, width), dtype=torch.float32, device=x.device)
-    rc = lib.fused_lcr(
-        x.data_ptr(), b.w_fwd.data_ptr(), b.w_inv.data_ptr(), b.gains.data_ptr(), y.data_ptr(),
-        S, chunk // b.hop, b.hop, b.block, b.kept, b.gains.shape[0], T, width,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"fused_lcr launch failed: cudaError {rc}")
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    launch_bucket(lib, x, y, b, chunk // b.hop, False, n_sm, torch.cuda.current_stream(x.device).cuda_stream,
+                  _launched)
     return y
 
 

@@ -21,7 +21,9 @@ and two rows that are the card's own:
            as cvt.rna); xh.wh + xh.wl + xl.wh on the tensor cores.
 
 On a CUDA tensor `int8_dot_chain` launches `csrc/int8_dot.cu` (K = 512,
-M a multiple of 32); on a CPU tensor it runs `int8_dot_chain_plain`.  The
+M a multiple of 32: a thread-block cluster of `cluster_size` CTAs per
+32-row strip, each CTA owning 512 / size columns); on a CPU tensor it
+runs `int8_dot_chain_plain`.  The
 plain version is also what the kernel is held to on the card: its float32
 products must run in full FP32 there
 (`torch.backends.cuda.matmul.allow_tf32 = False`).
@@ -55,8 +57,9 @@ LAUNCHES = 0
 LAUNCHES_BY_VARIANT: dict = {}
 
 K_KERNEL = 512  # csrc/int8_dot.cu: K
-ROWS = 32  # csrc/int8_dot.cu: R, rows per thread block
+ROWS = 32  # csrc/int8_dot.cu: R, rows per strip
 SMS = 132  # an H100 SXM
+CLUSTER_SIZES = (8, 4, 2, 1)  # CTAs per strip the kernel takes (8: the portable maximum)
 M_DEFAULT, CHAIN, INNER, VISITS, REPS = 512, 64, 10, 12, 3
 
 TPU_VARIANTS = ("bf16x3", "bf16x1", "int8x3", "int8x3f", "int8x1")
@@ -128,13 +131,60 @@ def split_tf32_np(w: np.ndarray):
 
 
 def pack_fragments(w: torch.Tensor, per_reg: int) -> torch.Tensor:
-    """W [K, N] in mma.sync B-fragment order, as csrc/int8_dot.cu reads it:
-    for k-step ks and n-tile nt, lane g*4 + t holds its two 32-bit
+    """W [K, N] in mma.sync B-fragment order, as csrc/int8_dot.cu reads it,
+    n-tile major (a CTA's columns are one contiguous range at any cluster
+    size): for n-tile nt and k-step ks, lane g*4 + t holds its two 32-bit
     registers of `per_reg` elements each (bf16 2, int8 4, tf32 1), element
     (half, v) being W[ks*8*per_reg + half*4*per_reg + t*per_reg + v, nt*8 + g]."""
     K, N = w.shape
     kt = 8 * per_reg
-    return w.reshape(K // kt, 2, 4, per_reg, N // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
+    return w.reshape(K // kt, 2, 4, per_reg, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
+
+
+def cluster_size(M: int, resident, at_once, n_sm: int = SMS) -> int:
+    """CTAs per 32-row strip of the kernel, from M and what the card says
+    of each size (`card_clusters`): among CLUSTER_SIZES with strips x size
+    <= n_sm, the smallest whose CTAs keep their W columns resident in
+    shared memory (`resident(cs)`) and whose clusters all run at once
+    (`at_once(cs)` >= strips); else the largest resident one; else the
+    largest whose clusters all run at once; else 1.  A smaller cluster
+    exchanges x with fewer peers and waits at a cheaper barrier; W read
+    from L2 each k-step, or a second wave of clusters, costs more than
+    either (PERF.md, section 6: each rung timed at every size)."""
+    strips = M // ROWS
+    sizes = [cs for cs in CLUSTER_SIZES if strips * cs <= n_sm]  # largest first
+    held = [cs for cs in sizes if resident(cs)]
+    for pick in ([cs for cs in held if at_once(cs) >= strips][-1:], held[:1],
+                 [cs for cs in sizes if at_once(cs) >= strips][:1]):
+        if pick:
+            return pick[0]
+    return 1
+
+
+_CARD = {}
+
+
+def card_clusters(variant: str):
+    """(resident, at_once) of `variant`'s kernel on the card, for
+    `cluster_size`: whether a cluster size keeps W resident, and how many
+    of its clusters the card runs at once (cudaOccupancyMaxActiveClusters);
+    each asked once."""
+    from upmix_tpu_torch.ops import _build
+
+    _check_variant(variant)
+    lib = _build.load()
+
+    def ask(fn, cs):
+        key = (fn, variant, cs)
+        if key not in _CARD:
+            args = (_CODES[variant], cs) if fn == "dot_chain_resident" else (ROWS, _CODES[variant], cs)
+            n = getattr(lib, fn)(*args)
+            if n < 0:
+                raise RuntimeError(f"{fn} failed for {variant} at cluster size {cs}")
+            _CARD[key] = n
+        return _CARD[key]
+
+    return (lambda cs: ask("dot_chain_resident", cs) == 1), (lambda cs: ask("dot_chain_clusters", cs))
 
 
 class DotConsts(NamedTuple):
@@ -154,7 +204,7 @@ def make_consts(variant: str, device="cuda", K: int = K_KERNEL) -> DotConsts:
     w = make_weights(K)
     if variant == "fp32":
         weights = (torch.from_numpy(w),)
-        frags = (weights[0], None, None)
+        frags = (weights[0], None, None)  # row-major, as the fp32 kernel reads it
     elif variant in ("bf16x3", "bf16x1"):
         h, l = split_bf16_np(w)
         weights = (h, l) if variant == "bf16x3" else (h,)
@@ -194,10 +244,13 @@ def int8_dot_chain(x: torch.Tensor, variant: str, chain: int, consts: DotConsts)
         return int8_dot_chain_plain(x, variant, chain, consts)
     if x.device.type != "cuda":
         raise ValueError(f"int8_dot_chain runs on cpu or cuda, not {x.device}")
-    return _dot_cuda(x, variant, chain, consts)
+    return dot_cuda(x, variant, chain, consts)
 
 
-def _dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts) -> torch.Tensor:
+def dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts, cluster: int | None = None) -> torch.Tensor:
+    """The kernel's launch: `cluster` CTAs per strip, one of CLUSTER_SIZES,
+    by default `cluster_size` for M on this card (the result does not
+    depend on it; the tests and chip_smoke.py's sweep set it)."""
     global LAUNCHES
     from upmix_tpu_torch.ops import _build
 
@@ -212,9 +265,14 @@ def _dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts) -> t
     hi, lo, sw = consts.frags
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if cluster is None:
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        cluster = cluster_size(M, *card_clusters(variant), n_sm)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     rc = _build.load().dot_chain(x.data_ptr(), out.data_ptr(), ptr(hi), ptr(lo), ptr(sw), M,
-                                 _CODES[variant], chain, stream)
+                                 _CODES[variant], chain, cluster, stream)
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] = LAUNCHES_BY_VARIANT.get(variant, 0) + 1
     if rc != 0:

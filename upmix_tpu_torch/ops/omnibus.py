@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from upmix_tpu_torch.ops.fftplan import FFT_MAX, WIDE_N2, launches_per_bucket, pass_twiddles, twiddles, wide_split
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, twiddles, wide_split
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
 
@@ -54,6 +54,7 @@ class WideTables:
     (`fftplan.WideSplit`)."""
 
     n1: int
+    n2: int
     cols: int
     kt: int  # kept bins per tile of the inverse
     stage2: torch.Tensor  # [B, 2]: exp(-2 pi i m / B), the stage-2 twiddles
@@ -64,7 +65,7 @@ class WideTables:
 
     @property
     def groups(self) -> int:
-        return WIDE_N2 // self.cols
+        return self.n2 // self.cols
 
     @property
     def tiles(self) -> int:
@@ -72,27 +73,32 @@ class WideTables:
 
 
 def make_wide_tables(block: int, hop: int, lo: int, kept: int, device) -> WideTables | None:
-    """The split's tables on `device` for a block over FFT_MAX, else None."""
+    """The split's tables on `device` for a block over FFT_MAX, else None.
+    Raises for a block the kernels cannot split: its hop must be a
+    multiple of N2 (a thread block owns whole rows of N2 positions)."""
     if block <= FFT_MAX:
         return None
-    if hop % WIDE_N2:
-        raise NotImplementedError(f"block {block} / hop {hop}: the two-stage split needs a hop divisible by {WIDE_N2}")
     w = wide_split(block, lo, kept)
+    if hop % w.n2:
+        raise NotImplementedError(
+            f"block {block} / hop {hop}: the two-stage split of this block needs a hop divisible by N2 = {w.n2}"
+        )
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
     return WideTables(
-        n1=w.n1, cols=w.cols, kt=w.kt, stage2=dev(twiddles(block), np.float32), rows=dev(w.rows, np.int32),
+        n1=w.n1, n2=w.n2, cols=w.cols, kt=w.kt, stage2=dev(twiddles(block), np.float32), rows=dev(w.rows, np.int32),
         row_ptr=dev(w.row_ptr, np.int32), entries=dev(w.entries, np.int32), tile_ptr=dev(w.tile_ptr, np.int32),
     )
 
 
 @dataclass(frozen=True, eq=False)
 class OmnibusBucket:
-    """One live bucket on its device: geometry, windows, kept-bin gains,
-    the FFT kernels' tables, and the direct-DFT weight slices where the
-    bucket goes to the fused kernel (ops/fused.py: `with_direct_weights`)."""
+    """One live bucket on its device: geometry, windows, kept-bin gains
+    and the FFT kernels' tables.  A plan built for the CPU's plain
+    version leaves out the tables of a block over FFT_MAX (`twiddles` and
+    `wide` None): the plain version runs any block."""
 
     block: int
     hop: int
@@ -100,10 +106,8 @@ class OmnibusBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    twiddles: torch.Tensor  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when wide)
+    twiddles: torch.Tensor | None  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when wide)
     wide: WideTables | None  # the two-stage split, for B > FFT_MAX
-    w_fwd: torch.Tensor | None = None  # [B, 2K], fused kernel only
-    w_inv: torch.Tensor | None = None  # [2K, B], fused kernel only
 
     @property
     def kept(self) -> int:
@@ -129,7 +133,9 @@ def make_bucket(p, device) -> OmnibusBucket | None:
     """Device record of one offline bucket plan, or None for a bucket whose
     gains are all zero (it contributes nothing).  `p` is a `_BucketPlan` of
     either package: block_size, hop_size, analysis_window,
-    synthesis_window, gains [n_bands, n_bins] as numpy arrays."""
+    synthesis_window, gains [n_bands, n_bins] as numpy arrays.  The
+    two-stage split's tables of a block over FFT_MAX are built for a CUDA
+    device only."""
     B, H = p.block_size, p.hop_size
     check_geometry(B, H)
     nz = np.nonzero(p.gains.max(axis=0))[0]
@@ -141,7 +147,8 @@ def make_bucket(p, device) -> OmnibusBucket | None:
     def dev(a, dtype=np.float32):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
-    wide = make_wide_tables(B, H, lo, hi - lo + 1, device)
+    wide = make_wide_tables(B, H, lo, hi - lo + 1, device) if device.type == "cuda" else None
+    n_fft = B if B <= FFT_MAX else (wide.n1 if wide is not None else 0)
     return OmnibusBucket(
         block=B,
         hop=H,
@@ -149,7 +156,7 @@ def make_bucket(p, device) -> OmnibusBucket | None:
         analysis_window=dev(p.analysis_window),
         synthesis_window=dev(p.synthesis_window),
         gains=dev(p.gains[:, lo : hi + 1]),
-        twiddles=dev(pass_twiddles(B if wide is None else wide.n1)),
+        twiddles=dev(pass_twiddles(n_fft)) if n_fft else None,
         wide=wide,
     )
 
@@ -274,51 +281,69 @@ def _launched(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
+def check_kernel_tables(b, dev) -> None:
+    """Raise unless bucket b carries the FFT kernels' tables on `dev`."""
+    if b.twiddles is None or (b.block > FFT_MAX and b.wide is None):
+        raise ValueError(f"bucket B={b.block} was planned without the kernels' tables (a CPU plan); plan it for {dev}")
+    if b.twiddles.device != dev:
+        raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
+
+
+def launch_bucket(lib, x, y, b, F: int, accumulate: bool, n_sm: int, stream, launched) -> None:
+    """Launch bucket b's kernels (csrc/omnibus.cu on csrc/fft.cuh) over F
+    frames of each row of x [S, 2, width] into y [S, 3, width], at
+    `launch_geometry`: omni_bucket for a block up to FFT_MAX points, the
+    split's omni_wide_forward and omni_wide_inverse for a wider one; the
+    bucket writes its span, or adds into it with `accumulate`;
+    launched(rc, name) after each launch."""
+    S, _, width = x.shape
+    B, H, K, w = b.block, b.hop, b.kept, b.wide
+    geo = launch_geometry(b, F, S, n_sm)
+    common = (b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr())
+    if w is None:
+        launched(
+            lib.omni_bucket(
+                x.data_ptr(), y.data_ptr(), b.analysis_window.data_ptr(), *common,
+                S, B, H, K, b.lo, b.gains.shape[0], F, geo.hops, geo.frames, int(geo.pair), width, int(accumulate),
+                stream,
+            ),
+            "omni_bucket",
+        )
+        return
+    part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=x.device)
+    launched(
+        lib.omni_wide_forward(
+            x.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(), b.twiddles.data_ptr(),
+            w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, F, width, stream,
+        ),
+        "omni_wide_forward",
+    )
+    launched(
+        lib.omni_wide_inverse(
+            part.data_ptr(), y.data_ptr(), *common, w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
+            w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, b.gains.shape[0],
+            w.n1, w.cols, F, geo.hops, width, int(accumulate), stream,
+        ),
+        "omni_wide_inverse",
+    )
+
+
 def _omnibus_cuda(x: torch.Tensor, plan: OmnibusPlan) -> torch.Tensor:
     from upmix_tpu_torch.ops import _build
 
     _check_input(x, plan)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the omnibus kernel takes a contiguous float32 tensor")
+    dev = x.device
+    for b in plan.buckets:
+        check_kernel_tables(b, dev)
     lib = _build.load()
     S, _, width = x.shape
-    dev = x.device
     y = torch.empty((S, 3, width), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for i, b in enumerate(plan.buckets):
-        if b.twiddles.device != dev:
-            raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
-        B, H, K, w = b.block, b.hop, b.kept, b.wide
-        F = plan.chunk // H
-        geo = launch_geometry(b, F, S, n_sm)
-        common = (b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr())
-        if w is None:
-            _launched(
-                lib.omni_bucket(
-                    x.data_ptr(), y.data_ptr(), b.analysis_window.data_ptr(), *common,
-                    S, B, H, K, b.lo, b.gains.shape[0], F, geo.hops, geo.frames, int(geo.pair), width, int(i > 0),
-                    stream,
-                ),
-                "omni_bucket",
-            )
-            continue
-        part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
-        _launched(
-            lib.omni_wide_forward(
-                x.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(), b.twiddles.data_ptr(),
-                w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, F, width, stream,
-            ),
-            "omni_wide_forward",
-        )
-        _launched(
-            lib.omni_wide_inverse(
-                part.data_ptr(), y.data_ptr(), *common, w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
-                w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, b.gains.shape[0],
-                w.n1, w.cols, F, geo.hops, width, int(i > 0), stream,
-            ),
-            "omni_wide_inverse",
-        )
+    for i, b in enumerate(plan.buckets):  # the first writes its span, the others add
+        launch_bucket(lib, x, y, b, plan.chunk // b.hop, i > 0, n_sm, stream, _launched)
     return y
 
 

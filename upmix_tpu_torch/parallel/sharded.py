@@ -41,7 +41,7 @@ import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.models.offline import build_offline_rows_fn, plans_from_numpy
-from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, takes_fused, with_direct_weights
+from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, takes_fused
 from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.omnibus import check_geometry, make_omnibus_plan, omnibus_lcr_batch
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
@@ -191,10 +191,10 @@ def sequence_plan(config: UpmixConfig, n_samples: int, n_seq: int) -> SequencePl
 
 def route_buckets(buckets, chunk: int):
     """(omnibus plan or None, fused buckets): each live bucket of a device
-    plan to the kernel whose design fits it (`ops/fused.py::takes_fused`);
-    the fused ones get the direct-DFT weights that kernel multiplies by."""
+    plan to K2 when the JAX package's fused gate admits it
+    (`ops/fused.py::takes_fused`), else to the omnibus (K1)."""
     live = [b for b in buckets if b is not None]
-    fused = tuple(with_direct_weights(b) for b in live if takes_fused(b))
+    fused = tuple(b for b in live if takes_fused(b))
     return make_omnibus_plan([b for b in live if not takes_fused(b)], chunk), fused
 
 
