@@ -101,8 +101,10 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
      alone (64 calls queued back to back behind a sleeping kernel, CUDA
      events: with L2 cold, the calls rotating over 340 MB of inputs and
      outputs, and with L2 warm, the same call repeated), its
-     plain version, its bound (bytes from HBM) and the share of it, and
-     an empty launch; a JSON line of the per-variant and
+     plain version, one PyTorch call that moves the same bytes (torch.add
+     of x's row 0 into three channels, under the same cold protocol; timed
+     only), its bound (bytes from HBM) and the share of it, the cluster
+     size and the bytes staged, and an empty launch; a JSON line of the per-variant and
      per-configuration rows;
  17. the app on the card: `cli.main` offline (split stems of two 2^21-
      sample WAVs) must launch K1 (launches_per_bucket per bucket and
@@ -162,10 +164,6 @@ FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # A kernel's bound may be at most 105% of its time (timing noise).
 BOUND_SLACK = 1.05
-# Copies of the overhead probe's x that its cold timing rotates over, and
-# the calls it times back to back.
-K5_SETS = 8
-K5_CALLS = 64
 
 
 def bound(flop: float, nbytes: float):
@@ -267,29 +265,6 @@ def time_ms(fn, loops: int = 7, iters: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
-
-
-def queued_ms(fn, calls: int) -> float:
-    """ms per call of `calls` calls of fn run back to back on the device:
-    they are queued behind a sleeping kernel, so no host gap falls between
-    them (the start event must still be pending when the last is queued)."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 2 * 10**7
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        queued = not start.query()
-        end.synchronize()
-        if queued:
-            return start.elapsed_time(end) / calls
-        cycles *= 4
-    fail(f"could not queue {calls} calls ahead of the device")
 
 
 def kernel_rows(fn, iters: int):
@@ -1183,36 +1158,32 @@ def probe_phases(smi: str, dev) -> list:
     # a call repeated on the same tensors stay in the 50 MB L2, and even
     # with cold inputs L2 can absorb one call's writes and drain them in
     # the host's gap before the next.  So the kernel's time is that of
-    # K5_CALLS calls queued back to back, rotating over K5_SETS copies of
-    # x that each keep their output (340 MB): all but the last 50 MB of
-    # their writes must reach HBM inside the timed span.
+    # op.CALLS calls queued back to back, rotating over op.SETS copies of
+    # x that each keep their output (340 MB; op.cold_ms): all but the last
+    # 50 MB of their writes must reach HBM inside the timed span.  The one
+    # PyTorch call that moves the same bytes (op.library_call) is timed
+    # the same way.
     n_tiles = op.N // op.TILE
-    xs = [x5] + [x5.clone() for _ in range(K5_SETS - 1)]
+    cluster = op.cluster_size(n_tiles, op.card_clusters(op.TILE))
+    xs = [x5] + [x5.clone() for _ in range(op.SETS - 1)]
     k5_rows = []
     for c, (_, _, _, script_ms) in zip(op.CONFIGS, script_rows):
-        fn = lambda: op.overhead_probe(x5, seed, weights[c], c[0], c[2])  # noqa: E731
-        ring, turn = [None] * K5_SETS, iter(range(10**9))
-
-        def cold():
-            i = next(turn) % K5_SETS
-            ring[i] = None
-            ring[i] = op.overhead_probe(xs[i], seed, weights[c], c[0], c[2])
-
-        for _ in range(K5_SETS):
-            cold()
-        cold_ms = queued_ms(cold, K5_CALLS)
-        warm_ms = queued_ms(fn, K5_CALLS)
-        del ring
-        p_ms = time_ms(lambda: op.overhead_probe_plain(x5, seed, weights[c], c[0], c[2]))
+        shift = seed + sum(w[0, 0] for w in weights[c])
+        cold_ms = op.cold_ms(lambda x_: op.overhead_probe(x_, seed, weights[c], c[0], c[2]), xs)  # noqa: B023
+        warm_ms = op.queued_ms(lambda: op.overhead_probe(x5, seed, weights[c], c[0], c[2]), op.CALLS)  # noqa: B023
+        lib_ms = op.cold_ms(lambda x_: op.library_call(x_, shift, op.N), xs)  # noqa: B023
+        p_ms = time_ms(lambda: op.overhead_probe_plain(x5, seed, weights[c], c[0], c[2]))  # noqa: B023
         b_ms = op.bound_bytes(op.N, c[2]) / HBM_BYTES_PER_S * 1e3
+        staged = op.staged_bytes(c[0], cluster)
         k5_rows.append({"views": c[0], "weights": c[1], "halo": c[2], "script_ms": script_ms,
-                        "device_ms": cold_ms, "device_ms_l2_warm": warm_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_share": b_ms / cold_ms, "staged_mb": op.staged_bytes(c[0]) / 1e6})
+                        "device_ms": cold_ms, "device_ms_l2_warm": warm_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_share": b_ms / cold_ms, "cluster": cluster,
+                        "staged_mb": staged / 1e6})
         print(f"K5 timing [{smi}] views={c[0]} weights={c[1]} halo={c[2]}: script protocol {script_ms:.4f} ms; "
               f"device {cold_ms:.4f} ms = {cold_ms * 1e3 / n_tiles:.3f} us per block back to back with L2 cold, at "
               f"{b_ms / cold_ms:.1%} of the bound {b_ms:.4f} ms (bytes from HBM); "
-              f"{warm_ms:.4f} ms with L2 warm; plain {p_ms:.4f} ms; staged {op.staged_bytes(c[0]) / 1e6:.1f} MB",
-              flush=True)
+              f"{warm_ms:.4f} ms with L2 warm; one PyTorch call {lib_ms:.4f} ms; plain {p_ms:.4f} ms; clusters of "
+              f"{cluster}, staged {staged / 1e6:.1f} MB", flush=True)
     del xs
     empty_ms = time_ms(lambda: op.empty_launch(n_tiles, 100), iters=1) / 100
     print(f"K5 floor [{smi}]: an empty launch of {n_tiles} blocks {empty_ms * 1e3:.2f} us (100 from one host "
@@ -1247,7 +1218,7 @@ def probe_phases(smi: str, dev) -> list:
             "plain_ms": k5["plain_ms"],
             "bound_ms": k5["bound_ms"],
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": k5["library_ms"],
         },
     ]
 

@@ -499,7 +499,7 @@ def test_overhead_probe_bit_exact(cuda, config):
     from upmix_tpu_torch.ops import overhead_probe as op
 
     n_views, n_weights, halo = config
-    for n, tile in ((8 * 4096, 4096), (4 * 8192, 8192), (6 * 1000, 1000)):
+    for n, tile in ((op.N, op.TILE), (8 * 4096, 4096), (4 * 8192, 8192), (6 * 1000, 1000)):
         x, rng = op.make_inputs(n, tile, cuda)
         weights = op.make_weights(n_weights, rng, cuda)
         seed = torch.tensor(0.125, device=cuda)
@@ -509,6 +509,44 @@ def test_overhead_probe_bit_exact(cuda, config):
         assert op.LAUNCHES - before == 1
         ref, ref_spill = op.overhead_probe_plain(x, seed, weights, n_views, halo, tile)
         assert torch.equal(out, ref) and torch.equal(spill, ref_spill)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_views", [1, 2, 3, 4])
+def test_overhead_probe_awkward_geometries(cuda, cluster, n_views):
+    # Tile counts that are not a multiple of the cluster (the last cluster
+    # short, or fewer tiles than one cluster), a tile smaller than a
+    # stage's piece (1000 floats), a ragged last piece (3072 = 2048 +
+    # 1024), a halo larger than the tile, at every cluster size and 1-4
+    # views.
+    from upmix_tpu_torch.ops import overhead_probe as op
+
+    for n_tiles, tile, halo in ((13, 1000, 4099), (5, 3072, 8192), (3, 16384, 49152), (1, 2048, 5)):
+        x, rng = op.make_inputs(n_tiles * tile, tile, cuda, seed=n_tiles)
+        weights = op.make_weights(3, rng, cuda)
+        seed = torch.tensor(-0.5, device=cuda)
+        out, spill = op.overhead_probe(x, seed, weights, n_views, halo, tile, cluster=cluster)
+        torch.cuda.synchronize()
+        ref, ref_spill = op.overhead_probe_plain(x, seed, weights, n_views, halo, tile)
+        assert torch.equal(out, ref) and torch.equal(spill, ref_spill), (n_tiles, tile, halo)
+
+
+def test_overhead_probe_cold_protocol_runs(cuda):
+    # The cold-L2 protocol and the yardstick at a small size: the library
+    # call computes the function too (x + (seed + s) rounds once less, so
+    # within an ulp or two).
+    from upmix_tpu_torch.ops import overhead_probe as op
+
+    n, tile = 16 * 1024, 1024
+    x, rng = op.make_inputs(n, tile, cuda)
+    weights = op.make_weights(2, rng, cuda)
+    seed = torch.tensor(0.25, device=cuda)
+    ref, _ = op.overhead_probe_plain(x, seed, weights, 4, 128, tile)
+    lib = op.library_call(x, seed + sum(w[0, 0] for w in weights), n)
+    torch.testing.assert_close(lib, ref, rtol=1e-6, atol=1e-6)
+    xs = [x, x.clone()]
+    ms = op.cold_ms(lambda x_: op.overhead_probe(x_, seed, weights, 4, 128, tile), xs)
+    assert 0 < ms < 100
 
 
 def test_overhead_probe_rejects_what_it_does_not_take(cuda):

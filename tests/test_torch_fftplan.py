@@ -58,16 +58,21 @@ def _cplx(table) -> torch.Tensor:
     return torch.complex(t[:, 0], t[:, 1])
 
 
-def cpu_plan(bucket_plans) -> tuple:
-    """plans_from_numpy on the CPU, each bucket over FFT_MAX given the
-    two-stage split's tables, which only a CUDA plan builds."""
+def with_split_tables(buckets) -> tuple:
+    """CPU buckets (offline or pool), each over FFT_MAX given the two-stage
+    split's tables, which only a CUDA plan builds."""
     out = []
-    for b in plans_from_numpy(bucket_plans, "cpu"):
+    for b in buckets:
         if b.block > FFT_MAX:
             wide = make_wide_tables(b.block, b.hop, b.lo, b.kept, "cpu")
             b = dataclasses.replace(b, twiddles=torch.as_tensor(pass_twiddles(wide.n1)), wide=wide)
         out.append(b)
     return tuple(out)
+
+
+def cpu_plan(bucket_plans) -> tuple:
+    """plans_from_numpy on the CPU, with the split's tables attached."""
+    return with_split_tables(plans_from_numpy(bucket_plans, "cpu"))
 
 
 def _passes(n: int):
@@ -309,6 +314,7 @@ def test_factorization_matches_plain_pool(hops, hw):
     cfg = UpmixConfig.streaming(POOL[0], sr=POOL[1]["sr"], hw_block_size=hw)
     S = 4
     plan = make_pool_plan(cfg, hw, S, device="cpu")
+    plan = dataclasses.replace(plan, buckets=with_split_tables(plan.buckets))
     K = plan.warmup
     rng = np.random.default_rng(hops)
     hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)))

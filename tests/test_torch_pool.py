@@ -291,6 +291,27 @@ def test_plan_declines_only_what_it_cannot_run():
         CudaStreamPool(wide, HW, 8, device="cpu")
 
 
+def test_cpu_pool_plan_builds_no_split_tables():
+    # At hw 8192 the streaming config's 32768 bucket is over FFT_MAX: a CPU
+    # plan carries none of the two-stage split's tables (only a CUDA plan
+    # builds them, as omnibus.make_bucket does), and the pool runs its
+    # plain version, against the JAX XLA engine on the same blocks.
+    hw, S = 8192, 2
+    cfg, jcfg = _cfgs(hw=hw, sr=48000.0, edges=[0.0, 500.0, 2000.0, 8000.0])
+    plan = make_pool_plan(cfg, hw, S, device="cpu")
+    big = [b for b in plan.buckets if b.block > 16384]
+    assert big and all(b.wide is None and b.twiddles is None for b in big)
+    assert all(b.twiddles is not None for b in plan.buckets if b.block <= 16384)
+    port = CudaStreamPool(cfg, hw, S, device="cpu")
+    ref = JaxBatch(jcfg, hw, n_streams=S)
+    rng = np.random.default_rng(8)
+    for i in range(6):
+        xl, xr = (rng.standard_normal((S, hw)).astype(np.float32) * 0.3 for _ in range(2))
+        got, want = port.push_blocks(xl, xr), ref.push_blocks(xl, xr)
+        for o in range(3):
+            _assert_close(want[o], got[o], what=f"block {i} output {o}")
+
+
 def test_cpu_dispatch_is_the_plain_version_and_options_not_ported():
     cfg, _ = _cfgs()
     plan = make_pool_plan(cfg, HW, 2, device="cpu")

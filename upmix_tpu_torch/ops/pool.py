@@ -39,10 +39,10 @@ import torch
 import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
-from upmix_tpu_torch.ops.fftplan import launches_per_bucket, pass_twiddles
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
-from upmix_tpu_torch.ops.omnibus import WideTables, launch_geometry, make_wide_tables
+from upmix_tpu_torch.ops.omnibus import WideTables, check_kernel_tables, launch_geometry, make_wide_tables
 
 # CUDA kernel launches made by pool_step_lcr (launches_per_bucket each).
 LAUNCHES = 0
@@ -51,7 +51,10 @@ LAUNCHES = 0
 @dataclass(frozen=True, eq=False)
 class PoolBucket:
     """One live bucket on its device: geometry, windows, kept-bin gains
-    and the FFT kernels' tables."""
+    and the FFT kernels' tables.  A plan built for the CPU's plain
+    version leaves out the tables of a block over FFT_MAX (`twiddles` and
+    `wide` None), as `omnibus.make_bucket` does: the plain version runs
+    any block."""
 
     block: int
     hop: int
@@ -60,7 +63,7 @@ class PoolBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    twiddles: torch.Tensor  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when split)
+    twiddles: torch.Tensor | None  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when split)
     wide: WideTables | None  # the two-stage split, for B > FFT_MAX
 
     @property
@@ -83,7 +86,9 @@ class PoolPlan:
 
 def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, device) -> PoolPlan | None:
     """Device plan from `_StreamBucketPlan` records (numpy arrays) of
-    either package; None when every bucket's gains are zero."""
+    either package; None when every bucket's gains are zero.  The
+    two-stage split's tables of a block over FFT_MAX are built for a CUDA
+    device only."""
     device = torch.device(device)
 
     def dev(a):
@@ -95,7 +100,8 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
         if not len(nz):
             continue  # a dead bucket contributes nothing
         lo, hi = int(nz[0]), int(nz[-1])
-        wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device)
+        wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device) if device.type == "cuda" else None
+        n_fft = p.block_size if p.block_size <= FFT_MAX else (wide.n1 if wide is not None else 0)
         buckets.append(
             PoolBucket(
                 block=p.block_size,
@@ -105,7 +111,7 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
                 analysis_window=dev(p.analysis_window),
                 synthesis_window=dev(p.synthesis_window),
                 gains=dev(p.gains[:, lo : hi + 1]),
-                twiddles=dev(pass_twiddles(p.block_size if wide is None else wide.n1)),
+                twiddles=dev(pass_twiddles(n_fft)) if n_fft else None,
                 wide=wide,
             )
         )
@@ -178,8 +184,8 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
         raise ValueError("the pool kernel takes a contiguous float32 history")
     if any(c.dtype != torch.float32 or not c.is_contiguous() or c.device != dev for c in carries):
         raise ValueError("the pool kernel takes contiguous float32 carries on the history's device")
-    if any(b.twiddles.device != dev for b in plan.buckets):
-        raise ValueError(f"plan buckets live on {plan.buckets[0].gains.device}, input on {dev}")
+    for b in plan.buckets:
+        check_kernel_tables(b, dev)
     lib = _build.load()
     S, _, width = hist.shape
     hw, nq = plan.hw, plan.warmup
