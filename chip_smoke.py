@@ -12,8 +12,9 @@ config (the Bela setup: edges 0/500/2000/8000 Hz, 48 kHz, hardware block
 2048) at 2048 streams, through `make_stream_pool(cfg, 2048, 2048)`; the
 two probes through their entry points (`ops.int8_dot` check and bench,
 `ops.overhead_probe.run_configs`); and the CLI in process on WAV files
-(offline, --streaming, --pipe, --serve).  Phases, one line each or more,
-any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
+(offline, --streaming, --pipe, --serve); and the stream server on
+loopback through `run_stream_server`.  Phases, one line each or more,
+any failure exits nonzero (phases 10-13 run between 5 and 6, 14-18 after
 8):
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -103,8 +104,8 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
      outputs, and with L2 warm, the same call repeated), its
      plain version, one PyTorch call that moves the same bytes (torch.add
      of x's row 0 into three channels, under the same cold protocol; timed
-     only), its bound (bytes from HBM) and the share of it, the cluster
-     size and the bytes staged, and an empty launch; a JSON line of the per-variant and
+     only), its bound (bytes from HBM) and the share of it, the bytes
+     staged, and an empty launch; a JSON line of the per-variant and
      per-configuration rows;
  17. the app on the card: `cli.main` offline (split stems of two 2^21-
      sample WAVs) must launch K1 (launches_per_bucket per bucket and
@@ -112,7 +113,20 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-17 after
      `Upmixer.process_np` + `scale_lcr` bit for bit, with --meter's
      realtime factor beside phase 5's; --streaming and --pipe on a short
      WAV must launch K3 (the pipe's output as long as its input); --serve
-     answers a ping and two jobs.
+     answers a ping and two jobs;
+ 18. the stream server on the card: `run_stream_server` on loopback at
+     the server's default config (16 slots, the CLI's default), 8
+     clients of 48 seeded blocks each in lockstep, at hops 1 (with a
+     checkpoint after 24 blocks, restored into a fresh server that the
+     clients resume on), hops 4 and pipeline 2: K3 must launch in each
+     run, and every client's frames must equal, bit for bit, a
+     CudaStreamPool on the card fed the same blocks at the same slots in
+     the server's cycles; the metrics as JSON and as Prometheus text
+     (parsed) over the stream port; then a 2048-slot server in real-time
+     mode with 16 live clients in a child process for a few seconds, at
+     pipeline 1 and 2: its cycle and dispatch times after a warm-up round
+     (p50, p99 and mean from ServerMetrics) beside the card's name and
+     power limit.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -497,6 +511,7 @@ def main():
     kernels += pool_phases(smi, dev)
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
+    server_phases(smi, dev)
 
     # 9. results.  A kernel faster than its bound means the bound does not
     # bound what was timed (bytes served by L2, say): a fault of this script.
@@ -1164,7 +1179,6 @@ def probe_phases(smi: str, dev) -> list:
     # PyTorch call that moves the same bytes (op.library_call) is timed
     # the same way.
     n_tiles = op.N // op.TILE
-    cluster = op.cluster_size(n_tiles, op.card_clusters(op.TILE))
     xs = [x5] + [x5.clone() for _ in range(op.SETS - 1)]
     k5_rows = []
     for c, (_, _, _, script_ms) in zip(op.CONFIGS, script_rows):
@@ -1174,16 +1188,15 @@ def probe_phases(smi: str, dev) -> list:
         lib_ms = op.cold_ms(lambda x_: op.library_call(x_, shift, op.N), xs)  # noqa: B023
         p_ms = time_ms(lambda: op.overhead_probe_plain(x5, seed, weights[c], c[0], c[2]))  # noqa: B023
         b_ms = op.bound_bytes(op.N, c[2]) / HBM_BYTES_PER_S * 1e3
-        staged = op.staged_bytes(c[0], cluster)
+        staged = op.staged_bytes(c[0])
         k5_rows.append({"views": c[0], "weights": c[1], "halo": c[2], "script_ms": script_ms,
                         "device_ms": cold_ms, "device_ms_l2_warm": warm_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                        "bound_ms": b_ms, "bound_share": b_ms / cold_ms, "cluster": cluster,
-                        "staged_mb": staged / 1e6})
+                        "bound_ms": b_ms, "bound_share": b_ms / cold_ms, "staged_mb": staged / 1e6})
         print(f"K5 timing [{smi}] views={c[0]} weights={c[1]} halo={c[2]}: script protocol {script_ms:.4f} ms; "
               f"device {cold_ms:.4f} ms = {cold_ms * 1e3 / n_tiles:.3f} us per block back to back with L2 cold, at "
               f"{b_ms / cold_ms:.1%} of the bound {b_ms:.4f} ms (bytes from HBM); "
-              f"{warm_ms:.4f} ms with L2 warm; one PyTorch call {lib_ms:.4f} ms; plain {p_ms:.4f} ms; clusters of "
-              f"{cluster}, staged {staged / 1e6:.1f} MB", flush=True)
+              f"{warm_ms:.4f} ms with L2 warm; one PyTorch call {lib_ms:.4f} ms; plain {p_ms:.4f} ms; "
+              f"staged {staged / 1e6:.1f} MB", flush=True)
     del xs
     empty_ms = time_ms(lambda: op.empty_launch(n_tiles, 100), iters=1) / 100
     print(f"K5 floor [{smi}]: an empty launch of {n_tiles} blocks {empty_ms * 1e3:.2f} us (100 from one host "
@@ -1347,6 +1360,210 @@ def app_phases(smi: str, dev, path_rtf: float):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+
+SERVER_SLOTS = 16  # the CLI's --streams default
+SERVER_CLIENTS = 8
+SERVER_BLOCKS = 48
+SERVER_CUT = 24  # blocks before the checkpoint
+LOAD_SLOTS = 2048
+LOAD_CLIENTS = 16
+LOAD_BLOCKS = 64  # per client: 2.7 s of audio at 48 kHz
+
+
+def _direct_frames(pool, x, hops: int) -> np.ndarray:
+    """What the server's clients at slots 0..C-1 must receive (lcr,
+    warmup-aligned): x [C, n_blocks * hw, 2] pushed through `pool` in the
+    server's cycles of `hops` blocks, then drain cycles of zero blocks.
+    -> [C, n_blocks * hw, 3]."""
+    C, n, _ = x.shape
+    hw, S = pool.hw_block_size, pool.n_streams
+    total = -(-(n // hw + pool.warmup_blocks - 1) // hops) * hops * hw
+    xs = np.zeros((S, total, 2), np.float32)
+    xs[:C, :n] = x
+    push = pool.push_blocks_multi if hops > 1 else pool.push_blocks
+    outs = [torch.stack(push(xs[:, i : i + hops * hw, 0], xs[:, i : i + hops * hw, 1]), -1)[:C].cpu().numpy()
+            for i in range(0, total, hops * hw)]
+    skip = (pool.warmup_blocks - 1) * hw
+    return np.concatenate(outs, axis=1)[:, skip : skip + n]
+
+
+def _serve_clients(sessions, x, first: int, last: int, due: int, finish: bool) -> np.ndarray:
+    """Each session (one thread each) sends blocks [first, last) of its
+    signal x[c] and reads `due` frames -> [C, due, 3]."""
+    import threading
+
+    hw = sessions[0].hw
+    got, errors = [None] * len(sessions), []
+
+    def run(c):
+        try:
+            for b in range(first, last):
+                sessions[c].send_block(x[c, b * hw : (b + 1) * hw, 0], x[c, b * hw : (b + 1) * hw, 1])
+            if finish:
+                sessions[c].finish()
+            got[c] = sessions[c].recv_frames(due)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(len(sessions))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"stream-server clients failed: {errors or 'timed out'}")
+    return np.stack(got)
+
+
+def server_phases(smi: str, dev):
+    """Phase 18: the stream server on the card, in process, on loopback."""
+    import tempfile
+    from pathlib import Path
+
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.serve_stream import StreamSession, fetch_metrics, run_stream_server
+
+    kw = dict(sr=POOL_SR, hw_block_size=POOL_HW, band_edges=POOL_EDGES, verbose=False, device=dev)
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    rng = np.random.default_rng(18)
+    n = SERVER_BLOCKS * POOL_HW
+    x = (rng.standard_normal((SERVER_CLIENTS, n, 2)) * 0.3).astype(np.float32)
+    refs = {h: _direct_frames(CudaStreamPool(cfg, POOL_HW, SERVER_SLOTS, device=dev), x, h) for h in (1, 4)}
+    skip = (CudaStreamPool(cfg, POOL_HW, 1, device=dev).warmup_blocks - 1) * POOL_HW
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/sessions.npz"
+        for hops, pipeline in ((1, 1), (4, 1), (1, 2)):
+            pool.LAUNCHES = 0
+            srv = run_stream_server(0, n_streams=SERVER_SLOTS, lockstep=True, hops=hops, pipeline=pipeline, **kw)
+            try:
+                if not isinstance(srv.pool, CudaStreamPool) or srv.pool.device != dev:
+                    fail(f"run_stream_server built {type(srv.pool).__name__} on {srv.pool.device}, not the CUDA "
+                         f"pool on {dev}")
+                sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(SERVER_CLIENTS)]
+                if [s.slot for s in sessions] != list(range(SERVER_CLIENTS)):
+                    fail(f"sessions got slots {[s.slot for s in sessions]}")
+                if hops == 1 and pipeline == 1:  # cut mid-stream: checkpoint, resume on a fresh server
+                    part1 = _serve_clients(sessions, x, 0, SERVER_CUT, SERVER_CUT * POOL_HW - skip, False)
+                    saved = srv.save_checkpoint(ckpt)
+                    for s in sessions:
+                        s.close()
+                    srv.close()
+                    srv = run_stream_server(0, n_streams=SERVER_SLOTS, lockstep=True, snapshot_path=ckpt, **kw)
+                    tokens = [s.token for s in sessions]
+                    sessions = [StreamSession(*srv.address, mix="lcr", token=t) for t in tokens]
+                    resumed = [s.server_in_frames for s in sessions]
+                    if saved != SERVER_CLIENTS or resumed != [SERVER_CUT * POOL_HW] * SERVER_CLIENTS:
+                        fail(f"checkpoint saved {saved} sessions, resumed at {resumed}")
+                    part2 = _serve_clients(sessions, x, SERVER_CUT, SERVER_BLOCKS, n - part1.shape[1], True)
+                    got = np.concatenate([part1, part2], axis=1)
+                else:
+                    got = _serve_clients(sessions, x, 0, SERVER_BLOCKS, n, True)
+                for s in sessions:
+                    s.close()
+                snap = fetch_metrics(*srv.address)
+                text = fetch_metrics(*srv.address, fmt="prometheus")
+            finally:
+                srv.close()
+            launches = pool.LAUNCHES
+            same = bool(np.array_equal(got, refs[hops]))
+            err = float(np.abs(got - refs[hops]).max())
+            cut = f" (checkpoint and resume at block {SERVER_CUT})" if hops == 1 and pipeline == 1 else ""
+            print(f"server e2e [{smi}] hops={hops} pipeline={pipeline}{cut}: "
+                  f"{SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks on {SERVER_SLOTS} slots, K3 launches {launches}, "
+                  f"frames equal the pool fed directly bit for bit: {same} (max abs err {err:.3g})", flush=True)
+            if launches == 0 or not same:
+                fail(f"the stream server at hops {hops}, pipeline {pipeline} launched K3 {launches} times or its "
+                     "frames differ from the pool fed directly")
+        samples = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        frames = SERVER_CLIENTS * n
+        print(f"server metrics: JSON counters {json.dumps(snap['counters'])}; Prometheus text {len(samples)} samples "
+              f"parsed, upmix_frames_total {samples.get('upmix_frames_total')}, cycle_seconds count "
+              f"{samples.get('upmix_cycle_seconds_count')}", flush=True)
+        if samples.get("upmix_frames_total") != frames or snap["counters"]["frames"] != frames:
+            fail(f"the server's metrics count {samples.get('upmix_frames_total')} / {snap['counters']['frames']} "
+                 f"frames, not {frames}")
+    print(f"server e2e: {time.perf_counter() - t0:.1f} s for the three runs", flush=True)
+
+    # A 2048-slot server in real-time mode (the deployment mode) with 16
+    # live clients streaming as fast as they can, from another process (in
+    # this one they would contend for the interpreter with the server's
+    # threads): one cycle per 42.67 ms.  A short round first warms the
+    # pool; the measured window is the second round's cycles.  At
+    # pipeline 2 the dispatch histogram is the wait for the previous
+    # cycle's outputs, which the card computed while the host waited for
+    # the tick: it reads how much of the device's work the host still waits on.
+    for pipeline in (1, 2):
+        srv = run_stream_server(0, n_streams=LOAD_SLOTS, pipeline=pipeline, **kw)
+        try:
+            windows = []
+            for blocks in (4, LOAD_BLOCKS):
+                before = srv.metrics.snapshot()
+                pool.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = subprocess.run([sys.executable, "-c", LOAD_CLIENTS_CODE, *map(str, srv.address),
+                                      str(LOAD_CLIENTS), str(blocks), str(POOL_HW), str(POOL_SR)],
+                                     cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                                     timeout=120)
+                windows.append((before, srv.metrics.snapshot(), time.perf_counter() - t0, pool.LAUNCHES))
+                if res.returncode != 0 or "clients ok" not in res.stdout:
+                    fail(f"the 2048-slot server's clients failed: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+        finally:
+            srv.close()
+        before, after, wall, launches = windows[-1]
+        cyc = _window(before["cycle_seconds"], after["cycle_seconds"])
+        dis = _window(before["dispatch_seconds"], after["dispatch_seconds"])
+        counts = {k: after["counters"][k] - before["counters"][k] for k in ("blocks", "late_zero_blocks")}
+        print(f"server load [{smi}] pipeline={pipeline}: {LOAD_SLOTS} slots, {LOAD_CLIENTS} live clients (another "
+              f"process) x {LOAD_BLOCKS} blocks in real time ({wall:.2f} s wall with the client process's start, "
+              f"{counts['blocks']} blocks, {counts['late_zero_blocks']} late zero blocks, K3 launches {launches}): "
+              f"cycle p50 {cyc['p50'] * 1e3:.1f} ms p99 {cyc['p99'] * 1e3:.1f} ms (bucket upper bounds) mean "
+              f"{cyc['mean'] * 1e3:.3f} ms over {cyc['count']} cycles; dispatch p50 {dis['p50'] * 1e3:.1f} ms p99 "
+              f"{dis['p99'] * 1e3:.1f} ms mean {dis['mean'] * 1e3:.3f} ms; deadline {POOL_HW / POOL_SR * 1e3:.2f} ms",
+              flush=True)
+        if launches == 0 or cyc["count"] == 0:
+            fail("the 2048-slot server ran no cycle on the card")
+
+
+# The load phase's clients: argv host, port, clients, blocks, hw, sr; each
+# client streams its seeded signal through stream_client on its own thread.
+LOAD_CLIENTS_CODE = """
+import sys, threading
+import numpy as np
+from upmix_tpu_torch.serve_stream import stream_client
+host = sys.argv[1]
+port, n, blocks, hw = (int(a) for a in sys.argv[2:6])
+sr = float(sys.argv[6])
+sig = (np.random.default_rng(blocks).standard_normal((n, blocks * hw, 2)) * 0.3).astype(np.float32)
+outs = [None] * n
+def run(c):
+    outs[c] = stream_client(host, port, sig[c, :, 0], sig[c, :, 1], expect_sr=sr)
+threads = [threading.Thread(target=run, args=(c,)) for c in range(n)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=100)
+assert all(o is not None and len(o[0]) == blocks * hw and np.isfinite(o).all() for o in outs)
+print("clients ok")
+"""
+
+
+def _window(a: dict, b: dict) -> dict:
+    """A LatencyHistogram's records between snapshots a and b: count, mean
+    and the p50 and p99 of LatencyHistogram.quantile (the first bucket
+    bound whose cumulative count reaches q x count; b's max past the last)."""
+    count = b["count"] - a["count"]
+    cum = [(bound, cb - ca) for (bound, cb), (_, ca) in zip(b["buckets"], a["buckets"])]
+    out = {"count": count, "mean": (b["sum"] - a["sum"]) / max(count, 1)}
+    for q in (0.5, 0.99):
+        out[f"p{int(q * 100)}"] = next((bound for bound, c in cum if count and c >= q * count), b["max"])
+    return out
 
 if __name__ == "__main__":
     main()

@@ -93,7 +93,7 @@ def test_helpers_equal():
 
 
 def test_custom_window_raises_at_construction():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: custom windows"):
         pcfg.UpmixConfig.make([0.0, 400.0], sr=8000.0, window="my_window")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pcfg.BandSpec(0.0, 400.0, 8000.0, 256, window="my_window")

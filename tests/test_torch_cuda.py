@@ -14,7 +14,9 @@ one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
 32768 bucket split); the bench config covers each of its block sizes,
 256 to 65536.  Launch counts are read from the wrappers'
-`launches_per_bucket`.
+`launches_per_bucket`.  The probes: K4 at every rung and cluster size,
+K5 in its six configurations and odd geometries.  The stream server on
+a CudaStreamPool on the card against the pool fed directly.
 """
 
 import numpy as np
@@ -511,21 +513,20 @@ def test_overhead_probe_bit_exact(cuda, config):
         assert torch.equal(out, ref) and torch.equal(spill, ref_spill)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("n_views", [1, 2, 3, 4])
-def test_overhead_probe_awkward_geometries(cuda, cluster, n_views):
-    # Tile counts that are not a multiple of the cluster (the last cluster
-    # short, or fewer tiles than one cluster), a tile smaller than a
-    # stage's piece (1000 floats), a ragged last piece (3072 = 2048 +
-    # 1024), a halo larger than the tile, at every cluster size and 1-4
+def test_overhead_probe_awkward_geometries(cuda, n_views):
+    # Odd tile counts (13, 5, 3, 1), tiles smaller than a stage's piece
+    # (1000 and 2048 floats), a ragged last piece (6144 = 4096 + 2048), a
+    # halo larger than the tile, more steps than the ring has slots (a
+    # 16384 tile: 4 pieces x 4 views = 16 steps through 6 slots), 1-4
     # views.
     from upmix_tpu_torch.ops import overhead_probe as op
 
-    for n_tiles, tile, halo in ((13, 1000, 4099), (5, 3072, 8192), (3, 16384, 49152), (1, 2048, 5)):
+    for n_tiles, tile, halo in ((13, 1000, 4099), (5, 6144, 8192), (3, 16384, 49152), (1, 2048, 5)):
         x, rng = op.make_inputs(n_tiles * tile, tile, cuda, seed=n_tiles)
         weights = op.make_weights(3, rng, cuda)
         seed = torch.tensor(-0.5, device=cuda)
-        out, spill = op.overhead_probe(x, seed, weights, n_views, halo, tile, cluster=cluster)
+        out, spill = op.overhead_probe(x, seed, weights, n_views, halo, tile)
         torch.cuda.synchronize()
         ref, ref_spill = op.overhead_probe_plain(x, seed, weights, n_views, halo, tile)
         assert torch.equal(out, ref) and torch.equal(spill, ref_spill), (n_tiles, tile, halo)
@@ -560,3 +561,57 @@ def test_overhead_probe_rejects_what_it_does_not_take(cuda):
         op.overhead_probe(x, seed, [torch.zeros((128, 128), device=cuda).t()[:, :64]], 1, 128, 1024)
     with pytest.raises(ValueError):  # a length the 16-byte staging cannot take
         op.overhead_probe(x[..., :-2].contiguous(), seed, [], 1, 128, 1024, n=3 * 1024)
+
+
+def test_pool_plan_on_the_card_carries_the_split_tables(cuda):
+    # A CPU plan leaves the two-stage split's tables out (test_torch_pool);
+    # a plan for the card builds them for its bucket over 16384 points.
+    from upmix_tpu_torch.ops.pool import make_pool_plan
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=8192)
+    plan = make_pool_plan(cfg, 8192, 2, device=cuda)
+    big = [b for b in plan.buckets if b.block > 16384]
+    assert big and all(b.wide is not None and b.twiddles is not None for b in big)
+    assert all(b.twiddles.device.type == "cuda" for b in plan.buckets)
+
+
+@pytest.mark.parametrize("hops,pipeline", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_stream_server_on_the_card_matches_the_pool_fed_directly(cuda, hops, pipeline):
+    # Two sessions on a CudaStreamPool on the card, in lockstep: the server
+    # launches K3, and each client's frames equal, bit for bit, a second
+    # pool on the card fed the same blocks at the same slots (the same
+    # kernels on the same inputs), warmup-aligned.
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool as pool_ops
+    from upmix_tpu_torch.serve_stream import StreamServer, StreamSession
+
+    hw, S, n_blocks = 256, 6, 10
+    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=hw)
+    rng = np.random.default_rng(hops * 10 + pipeline)
+    x = rng.standard_normal((2, n_blocks, hw, 2)).astype(np.float32) * 0.3  # [client, block, frame, ch]
+    direct = CudaStreamPool(cfg, hw, S, device=cuda)
+    skip = (direct.warmup_blocks - 1) * hw
+    # The server's cycles: hops blocks each, then drain cycles of zero
+    # blocks until the output catches up with the input.
+    total = -(-(n_blocks + direct.warmup_blocks - 1) // hops) * hops
+    xs = np.zeros((S, total * hw, 2), np.float32)
+    xs[:2, : n_blocks * hw] = x.reshape(2, n_blocks * hw, 2)
+    push = direct.push_blocks_multi if hops > 1 else direct.push_blocks
+    want = [np.stack([o.cpu().numpy()[:2] for o in push(xs[:, i : i + hops * hw, 0], xs[:, i : i + hops * hw, 1])],
+                     -1) for i in range(0, total * hw, hops * hw)]  # [2, hops * hw, 3] each
+    want = np.concatenate(want, axis=1)[:, skip : skip + n_blocks * hw]
+    before = pool_ops.LAUNCHES
+    with StreamServer(CudaStreamPool(cfg, hw, S, device=cuda), lockstep=True, hops=hops,
+                      pipeline=pipeline) as srv:
+        sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(2)]
+        assert [s.slot for s in sessions] == [0, 1]
+        for b in range(n_blocks):
+            for c, s in enumerate(sessions):
+                s.send_block(x[c, b, :, 0], x[c, b, :, 1])
+        for s in sessions:
+            s.finish()
+        got = np.stack([s.recv_frames(n_blocks * hw) for s in sessions])
+        for s in sessions:
+            s.close()
+    assert pool_ops.LAUNCHES > before
+    np.testing.assert_array_equal(got, want)

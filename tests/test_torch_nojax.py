@@ -1,8 +1,8 @@
 """The torch port must run where jax is not installed: importing every
 module of upmix_tpu_torch and running an Upmixer, a BatchUpmixer, a
-ShardedUpmixer on a CPU mesh, a stream pool, both probes' plain versions
-and the CLI on a WAV file leaves jax, and every module of the JAX
-package, unimported.
+ShardedUpmixer on a CPU mesh, a stream pool, a stream-server session,
+both probes' plain versions and the CLI on a WAV file leaves jax, and
+every module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -27,7 +27,7 @@ for name in names:
     importlib.import_module(name)
 for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
             "ops.fused", "parallel.sharded", "models.batch", "ops.int8_dot", "ops.overhead_probe", "app",
-            "cli", "io.wav", "metrics"):
+            "cli", "io.wav", "metrics", "serve_stream"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
@@ -45,6 +45,11 @@ for engine in ("cuda", "torch"):
     for _ in range(5):
         out = pool.push_blocks(np.random.default_rng(1).standard_normal((3, 256)), np.ones((3, 256)))
     assert np.isfinite(out[0].numpy()).all() and out[0].abs().max() > 0
+from upmix_tpu_torch.serve_stream import StreamServer, fetch_metrics, stream_client
+with StreamServer(make_stream_pool(scfg, 256, 2, engine="cuda", device="cpu"), lockstep=True) as srv:
+    got = stream_client(*srv.address, L[:1000], 0.5 * L[:1000], mix="lcr")
+    assert len(got) == 3 and got[0].shape == (1000,) and np.isfinite(got[0]).all()  # 4 blocks served
+    assert "upmix_frames_total 1024.0" in fetch_metrics(*srv.address, fmt="prometheus")
 from upmix_tpu_torch import cli
 from upmix_tpu_torch.io import read_wav, write_wav
 from upmix_tpu_torch.ops import int8_dot, overhead_probe

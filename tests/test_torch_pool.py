@@ -327,11 +327,11 @@ def test_cpu_dispatch_is_the_plain_version_and_options_not_ported():
         pool_step_lcr(hist.to("meta"), t, carries, plan)
     with pytest.raises(ValueError):
         pool_step_lcr(hist[..., :-1], t, carries, plan)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
         CudaStreamPool(cfg, HW, 8, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="spectral"):
         CudaStreamPool(cfg, HW, 8, device="cpu", ola="spectral")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1: aot.py"):
         CudaStreamPool(cfg, HW, 8, device="cpu", _shape_only=True)
 
 

@@ -256,34 +256,21 @@ def test_overhead_probe_checks_and_bytes():
         overhead_probe.overhead_probe(x, seed, [torch.zeros((2, 2))] * 65, 1, 128, tile=256)
     # The bound at the probe's N = 2^21: about 33.6 MB.
     assert overhead_probe.bound_bytes(2**21, 128) == 4 * (4 * 2**21 + 384)
-    # Clusters of one: every block stages its four views itself.
-    assert overhead_probe.staged_bytes(4, 1) == 4 * 8 * 2**21 + 12 * 2**21
+    assert overhead_probe.staged_bytes(4) == 4 * 8 * 2**21 + 12 * 2**21
 
 
-@pytest.mark.parametrize("n_views,cluster,tiles_staged", [
-    (1, 4, 128),  # one view: each tile once, whatever the cluster
-    (4, 4, 32 * 7),  # 32 clusters, each its 4 tiles and the 3 past them
-    (4, 8, 16 * 11),  # (8 + 3) / 8 of x's bytes
-    (2, 2, 64 * 3),
-    (4, 1, 128 * 4),
-])
-def test_overhead_probe_staged_bytes_count_a_multicast_once(n_views, cluster, tiles_staged):
-    # At the probe's N = 2^21 and TILE 16384: a [2, TILE] tile is 128 KB,
-    # out 24 MiB.
-    got = overhead_probe.staged_bytes(n_views, cluster)
-    assert got == tiles_staged * 8 * 16384 + 12 * 2**21
-    # A tile count that is not a multiple of the cluster: 5 tiles in
-    # clusters of 4 stage 4 + 1 own tiles and 2 x (views - 1) past them.
-    assert overhead_probe.staged_bytes(n_views, 4, n=5 * 1024, tile=1024) == (
-        (5 + 2 * (n_views - 1)) * 8 * 1024 + 12 * 5 * 1024)
-
-
-def test_overhead_probe_cluster_size_is_the_largest_one_wave():
-    # 128 tiles: 15 clusters of 8 at once is a second wave, 33 of 4 is not.
-    assert overhead_probe.cluster_size(128, {8: 15, 4: 33, 2: 66, 1: 132}.get) == 4
-    assert overhead_probe.cluster_size(128, {8: 16, 4: 33, 2: 66, 1: 132}.get) == 8
-    # No size fits one wave: the largest.
-    assert overhead_probe.cluster_size(512, {8: 16, 4: 33, 2: 66, 1: 132}.get) == 8
-    # Never larger than the tile count.
-    assert overhead_probe.cluster_size(3, {8: 16, 4: 33, 2: 66, 1: 132}.get) == 2
-    assert overhead_probe.cluster_size(1, {8: 16, 4: 33, 2: 66, 1: 132}.get) == 1
+@pytest.mark.parametrize("config", overhead_probe.CONFIGS)
+def test_overhead_probe_library_call_computes_the_function(config):
+    # K5's yardstick (`library_call`, timed beside the kernel on the card):
+    # one torch.add of x's row 0 and seed + s into three channels.  It adds
+    # seed + s first, so it may round once differently from the probe's
+    # (x + seed) + s: within 1e-6 of values of order one.
+    n_views, n_weights, halo = config
+    tile, n = 256, 8 * 256
+    x, rng = overhead_probe.make_inputs(n, tile, "cpu")
+    weights = overhead_probe.make_weights(n_weights, rng, "cpu")
+    seed = torch.tensor(0.375, dtype=torch.float32)
+    ref, _ = overhead_probe.overhead_probe_plain(x, seed, weights, n_views, halo, tile=tile)
+    got = overhead_probe.library_call(x, seed + sum(w[0, 0] for w in weights), n)
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)

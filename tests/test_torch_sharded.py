@@ -202,7 +202,7 @@ def test_data_only_mesh_pure_dp():
     ],
 )
 def test_unsupported_geometry_raises(axes, spec, kw):
-    # As the port's Upmixer (ROADMAP.md, Queue 1 item 3); the JAX package
+    # As the port's Upmixer (ROADMAP.md, Queue 1: gather framing); the JAX package
     # runs these through its gather path.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ShardedUpmixer(_cfg(spec, **kw), _mesh(axes))

@@ -204,7 +204,7 @@ def test_batch_churn_and_checkpoint_round_trip():
         pool.push_blocks(np.zeros((S, hw - 1)), np.zeros((S, hw - 1)))
     with pytest.raises(ValueError):
         BatchStreamingUpmixer(cfg, hw, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
         BatchStreamingUpmixer(cfg, hw, 2, device="cpu", mesh=object())
 
 
@@ -215,7 +215,7 @@ def test_make_stream_pool_selection_on_cpu():
     assert type(make_stream_pool(cfg, hw, 5, engine="cuda", device="cpu")) is CudaStreamPool
     with pytest.raises(ValueError, match="unknown engine"):
         make_stream_pool(cfg, hw, 8, engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
         make_stream_pool(cfg, hw, 8, device="cpu", mesh=object())
 
 

@@ -28,6 +28,9 @@ so each module's counterpart is easy to find:
     precision rungs of a chained product; the fixed cost of a launch)
   - app, cli: the offline, streaming, pipe and job-server entry points
     (`python -m upmix_tpu_torch.cli`); io.wav, metrics, utils.logging
+  - serve_stream: the multi-client TCP stream server on the serving pool
+    (StreamServer, StreamSession, stream_client, fetch_metrics,
+    run_stream_server), with checkpoint/resume and metrics
 
 This package never imports jax or anything of the JAX package: the
 machines it runs on need not have them.  Importing it does not import

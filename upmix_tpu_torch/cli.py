@@ -5,15 +5,20 @@ edit-the-source constants of main.py:29-30,62-73 and
 bela/upmix.cpp:24-29,525 as flags) for the modes that run on the ported
 engines: offline (one or many files; `--mesh` over the devices of this
 process, with the data-axis batch for many files), `--streaming`,
-`--pipe` and the `--serve` job server.  `--device` (default cuda) takes
-the place of the JAX package's platform choice and of its `--kernel`
-flag: on the card the offline path runs the omnibus kernel, `--mesh`
-the fused bucket kernel beside it, the streaming modes the pool kernel.
-Flags of modes that are not ported yet exit with a one-line error.
+`--pipe`, the `--serve` job server, the `--serve-stream` multi-client
+stream server with its network client (`--connect`) and metrics
+(`--fetch-metrics`, `--prometheus`, `--metrics-http`).  `--device`
+(default cuda) takes the place of the JAX package's platform choice and
+of its `--kernel` flag: on the card the offline path runs the omnibus
+kernel, `--mesh` the fused bucket kernel beside it, the streaming modes
+and the stream server the pool kernel.  Flags of modes that are not
+ported yet exit with a one-line error.
 
 Usage:
   python -m upmix_tpu_torch.cli song.wav [more.wav ...] --export-mode stereo_sum
   python -m upmix_tpu_torch.cli song.wav --device cpu      # the plain versions
+  python -m upmix_tpu_torch.cli - --serve-stream 7000 --sr 48000
+  python -m upmix_tpu_torch.cli song.wav --connect 127.0.0.1:7000
 """
 
 from __future__ import annotations
@@ -29,11 +34,6 @@ log = get_logger(__name__)
 
 # Flags of the JAX CLI whose modes are not ported yet (ROADMAP.md, Queue 1).
 NOT_PORTED = {
-    "serve_stream": ("--serve-stream", "the multi-client stream server"),
-    "connect": ("--connect", "the stream server's network client"),
-    "fetch_metrics": ("--fetch-metrics", "the stream server's metrics"),
-    "prometheus": ("--prometheus", "the stream server's metrics"),
-    "metrics_http": ("--metrics-http", "the stream server's metrics"),
     "save_aot": ("--save-aot", "AOT artifacts"),
     "load_aot": ("--load-aot", "AOT artifacts"),
     "pool_mesh": ("--pool-mesh", "the serving pool on a mesh"),
@@ -112,12 +112,66 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meter", action="store_true",
                    help="print the realtime factor (audio-sec per wall-sec) after each file")
     p.add_argument("--verbose", action="store_true", help="print per-band config table")
+    p.add_argument("--serve-stream", type=int, default=None, metavar="PORT",
+                   help="multi-client live-stream server: each TCP connection claims one slot of a shared serving "
+                   "pool, one pool dispatch per hardware block serves every live session (requires --sr; port 0 "
+                   "picks an ephemeral port; input must be '-')")
+    p.add_argument("--streams", type=int, default=16, help="stream-server pool size (concurrent sessions; default 16)")
+    p.add_argument("--serve-host", default="127.0.0.1", help="stream-server bind address (default 127.0.0.1)")
+    p.add_argument("--lockstep", action="store_true",
+                   help="stream-server dispatches when every live session has a block queued (deterministic, for "
+                   "file-fed clients) instead of on the wall clock")
+    p.add_argument("--pool-engine", choices=("auto", "cuda", "torch"), default="auto",
+                   help="stream-server pool engine (default auto: the CUDA pool on the card when the config is "
+                   "eligible, else the batched engine; both run the pool step)")
+    p.add_argument("--pool-ola", choices=("time", "spectral"), default="time",
+                   help="pool OLA dataflow: 'time' (ported); 'spectral' is not ported yet")
+    p.add_argument("--pool-group", type=int, default=16,
+                   help="the JAX pool's streams per TPU grid step: accepted and ignored (the card's pool has no group)")
+    p.add_argument("--serve-hops", type=int, default=1, metavar="T",
+                   help="stream-server temporal batching: dispatch T consecutive hardware blocks per pool cycle "
+                   "(CUDA pool only), at T block deadlines of added input latency; lockstep clients must send >= T "
+                   "blocks ahead")
+    p.add_argument("--serve-pipeline", type=int, default=1, choices=(1, 2), metavar="D",
+                   help="stream-server dispatch pipelining: 2 keeps one pool cycle in flight, delivering cycle N-1's "
+                   "outputs while the card computes cycle N, at one cycle of added output latency")
+    p.add_argument("--snapshot-path", default=None, metavar="PATH",
+                   help="stream-server session checkpoint file: restored on start (sessions park until their "
+                   "clients reconnect with their v2 resume tokens) and written on shutdown")
+    p.add_argument("--snapshot-every", type=float, default=None, metavar="SECS",
+                   help="with --snapshot-path: also checkpoint live sessions every SECS seconds (the capture pauses "
+                   "dispatch while the pool state copies to the host)")
+    p.add_argument("--resume-ttl", type=float, default=None, metavar="SECS",
+                   help="stream-server parked-session time-to-live: a restored session whose client has not resumed "
+                   "within SECS seconds may have its slot reclaimed when the pool is otherwise full (default: hold "
+                   "parked sessions forever)")
+    p.add_argument("--metrics-http", type=int, default=None, metavar="PORT",
+                   help="with --serve-stream: serve metrics over HTTP on PORT (GET /metrics = Prometheus text, "
+                   "/metrics.json = the full snapshot; 0 picks an ephemeral port)")
+    p.add_argument("--connect", default=None, metavar="HOST:PORT",
+                   help="network-client mode: stream the input WAV file(s) through a running --serve-stream server "
+                   "instead of processing locally; --pipe-mix picks the returned layout, outputs land in --out-dir. "
+                   "The file's sample rate must match the server's")
+    p.add_argument("--fetch-metrics", default=None, metavar="HOST:PORT",
+                   help="print a running --serve-stream server's metrics snapshot and exit (JSON by default, "
+                   "Prometheus text with --prometheus)")
+    p.add_argument("--prometheus", action="store_true",
+                   help="with --fetch-metrics: print the Prometheus text exposition instead of JSON")
     for dest, (flag, _what) in NOT_PORTED.items():
-        if dest == "prometheus":
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
+        p.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
     return p
+
+
+def parse_host_port(text: str, flag: str):
+    """(host, port) of a HOST:PORT flag, with a CLI error otherwise."""
+    host, _, port_s = text.rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        port = -1
+    if not host or not 0 < port < 65536:
+        raise SystemExit(f"error: {flag} expects HOST:PORT, got {text!r}")
+    return host, port
 
 
 def parse_edges(text: str):
@@ -196,8 +250,9 @@ def main(argv=None) -> int:
         raise SystemExit("error: --engine native (the C++ host shell) is not ported to upmix_tpu_torch; "
                          "use --engine torch")
     edges = parse_edges(args.band_edges)
-    if args.mesh is not None and (args.pipe or args.streaming or args.serve):
-        raise SystemExit("error: --mesh applies to the offline pipeline only")
+    if args.mesh is not None and (args.pipe or args.streaming or args.serve or args.serve_stream is not None
+                                  or args.connect is not None):
+        raise SystemExit("error: --mesh applies to the offline pipeline only (--pool-mesh is not ported)")
     if args.chunk is not None and args.chunk < 0:
         raise SystemExit("error: --chunk must be >= 0 (0 = whole-file)")
     if args.chunk is not None and args.mesh is not None:
@@ -211,7 +266,120 @@ def main(argv=None) -> int:
         raise SystemExit(f"error: {e}")
 
 
+def _fetch_metrics(args) -> int:
+    import json
+
+    from upmix_tpu_torch.serve_stream import fetch_metrics
+
+    host, port = parse_host_port(args.fetch_metrics, "--fetch-metrics")
+    try:
+        if args.prometheus:
+            print(fetch_metrics(host, port, fmt="prometheus"), end="")
+        else:
+            print(json.dumps(fetch_metrics(host, port)))
+    except (OSError, ConnectionError) as exc:
+        raise SystemExit(f"error: {host}:{port}: {exc}")
+    return 0
+
+
+def _connect(args) -> int:
+    """Stream each input WAV through a running --serve-stream server (no
+    local pool work) and write the returned mix."""
+    import os
+
+    import numpy as np
+
+    from upmix_tpu_torch.app import load_stereo
+    from upmix_tpu_torch.io import write_wav
+    from upmix_tpu_torch.serve_stream import stream_client
+
+    if args.pipe or args.streaming or args.serve or args.serve_stream is not None:
+        raise SystemExit("error: --connect is exclusive with --serve/--serve-stream/--pipe/--streaming")
+    host, port = parse_host_port(args.connect, "--connect")
+    if not args.inputs or args.inputs == ["-"]:
+        raise SystemExit("error: --connect needs input WAV files")
+    os.makedirs(args.out_dir, exist_ok=True)
+    for path in args.inputs:
+        L, R, sr, _peak = load_stereo(path)
+        t0 = time.perf_counter()
+        try:
+            outs = stream_client(host, port, L.astype(np.float32), R.astype(np.float32), mix=args.pipe_mix,
+                                 timeout=600.0, expect_sr=sr)
+        except (OSError, ConnectionError, ValueError) as exc:
+            raise SystemExit(f"error: {path}: {exc}")
+        dt = time.perf_counter() - t0
+        base = os.path.splitext(os.path.basename(path))[0]
+        out_path = os.path.join(args.out_dir, f"{base}_net_{args.pipe_mix}.wav")
+        write_wav(out_path, np.column_stack(outs), int(sr), subtype=args.subtype)
+        n = len(outs[0])
+        print(f"{path}: {n} frames via {host}:{port} in {dt:.2f}s ({n / sr / max(dt, 1e-9):.1f}x realtime) "
+              f"-> {out_path}")
+    return 0
+
+
+def _serve_stream(args, edges) -> int:
+    """Serve until ^C or SIGTERM, then checkpoint to --snapshot-path."""
+    import signal
+    import threading
+
+    from upmix_tpu_torch.serve_stream import run_stream_server
+
+    if args.pipe or args.streaming or args.serve:
+        raise SystemExit("error: --serve-stream is exclusive with --serve/--pipe/--streaming")
+    if args.sr is None or args.sr <= 0:
+        raise SystemExit("error: --serve-stream requires a positive --sr")
+    if args.inputs != ["-"]:
+        raise SystemExit("error: --serve-stream takes no input files; pass '-'")
+    if args.streams < 1:
+        raise SystemExit("error: --streams must be >= 1")
+    if args.serve_hops < 1:
+        raise SystemExit("error: --serve-hops must be >= 1")
+    if args.snapshot_every is not None:
+        if args.snapshot_path is None:
+            raise SystemExit("error: --snapshot-every requires --snapshot-path")
+        if args.snapshot_every <= 0:
+            raise SystemExit("error: --snapshot-every must be > 0")
+    try:
+        server = run_stream_server(
+            args.serve_stream, sr=args.sr, n_streams=args.streams, hw_block_size=args.hw_block, band_edges=edges,
+            host=args.serve_host, lockstep=args.lockstep, window=args.window, xover_mode=args.xover_mode,
+            threshold_factor=args.threshold_factor, synthesis=args.synthesis or "analysis",
+            bin_rounding=args.bin_rounding or "cpp", engine=args.pool_engine, ola=args.pool_ola,
+            group=args.pool_group, snapshot_path=args.snapshot_path, snapshot_every=args.snapshot_every,
+            metrics_http_port=args.metrics_http, hops=args.serve_hops, pipeline=args.serve_pipeline,
+            resume_ttl=args.resume_ttl, device=args.device,
+        )
+    except ValueError as e:
+        # Config-shape problems (pool eligibility, hops, band validation)
+        # are user errors, not tracebacks.
+        raise SystemExit(f"error: {e}")
+    try:
+        def _sigterm(*_args):  # a supervisor's restart checkpoints the sessions too
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _sigterm)
+        threading.Event().wait()  # serve until interrupted
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if args.snapshot_path is not None:
+            n = server.save_checkpoint(args.snapshot_path)
+            print(f"checkpointed {n} live sessions to {args.snapshot_path}", flush=True)
+        server.close()
+    return 0
+
+
 def _run(args, edges) -> int:
+    if args.fetch_metrics is not None:
+        return _fetch_metrics(args)
+    if args.prometheus:
+        raise SystemExit("error: --prometheus requires --fetch-metrics")
+    if args.connect is not None:
+        return _connect(args)
+    if args.metrics_http is not None and args.serve_stream is None:
+        raise SystemExit("error: --metrics-http requires --serve-stream")
+    if args.serve_stream is not None:
+        return _serve_stream(args, edges)
     offline = dict(
         band_edges=edges, overlap=args.overlap, window=args.window, xover_mode=args.xover_mode,
         max_block_size=args.max_block_size, threshold_factor=args.threshold_factor,

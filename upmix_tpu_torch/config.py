@@ -11,6 +11,7 @@ up in its runtime registry of custom windows.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Iterable, Sequence
@@ -31,8 +32,8 @@ def _check_window(name: str) -> None:
     if name not in BUILTIN_WINDOWS:
         raise NotImplementedError(
             f"custom window {name!r}: the torch port supports only the "
-            f"built-in windows {BUILTIN_WINDOWS} (custom windows: ROADMAP.md, "
-            "Queue 1 item 4)"
+            f"built-in windows {BUILTIN_WINDOWS} (ROADMAP.md, Queue 1: custom "
+            "windows)"
         )
 
 
@@ -296,6 +297,14 @@ def streaming_stft_table(
         )
         lines.append(f"  f_low >= {f:7.1f} Hz -> stft {size}")
     return "\n".join(lines)
+
+
+def config_to_dict(config: UpmixConfig) -> dict:
+    """JSON-safe dict of the full band-resolved config (the port's copy of
+    `upmix_tpu/aot.py::config_to_dict`).  The port builds no custom
+    windows (they raise at construction), so it carries no window
+    payloads."""
+    return dataclasses.asdict(config)
 
 
 def bucket_bands(bands: Iterable[BandSpec]) -> dict:

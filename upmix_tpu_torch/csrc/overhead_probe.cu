@@ -17,45 +17,38 @@
 // output tile, as the BlockSpecs put it in VMEM, so the time grows with
 // n_views.
 //
-// Design.  One thread block (CTA) per tile, in thread-block clusters of
-// CS consecutive tiles (1, 2, 4 or 8; ops/overhead_probe.py picks the
-// largest whose clusters all run at once).  A cluster needs the
-// mine + n_views - 1 distinct tiles from its first on; each of them
-// leaves L2 once, in pieces of [2, PIECE] floats, by one bulk copy per
-// row (cp.async.bulk) that its last receiving CTA issues with
-// .multicast::cluster into the same stage of every CTA that takes it as
-// a view (CTA r takes tile first + u as its view u - r).  So four views
-// in clusters of 4 stage 7/4 of x's bytes through L2 where one fetch per
-// CTA and view staged 4x.  The stages form a ring of STAGES slots in
-// each CTA's shared memory, each completed by an mbarrier (the receiver
-// arms it with the bytes it expects); half the ring is in flight while
-// the other half is read, and a cluster barrier between halves frees
-// them for the next copies.  The cluster walks its tiles piece by piece
-// (piece 0 of every tile, then piece 1, ...), so every CTA receives all
-// along and writes its output all along, while the later views are
-// staged: a CTA writes its tile's three channels with 16-byte streaming
-// stores (st.global.cs) from row 0 of view 0's stages as they land.
-// The spill is split over every CTA (the accumulator is exactly 0, so
-// any CTA may write any part); the weights are summed once per CTA, in
-// order, into shared memory.  The sums are the plain version's
-// (x + seed) + s in float32, so the output matches it bit for bit.
-// 128 tiles at N = 2^21 give 128 CTAs for 132 SMs: the bound is HBM's,
-// which 128 SMs saturate (each needs about 25 GB/s of its port).
+// Design.  One thread block per tile (128 at N = 2^21 for 132 SMs: the
+// bound is HBM's, which 128 SMs saturate, each needing about 25 GB/s of
+// its port).  Its views reach it in pieces of [2, PIECE] floats, one
+// bulk copy per row (cp.async.bulk) issued by thread 0 into a ring of
+// STAGES slots of shared memory, each slot completed by an mbarrier that
+// counts its bytes; the ring stays full: a slot is refilled as soon as
+// its piece has landed and been read.  The block walks its views piece
+// by piece (piece 0 of every view, then piece 1, ...), so it writes its
+// output all along while the later views are staged: row 0 of view 0's
+// pieces plus seed and the weights' sum, three channels, with 16-byte
+// streaming stores (st.global.cs).  The spill is split over every block
+// (the accumulator is exactly 0, so any block may write any part); the
+// weights' [0, 0] are loaded in parallel, first thing, and summed once
+// per block, in order.  The sums are the plain version's (x + seed) + s in float32, so
+// the output matches it bit for bit.
+//
+// Thread-block clusters that stage each tile once and multicast it to
+// every block taking it as a view (.multicast::cluster) were built and
+// timed: slower at every cluster size on the H100 (PERF.md, section 6).  L2
+// serves the repeated views; the blocks' requests in flight are what
+// count, and a cluster steps its blocks in lockstep.
 //
 // Plain C interface (ctypes); each launcher returns the CUDA error.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int PIECE = 2048;  // floats of one row a stage holds
-constexpr int STAGES = 12;   // the ring: half of it in flight while the other half is read
-constexpr int HALF = STAGES / 2;
+constexpr int PIECE = 4096;  // floats of one row a slot holds
+constexpr int STAGES = 6;    // slots of the ring
 constexpr int MAX_WEIGHTS = 64;
 
 struct Weights {
@@ -64,39 +57,10 @@ struct Weights {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 
-// CS = 1 launches as plain blocks (no cluster attribute): __syncthreads,
-// rank 0 and bulk copies without multicast.
-template <int CS>
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (CS == 1) __syncthreads();
-  else cg::this_cluster().sync();
-}
-
-template <int CS>
-__device__ __forceinline__ int cta_rank() {
-  if constexpr (CS == 1) return 0;
-  else return (int)cg::this_cluster().block_rank();
-}
-
-// One row of a piece into the same stage of every CTA in `mask`; each
-// receiver's mbarrier at the same offset counts the bytes.
-template <int CS>
-__device__ __forceinline__ void stage_row(float* dst, const float* src, uint32_t bytes, uint64_t* bar,
-                                          uint16_t mask) {
-  if constexpr (CS == 1) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-        " [%0], [%1], %2, [%3], %4;\n"
-        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask) : "memory");
-  }
-}
-
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
+// One row of a piece into a slot; the slot's mbarrier counts the bytes.
+__device__ __forceinline__ void stage_row(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 // Waits for the phase of `bar` with this parity to complete; a wait that
@@ -112,155 +76,83 @@ __device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
   }
 }
 
-template <int CS>
 __global__ void __launch_bounds__(THREADS)
 probe_kernel(const float* __restrict__ x, long long xw, const float* __restrict__ seed, Weights w,
-             int n_weights, int n_views, int n_tiles, int tile, int piece, long long N, float* __restrict__ out,
+             int n_weights, int n_views, int tile, int piece, long long N, float* __restrict__ out,
              float* __restrict__ spill, int halo) {
-  extern __shared__ __align__(16) float stage[];  // [STAGES][2 rows][piece], then the mbarriers and the sum
+  extern __shared__ __align__(16) float stage[];  // [STAGES][2 rows][piece], the mbarriers, the weights
   uint64_t* full = reinterpret_cast<uint64_t*>(stage + STAGES * 2 * piece);
-  float* wsum = reinterpret_cast<float*>(full + STAGES);
-  const int tid = threadIdx.x, rank = cta_rank<CS>();
-  const int first = blockIdx.x - rank;          // the cluster's first tile
-  const int mine = min(CS, n_tiles - first);    // its tiles (the last cluster may have fewer than CS)
-  const int sources = mine + n_views - 1;       // the distinct tiles it stages
+  float* wv = reinterpret_cast<float*>(full + STAGES);  // [MAX_WEIGHTS + 1]: each weight's [0, 0], then their sum
+  const int tid = threadIdx.x, i = blockIdx.x;
   const int pieces = (tile + piece - 1) / piece;
-  const int steps = sources * pieces;  // step k: piece k / sources of tile first + k % sources
+  const int steps = n_views * pieces;  // step k: piece k / n_views of view k % n_views
 
+  // Thread 0: piece k / n_views of view k % n_views into slot k % STAGES.
+  auto issue = [&](int k) {
+    const int v = k % n_views, p = k / n_views, s = k % STAGES;
+    const int len = min(piece, tile - p * piece);
+    const long long col = (long long)(i + v) * tile + (long long)p * piece;
+    float* dst = stage + s * 2 * piece;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(smem_u32(full + s)),
+                 "r"(8u * len) : "memory");
+    stage_row(dst, x + col, 4u * len, full + s);
+    stage_row(dst + piece, x + xw + col, 4u * len, full + s);
+  };
+
+  const float wk = tid < n_weights ? __ldg(w.p[tid]) : 0.f;  // in flight while thread 0 starts the copies
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(full + s)) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    float s = 0.f;
-    for (int k = 0; k < n_weights; ++k) s = __fadd_rn(s, __ldg(w.p[k]));
-    *wsum = s;
-  }
-  {  // this CTA's share of the spill: the accumulator, 0 halved at every step
-    const long long total = 3LL * halo, share = (total + gridDim.x - 1) / gridDim.x;
-    const long long lo = min(total, (long long)blockIdx.x * share), hi = min(total, lo + share);
-    const float acc = 0.f * 0.5f;
-    for (long long j = lo + tid; j < hi; j += THREADS) __stcs(spill + j, acc);
-  }
-  cluster_sync<CS>();  // every CTA's mbarriers are live before a peer's copy lands
-
-  // Thread 0: arm this CTA's stage for step k if it takes that piece, and
-  // issue the piece's copies if it is its last receiver.
-  auto issue = [&](int k) {
-    const int u = k % sources, p = k / sources;
-    const int lo = max(0, u - n_views + 1), hi = min(mine - 1, u);
-    if (rank < lo || rank > hi) return;
-    const int len = min(piece, tile - p * piece), s = k % STAGES;
-    expect_bytes(full + s, 8u * len);
-    if (rank == hi) {
-      const uint16_t mask = (uint16_t)(((1u << (hi + 1)) - 1) & ~((1u << lo) - 1));
-      const long long col = (long long)(first + u) * tile + (long long)p * piece;
-      float* dst = stage + s * 2 * piece;
-      stage_row<CS>(dst, x + col, 4u * len, full + s, mask);
-      stage_row<CS>(dst + piece, x + xw + col, 4u * len, full + s, mask);
-    }
-  };
-
-  if (tid == 0) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     for (int k = 0; k < min(steps, STAGES); ++k) issue(k);
   }
-  const float sd = __ldg(seed);
-  uint32_t parity = 0;  // bit s: the phase of stage s this CTA waits for next
-  for (int h = 0; h * HALF < steps; ++h) {
-    for (int k = h * HALF; k < min(steps, (h + 1) * HALF); ++k) {
-      const int u = k % sources, p = k / sources, v = u - rank, s = k % STAGES;
-      if (rank >= mine || v < 0 || v >= n_views) continue;
-      wait_phase(full + s, (parity >> s) & 1u);
-      parity ^= 1u << s;
-      if (v == 0) {  // view 0's row 0 gives the output tile, three channels
-        const float sw = *wsum;
-        const int len = min(piece, tile - p * piece);
-        const float4* row0 = reinterpret_cast<const float4*>(stage + s * 2 * piece);
-        const long long base = (long long)(first + rank) * tile + (long long)p * piece;
-        float4* o0 = reinterpret_cast<float4*>(out + base);
-        float4* o1 = reinterpret_cast<float4*>(out + N + base);
-        float4* o2 = reinterpret_cast<float4*>(out + 2 * N + base);
-        for (int j = tid; j < len / 4; j += THREADS) {
-          const float4 a = row0[j];
-          float4 y;
-          y.x = __fadd_rn(__fadd_rn(a.x, sd), sw);
-          y.y = __fadd_rn(__fadd_rn(a.y, sd), sw);
-          y.z = __fadd_rn(__fadd_rn(a.z, sd), sw);
-          y.w = __fadd_rn(__fadd_rn(a.w, sd), sw);
-          __stcs(o0 + j, y);
-          __stcs(o1 + j, y);
-          __stcs(o2 + j, y);
-        }
+  {  // this block's share of the spill: the accumulator, 0 halved at every step
+    const long long total = 3LL * halo, share = (total + gridDim.x - 1) / gridDim.x;
+    const long long lo = min(total, (long long)i * share), hi = min(total, lo + share);
+    const float acc = 0.f * 0.5f;
+    for (long long j = lo + tid; j < hi; j += THREADS) __stcs(spill + j, acc);
+  }
+  if (tid < n_weights) wv[tid] = wk;
+  __syncthreads();  // the mbarriers are live and the weights loaded
+  if (tid == 0) {
+    float s = 0.f;
+    for (int k = 0; k < n_weights; ++k) s = __fadd_rn(s, wv[k]);
+    wv[MAX_WEIGHTS] = s;
+  }
+  __syncthreads();
+  const float sd = __ldg(seed), sw = wv[MAX_WEIGHTS];
+  for (int k = 0; k < steps; ++k) {
+    const int s = k % STAGES;
+    wait_phase(full + s, (uint32_t)(k / STAGES) & 1u);
+    if (k % n_views == 0) {  // view 0's row 0 gives the output tile, three channels
+      const int p = k / n_views, len = min(piece, tile - p * piece);
+      const float4* row0 = reinterpret_cast<const float4*>(stage + s * 2 * piece);
+      const long long base = (long long)i * tile + (long long)p * piece;
+      float4* o0 = reinterpret_cast<float4*>(out + base);
+      float4* o1 = reinterpret_cast<float4*>(out + N + base);
+      float4* o2 = reinterpret_cast<float4*>(out + 2 * N + base);
+      for (int j = tid; j < len / 4; j += THREADS) {
+        const float4 a = row0[j];
+        float4 y;
+        y.x = __fadd_rn(__fadd_rn(a.x, sd), sw);
+        y.y = __fadd_rn(__fadd_rn(a.y, sd), sw);
+        y.z = __fadd_rn(__fadd_rn(a.z, sd), sw);
+        y.w = __fadd_rn(__fadd_rn(a.w, sd), sw);
+        __stcs(o0 + j, y);
+        __stcs(o1 + j, y);
+        __stcs(o2 + j, y);
       }
     }
-    if ((h + 2) * HALF < steps) {
-      cluster_sync<CS>();  // every CTA is done with this half's stages: refill them
-      if (tid == 0) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        for (int k = (h + 2) * HALF; k < min(steps, (h + 3) * HALF); ++k) issue(k);
-      }
+    __syncthreads();  // every thread is past its wait on slot s (and done reading it)
+    if (tid == 0 && k + STAGES < steps) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(k + STAGES);
     }
   }
-  if constexpr (CS > 1) cluster_sync<CS>();  // no CTA leaves while a peer may still copy into it
 }
 
 __global__ void empty_kernel() {}
-
-int smem_bytes(int piece) { return (int)(sizeof(float) * STAGES * 2 * piece + sizeof(uint64_t) * STAGES + 16); }
-
-struct Args {
-  const float* x;
-  long long xw;
-  const float* seed;
-  Weights w;
-  int n_weights, n_views, n_tiles, tile;
-  float* out;
-  float* spill;
-  int halo;
-  cudaStream_t stream;
-};
-
-// Launches the kernel at cluster size CS, or with `clusters` set stores
-// how many of its clusters the card runs at once and launches nothing.
-template <int CS>
-cudaError_t launch(const Args& a, int* clusters) {
-  const int piece = a.tile < PIECE ? a.tile : PIECE, smem = smem_bytes(piece);
-  static int smem_set = 0;  // set the attribute once per size, not on every launch
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(probe_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.n_tiles + CS - 1) / CS * CS, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (clusters) return cudaOccupancyMaxActiveClusters(clusters, (void*)probe_kernel<CS>, &cfg);
-  cfg.numAttrs = CS > 1;  // a cluster of one launches as plain blocks
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, probe_kernel<CS>, a.x, a.xw, a.seed, a.w, a.n_weights, a.n_views, a.n_tiles, a.tile,
-                         piece, (long long)a.n_tiles * a.tile, a.out, a.spill, a.halo);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(const Args& a, int cluster, int* clusters) {
-  switch (cluster) {
-    case 1: return launch<1>(a, clusters);
-    case 2: return launch<2>(a, clusters);
-    case 4: return launch<4>(a, clusters);
-    case 8: return launch<8>(a, clusters);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace
 
@@ -268,28 +160,26 @@ extern "C" {
 
 // x [1, 2, xw] (xw a multiple of 4, >= (n_tiles + n_views - 1) * tile),
 // seed a device float, weights[k] device pointers (only [0, 0] is read);
-// out [1, 3, n_tiles * tile], spill [1, 3, halo]; clusters of `cluster`
-// CTAs (1, 2, 4 or 8), one CTA per tile.
+// out [1, 3, n_tiles * tile], spill [1, 3, halo].
 int overhead_probe(const float* x, long long xw, const float* seed, const void* const* weights, int n_weights,
-                   int n_views, int n_tiles, int tile, int cluster, float* out, float* spill, int halo,
-                   void* stream) {
+                   int n_views, int n_tiles, int tile, float* out, float* spill, int halo, void* stream) {
   if (n_weights < 0 || n_weights > MAX_WEIGHTS || n_views < 1 || n_tiles < 1 || tile < 4 || tile % 4 || xw % 4 ||
       halo < 1)
     return (int)cudaErrorInvalidValue;
-  Args a = {x, xw, seed, {}, n_weights, n_views, n_tiles, tile, out, spill, halo, (cudaStream_t)stream};
-  for (int k = 0; k < n_weights; ++k) a.w.p[k] = static_cast<const float*>(weights[k]);
-  return (int)dispatch(a, cluster, nullptr);
-}
-
-// How many clusters of `cluster` CTAs of the probe at this tile the card
-// runs at once (cudaOccupancyMaxActiveClusters), or -1 on an error.
-int overhead_probe_clusters(int tile, int cluster) {
-  if (tile < 4 || tile % 4) return -1;
-  Args a = {};
-  a.tile = tile;
-  a.n_tiles = cluster;
-  int n = 0;
-  return dispatch(a, cluster, &n) == cudaSuccess ? n : -1;
+  Weights w = {};
+  for (int k = 0; k < n_weights; ++k) w.p[k] = static_cast<const float*>(weights[k]);
+  const int piece = tile < PIECE ? tile : PIECE;
+  const int smem = (int)(sizeof(float) * STAGES * 2 * piece + sizeof(uint64_t) * STAGES +
+                         sizeof(float) * (MAX_WEIGHTS + 1));
+  static int smem_set = 0;  // set the attribute once per size, not on every launch
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  probe_kernel<<<n_tiles, THREADS, smem, (cudaStream_t)stream>>>(
+      x, xw, seed, w, n_weights, n_views, tile, piece, (long long)n_tiles * tile, out, spill, halo);
+  return (int)cudaGetLastError();
 }
 
 // `count` launches of an empty kernel on `blocks` blocks of the probe's

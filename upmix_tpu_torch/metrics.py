@@ -1,9 +1,10 @@
-"""Latency histogram for the port's job server.
+"""Serving metrics: latency histograms, the stream server's metric set,
+and the Prometheus text exposition.
 
-The port's copy of `upmix_tpu.metrics.LatencyHistogram` (`run_jobs`
-reports completed-job wall-time percentiles from it).  The stream
-server's `ServerMetrics` and the Prometheus text come with the stream
-server.  Standard library only.
+The port's copy of `upmix_tpu/metrics.py`: `LatencyHistogram` (the job
+server reports completed-job wall-time percentiles from it),
+`ServerMetrics` (the stream server's counters and histograms) and
+`prometheus_text`.  Standard library only.
 """
 
 from __future__ import annotations
@@ -93,3 +94,86 @@ class LatencyHistogram:
         }
         snap.update(quantiles)
         return snap
+
+
+class ServerMetrics:
+    """The stream server's metric set: monotonically increasing
+    counters plus two latency histograms.
+
+    `counters` is a plain dict so `StreamServer.stats` can alias it.
+    Dict item assignment is atomic under the GIL and every counter is
+    incremented under one of the server's locks, so no extra lock is held
+    on the hot path.
+    """
+
+    COUNTER_KEYS = (
+        "accepted",            # sessions admitted (incl. resumes)
+        "rejected",            # pool-full / bad-token refusals
+        "blocks",              # hardware blocks dispatched
+        "frames",              # output frames delivered to clients
+        "late_zero_blocks",    # realtime ticks where an ACTIVE slot had
+                               # no input queued (zeros injected)
+        "resumed",             # parked sessions resumed by token
+        "parked_expired",      # parked sessions reclaimed by resume_ttl
+        "checkpoints",         # save_checkpoint completions
+        "dispatcher_failures", # dispatcher thread died (server stopped)
+    )
+
+    def __init__(self):
+        self.counters = {k: 0 for k in self.COUNTER_KEYS}
+        # Device and host time of one pool dispatch (push + fetch).
+        self.dispatch_seconds = LatencyHistogram()
+        # The whole locked dispatcher cycle: dispatch + mix + per-slot
+        # accounting.  cycle - dispatch = host-side serving overhead.
+        self.cycle_seconds = LatencyHistogram()
+
+    def snapshot(self) -> dict:
+        return {
+            "counters": dict(self.counters),
+            "dispatch_seconds": self.dispatch_seconds.snapshot(),
+            "cycle_seconds": self.cycle_seconds.snapshot(),
+        }
+
+
+def _prom_escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt(v: float) -> str:
+    # Prometheus wants plain floats; repr keeps full precision.
+    return repr(float(v))
+
+
+def prometheus_text(snapshot: dict, prefix: str = "upmix") -> str:
+    """Render a `StreamServer.metrics_snapshot()` dict in the Prometheus
+    text exposition format (v0.0.4)."""
+    lines = []
+
+    def emit(name, mtype, help_text, samples):
+        lines.append(f"# HELP {prefix}_{name} {help_text}")
+        lines.append(f"# TYPE {prefix}_{name} {mtype}")
+        for suffix, labels, value in samples:
+            lbl = ""
+            if labels:
+                pairs = ",".join(f'{k}="{_prom_escape(str(v))}"' for k, v in labels.items())
+                lbl = "{" + pairs + "}"
+            lines.append(f"{prefix}_{name}{suffix}{lbl} {_fmt(value)}")
+
+    for key, val in sorted(snapshot.get("counters", {}).items()):
+        emit(f"{key}_total", "counter", f"Total {key.replace('_', ' ')}.", [("", None, val)])
+    for key, val in sorted(snapshot.get("gauges", {}).items()):
+        emit(key, "gauge", f"Current {key.replace('_', ' ')}.", [("", None, val)])
+    for hname in ("dispatch_seconds", "cycle_seconds"):
+        h = snapshot.get(hname)
+        if not h:
+            continue
+        samples = [("_bucket", {"le": _fmt(b)}, c) for b, c in h["buckets"]]
+        samples.append(("_bucket", {"le": "+Inf"}, h["count"]))
+        samples.append(("_sum", None, h["sum"]))
+        samples.append(("_count", None, h["count"]))
+        emit(hname, "histogram", f"Stream-server {hname} histogram.", samples)
+    info = snapshot.get("config")
+    if info:
+        emit("server_info", "gauge", "Static server configuration.",
+             [("", {k: str(v) for k, v in sorted(info.items())}, 1.0)])
+    return "\n".join(lines) + "\n"

@@ -304,6 +304,17 @@ def _tree_map_like(like, snap):
     return got
 
 
+def check_ola(ola: str) -> None:
+    """Raise unless `ola` is the pool's time-OLA dataflow (the one ported)."""
+    if ola == "spectral":
+        raise NotImplementedError(
+            "ola='spectral' (the spectral-carry dataflow of pallas_pool.py:249) is not "
+            "ported yet (ROADMAP.md, Queue 1: the spectral OLA of the pool); ola='time' computes the same function"
+        )
+    if ola != "time":
+        raise ValueError(f"unknown ola mode {ola!r}; one of ('time', 'spectral')")
+
+
 def _assign_rows(state, idx, rows):
     if isinstance(state, dict):
         for k in state:
@@ -326,7 +337,7 @@ class _StreamPool:
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1 item 8)"
+                "a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)"
             )
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
@@ -419,21 +430,16 @@ class CudaStreamPool(_StreamPool):
     rule: any S >= 1.
 
     Not in this port yet (each raises NotImplementedError): `mesh=`
-    (ROADMAP.md Queue 1 item 8), ola="spectral" (the same function by
-    another dataflow, Queue 1 item 5), `_shape_only` AOT loading (item 9).
+    (ROADMAP.md, Queue 1: the pool on a mesh), ola="spectral" (the same
+    function by another dataflow; the spectral OLA of the pool),
+    `_shape_only` AOT loading (aot.py).
     """
 
     def __init__(self, config: UpmixConfig, hw_block_size: int, n_streams: int, device="cuda",
                  mesh=None, ola: str = "time", _shape_only: bool = False):
-        if ola == "spectral":
-            raise NotImplementedError(
-                "ola='spectral' (the spectral-carry dataflow of pallas_pool.py:249) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 5); ola='time' computes the same function"
-            )
-        if ola != "time":
-            raise ValueError(f"unknown ola mode {ola!r}; one of ('time', 'spectral')")
+        check_ola(ola)
         if _shape_only:
-            raise NotImplementedError("AOT pool artifacts are not ported yet (ROADMAP.md, Queue 1 item 9)")
+            raise NotImplementedError("AOT pool artifacts are not ported yet (ROADMAP.md, Queue 1: aot.py)")
         self.ola = ola
         super().__init__(config, hw_block_size, n_streams, device, mesh)
 
@@ -537,11 +543,11 @@ def make_stream_pool(config: UpmixConfig, hw_block_size: int, n_streams: int, en
     CudaStreamPool on a CUDA device whenever the pool plan accepts the
     config, else BatchStreamingUpmixer; on the CPU it returns
     BatchStreamingUpmixer, as the JAX package does on its CPU backend.
-    A mesh is not ported yet (ROADMAP.md, Queue 1 item 8)."""
+    A mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)."""
     if engine not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown engine {engine!r}; one of ('auto', 'cuda', 'torch')")
     if mesh is not None:
-        raise NotImplementedError("a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1 item 8)")
+        raise NotImplementedError("a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)")
     if engine == "cuda":
         return CudaStreamPool(config, hw_block_size, n_streams, device=device, ola=ola)
     if (

@@ -102,13 +102,11 @@ def load() -> ctypes.CDLL:
     lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.dot_chain_clusters.argtypes = [i, i, i]
     lib.dot_chain_resident.argtypes = [i, i]
-    lib.overhead_probe.argtypes = [p, ll, p, p, i, i, i, i, i, p, p, i, p]
-    lib.overhead_probe_clusters.argtypes = [i, i]
+    lib.overhead_probe.argtypes = [p, ll, p, p, i, i, i, i, p, p, i, p]
     lib.empty_launch.argtypes = [i, i, p]
     for fn in (lib.omni_bucket, lib.omni_wide_forward, lib.omni_wide_inverse, lib.pool_bucket,
                lib.pool_wide_forward, lib.pool_wide_inverse, lib.pool_floor,
-               lib.dot_chain, lib.dot_chain_clusters, lib.dot_chain_resident, lib.overhead_probe,
-               lib.overhead_probe_clusters, lib.empty_launch):
+               lib.dot_chain, lib.dot_chain_clusters, lib.dot_chain_resident, lib.overhead_probe, lib.empty_launch):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -15,12 +15,9 @@ enters the result, but the kernel stages every view's tile into the shared
 memory of the thread block that owns the output tile, as the TPU kernel's
 BlockSpecs copied them into VMEM.  So its time is the fixed cost of a
 launch and of N / TILE thread blocks that each receive n_views [2, TILE]
-tiles.  The blocks run in thread-block clusters of `cluster_size` tiles,
-and a tile that several of a cluster's blocks take as a view leaves L2
-once, multicast to each of them (`staged_bytes`).  On a CUDA tensor
-`overhead_probe` launches `csrc/overhead_probe.cu`, whose output equals
-`overhead_probe_plain` bit for bit; on a CPU tensor it runs
-`overhead_probe_plain`.
+tiles.  On a CUDA tensor `overhead_probe` launches
+`csrc/overhead_probe.cu`, whose output equals `overhead_probe_plain` bit
+for bit; on a CPU tensor it runs `overhead_probe_plain`.
 
     python -m upmix_tpu_torch.ops.overhead_probe
     python -m upmix_tpu_torch.ops.overhead_probe cold [--against LIB.so]
@@ -32,9 +29,8 @@ empty launch of the same grid, through the wrapper and in a loop in C:
 the floor.  `cold` times each configuration's kernel with L2 cold
 (`cold_ms`), beside one PyTorch call that moves the function's bytes
 (`library_call`); with --against, also the kernel of another build of
-this library (an earlier tree's `upmix_tpu_torch/_build/kernels_*.so`,
-whose `overhead_probe` takes no cluster size), in turns: this, that,
-that, this.  Both run on the card.
+this library (an earlier tree's `upmix_tpu_torch/_build/kernels_*.so`),
+in turns: this, that, that, this.  Both run on the card.
 """
 
 from __future__ import annotations
@@ -55,7 +51,6 @@ ITERS = 20
 # (n_views, n_weights, halo) of bench_overhead_probe.py:88-92.
 CONFIGS = ((1, 0, 128), (2, 0, 128), (4, 0, 128), (4, 16, 128), (4, 56, 128), (4, 56, 49152))
 MAX_WEIGHTS = 64  # csrc/overhead_probe.cu: MAX_WEIGHTS
-CLUSTER_SIZES = (8, 4, 2, 1)  # csrc/overhead_probe.cu: dispatch
 HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's HBM3
 # The cold-L2 protocol (`cold_ms`): CALLS calls queued back to back,
 # rotating over SETS copies of x that each keep their output (at N = 2^21,
@@ -94,59 +89,23 @@ def _check(x: torch.Tensor, seed: torch.Tensor, weights, n_views: int, halo: int
 
 
 def overhead_probe(x: torch.Tensor, seed: torch.Tensor, weights, n_views: int, halo: int, tile: int = TILE,
-                   n: int | None = None, cluster: int | None = None):
+                   n: int | None = None):
     """-> (out [1, 3, n], spill [1, 3, halo]); n defaults to x's length
-    less four tiles, as the script lays x out.  On the card the kernel runs
-    in clusters of `cluster` tiles (default `cluster_size` from what the
-    card reports)."""
+    less four tiles, as the script lays x out."""
     n = x.shape[-1] - 4 * tile if n is None else n
     if x.device.type == "cpu":
         return overhead_probe_plain(x, seed, weights, n_views, halo, tile, n)
     if x.device.type != "cuda":
         raise ValueError(f"overhead_probe runs on cpu or cuda, not {x.device}")
-    return _probe_cuda(x, seed, weights, n_views, halo, tile, n, cluster)
+    return _probe_cuda(x, seed, weights, n_views, halo, tile, n)
 
 
-def cluster_size(n_tiles: int, at_once) -> int:
-    """CTAs per cluster for n_tiles tiles: the largest of CLUSTER_SIZES (at
-    most n_tiles) whose clusters the card runs all at once (`at_once(cs)`,
-    `card_clusters`), else the largest at most n_tiles.  A larger cluster
-    stages fewer bytes (`staged_bytes`); a second wave of clusters costs a
-    whole call's time more."""
-    sizes = [cs for cs in CLUSTER_SIZES if cs <= n_tiles]
-    one_wave = [cs for cs in sizes if at_once(cs) >= -(-n_tiles // cs)]
-    return (one_wave or sizes)[0]
-
-
-_CARD = {}
-
-
-def card_clusters(tile: int):
-    """at_once(cs) for `cluster_size`: how many clusters of cs CTAs of the
-    kernel at this tile the card runs at once
-    (cudaOccupancyMaxActiveClusters), each asked once."""
-    from upmix_tpu_torch.ops import _build
-
-    def at_once(cs):
-        if (tile, cs) not in _CARD:
-            got = _build.load().overhead_probe_clusters(tile, cs)
-            if got < 0:
-                raise RuntimeError(f"overhead_probe_clusters failed at tile {tile}, cluster size {cs}")
-            _CARD[tile, cs] = got
-        return _CARD[tile, cs]
-
-    return at_once
-
-
-def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, cluster: int | None = None):
+def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, lib=None):
+    """The kernel of `lib` (default: this tree's library, `_build.load()`)."""
     global LAUNCHES
     from upmix_tpu_torch.ops import _build
 
     _check(x, seed, weights, n_views, halo, tile, n)
-    if cluster is None:
-        cluster = cluster_size(n // tile, card_clusters(tile))
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"the probe kernel runs clusters of {CLUSTER_SIZES} CTAs, not {cluster}")
     tensors = (x, seed, *weights)
     if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device for t in tensors):
         raise ValueError("the probe kernel takes contiguous float32 tensors on one device")
@@ -156,8 +115,8 @@ def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, cl
     spill = torch.empty((1, 3, halo), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * MAX_WEIGHTS)(*[w.data_ptr() for w in weights])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.load().overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights), n_views,
-                                      n // tile, tile, cluster, out.data_ptr(), spill.data_ptr(), halo, stream)
+    rc = (lib or _build.load()).overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights),
+                                               n_views, n // tile, tile, out.data_ptr(), spill.data_ptr(), halo, stream)
     LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"overhead_probe launch failed: cudaError {rc}")
@@ -247,14 +206,10 @@ def _event_ms(fn, count: int) -> float:
     return start.elapsed_time(end) / count
 
 
-def staged_bytes(n_views: int, cluster: int, n: int = N, tile: int = TILE) -> int:
-    """Bytes the kernel moves between L2 and the SMs: each cluster's
-    distinct [2, tile] tiles staged once (a tile multicast to several of
-    its CTAs counted once: its own tiles and the n_views - 1 past them),
-    and out written (the spill aside)."""
-    n_tiles = n // tile
-    staged = sum(min(cluster, n_tiles - first) + n_views - 1 for first in range(0, n_tiles, cluster))
-    return staged * 8 * tile + 12 * n
+def staged_bytes(n_views: int, n: int = N) -> int:
+    """Bytes the kernel moves between L2 and the SMs: every view's [2, TILE]
+    tile of every tile staged, out written (the spill aside)."""
+    return n_views * 8 * n + 12 * n
 
 
 def bound_bytes(n: int, halo: int) -> int:
@@ -292,7 +247,7 @@ def run_configs() -> list:
         ms = sorted(_event_ms(lambda: run(ITERS), 1) / ITERS for _ in range(3))[1]
         rows.append((n_views, n_weights, halo, ms))
         print(f"views={n_views} weights={n_weights} halo={halo}: {ms:6.3f} ms = {ms * 1e3 / n_tiles:6.3f} us/tile; "
-              f"staged {staged_bytes(n_views, cluster_size(n_tiles, card_clusters(TILE))) / 1e6:.1f} MB; bound {bound_bytes(N, halo) / HBM_BYTES_PER_S * 1e6:.1f} "
+              f"staged {staged_bytes(n_views) / 1e6:.1f} MB; bound {bound_bytes(N, halo) / HBM_BYTES_PER_S * 1e6:.1f} "
               f"us ({bound_bytes(N, halo) / 1e6:.1f} MB)", flush=True)
     empty_launch(n_tiles)
     torch.cuda.synchronize()
@@ -305,65 +260,49 @@ def run_configs() -> list:
     return rows
 
 
-def _earlier_probe(path: str):
-    """The `overhead_probe` of another build of this library (an earlier
-    tree's, whose C function takes no cluster size) as a call like
-    `overhead_probe`'s on the card."""
+def _library(path: str) -> ctypes.CDLL:
+    """Another build of this library (an earlier tree's), its
+    `overhead_probe` bound as `_build.load` binds it."""
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.overhead_probe.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, p, p, i, p]
     lib.overhead_probe.restype = i
-
-    def call(x, seed, weights, n_views: int, halo: int, tile: int = TILE):
-        n = x.shape[-1] - 4 * tile
-        out = torch.empty((1, 3, n), dtype=torch.float32, device=x.device)
-        spill = torch.empty((1, 3, halo), dtype=torch.float32, device=x.device)
-        ptrs = (ctypes.c_void_p * MAX_WEIGHTS)(*[w.data_ptr() for w in weights])
-        rc = lib.overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights), n_views, n // tile,
-                                tile, out.data_ptr(), spill.data_ptr(), halo,
-                                torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{path}: overhead_probe launch failed: cudaError {rc}")
-        return out, spill
-
-    return call
+    return lib
 
 
-def cold(against: str | None = None, cluster: int | None = None) -> list:
+def cold(against: str | None = None) -> list:
     """Each configuration's kernel with L2 cold (`cold_ms` over SETS copies
-    of x), beside `library_call` and the bound; with `against`, another
-    build's kernel (`_earlier_probe`) too, in turns (this, that, that,
-    this) after holding its output against this kernel's.  `cluster`
-    overrides `cluster_size`'s choice.  Returns one dict per configuration
-    and prints a line for each."""
+    of x), beside `library_call` and the bound; with `against`, the kernel
+    of another build of this library too (`_library`), in turns (this,
+    that, that, this) after holding its output against this kernel's.
+    Returns one dict per configuration and prints a line for each."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probe times the CUDA kernel: no CUDA device")
     device = torch.device("cuda")
     x, rng = make_inputs(device=device)
     xs = [x] + [x.clone() for _ in range(SETS - 1)]
     seed = torch.tensor(0.25, device=device)
-    earlier = _earlier_probe(against) if against else None
-    cluster = cluster or cluster_size(N // TILE, card_clusters(TILE))
+    earlier = _library(against) if against else None
     rows = []
     for n_views, n_weights, halo in CONFIGS:
         weights = make_weights(n_weights, rng, device)
         shift = seed + sum(w[0, 0] for w in weights)
-        mine = lambda x_: overhead_probe(x_, seed, weights, n_views, halo, cluster=cluster)  # noqa: E731
-        row = {"views": n_views, "weights": n_weights, "halo": halo, "cluster": cluster,
+        mine = lambda x_: overhead_probe(x_, seed, weights, n_views, halo)  # noqa: E731
+        row = {"views": n_views, "weights": n_weights, "halo": halo,
                "bound_ms": bound_bytes(N, halo) / HBM_BYTES_PER_S * 1e3,
-               "staged_mb": staged_bytes(n_views, cluster) / 1e6,
+               "staged_mb": staged_bytes(n_views) / 1e6,
                "library_ms": cold_ms(lambda x_: library_call(x_, shift, N), xs)}
         if earlier is None:
             row["ms"] = cold_ms(mine, xs)
         else:
-            theirs = lambda x_: earlier(x_, seed, weights, n_views, halo)  # noqa: E731
+            theirs = lambda x_: _probe_cuda(x_, seed, weights, n_views, halo, TILE, N, earlier)  # noqa: E731
             if not all(torch.equal(a, b) for a, b in zip(mine(x), theirs(x))):
                 raise RuntimeError(f"{against} and this kernel disagree at {(n_views, n_weights, halo)}")
             a1, b1, b2, a2 = cold_ms(mine, xs), cold_ms(theirs, xs), cold_ms(theirs, xs), cold_ms(mine, xs)
             row.update(ms=(a1 + a2) / 2, visits=[a1, a2], against_ms=(b1 + b2) / 2, against_visits=[b1, b2])
         rows.append(row)
         print(f"views={n_views} weights={n_weights} halo={halo}: {row['ms'] * 1e3:.2f} us with L2 cold, "
-              f"{row['bound_ms'] / row['ms']:.1%} of the bound {row['bound_ms'] * 1e3:.2f} us; clusters of {cluster}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of the bound {row['bound_ms'] * 1e3:.2f} us; "
               f"staged {row['staged_mb']:.1f} MB; one PyTorch call {row['library_ms'] * 1e3:.2f} us"
               + (f"; {against}: {row['against_ms'] * 1e3:.2f} us (visits {b1 * 1e3:.2f}, {b2 * 1e3:.2f}; "
                  f"this kernel's {a1 * 1e3:.2f}, {a2 * 1e3:.2f})" if earlier else ""), flush=True)
@@ -378,11 +317,9 @@ def main(argv=None) -> int:
                    help="script: the TPU script's protocol (run_configs); cold: each kernel with L2 cold")
     p.add_argument("--against", default=None, metavar="LIB.so",
                    help="with cold: also time the overhead_probe of this build of the library (an earlier tree's)")
-    p.add_argument("--cluster", type=int, default=None, choices=CLUSTER_SIZES,
-                   help="with cold: run the kernel in clusters of this many CTAs (default: cluster_size's choice)")
     args = p.parse_args(argv)
     if args.mode == "cold":
-        cold(args.against, args.cluster)
+        cold(args.against)
     else:
         run_configs()
     return 0

@@ -43,7 +43,7 @@ def make_window(name: str, N: int) -> np.ndarray:
     if fn is None:
         raise NotImplementedError(
             f"window {name!r} is not built in; the torch port supports "
-            f"{BUILTIN_WINDOWS} (custom windows: ROADMAP.md, Queue 1 item 4)"
+            f"{BUILTIN_WINDOWS} (ROADMAP.md, Queue 1: custom windows)"
         )
     return fn(int(N))
 
