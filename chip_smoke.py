@@ -7,15 +7,17 @@ Drives the port's main paths: the offline upmix of bench.py's config
 2^21 samples of seeded noise, through `Upmixer(cfg, device="cuda")`; the
 same config sharded, two files of 2^21 samples on a data 2 x seq 4 mesh
 of the one card, through `ShardedUpmixer`, and in batches through
-`BatchUpmixer`; the serving pool of the stream server's default
+`BatchUpmixer`; the geometries no kernel takes (overlap 0.65, blocks
+of 49152) through `Upmixer` and `ShardedUpmixer`, and a custom window
+through `Upmixer` and `make_stream_pool`; the serving pool of the stream server's default
 config (the Bela setup: edges 0/500/2000/8000 Hz, 48 kHz, hardware block
 2048) at 2048 streams, through `make_stream_pool(cfg, 2048, 2048)`; the
 two probes through their entry points (`ops.int8_dot` check and bench,
 `ops.overhead_probe.run_configs`); and the CLI in process on WAV files
 (offline, --streaming, --pipe, --serve); and the stream server on
 loopback through `run_stream_server`.  Phases, one line each or more,
-any failure exits nonzero (phases 10-13 run between 5 and 6, 14-18 after
-8):
+any failure exits nonzero (phases 10-13 and 19-21 run between 5 and 6,
+14-18 after 8):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -41,13 +43,15 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-18 after
      version in float64 on the card, at 2048 streams with mixed block
      counts and nonzero carries, hops 1 and 4, per bucket and whole
      (>= 80 dB, exact zeros where the plain version has them); the floor
-     probe (K6) bit for bit, both modes;
+     probe (K6) bit for bit, both modes, at 1, 5 and 2048 streams and the
+     windows of hw 2048 and 4096;
   7. pool end to end: the default make_stream_pool must be the CUDA pool
      and launch K3; 12 blocks of seeded noise, the first K-1 exact zeros,
      the rest >= 60 dB against a float64 run of the plain step with its
      own state; reset_streams re-warms one slot and leaves the others
      bit-identical; silence gives zeros, mono gives Ls, Rs <= 1e-5; then
-     the floor probe's own run (history shift + K6, 12 blocks), and
+     the floor probe's own run (history shift + K6, 12 blocks) in each
+     mode, and
      StreamingUpmixer on the card (it must launch K3, >= 60 dB);
   8. pool timing: ms per block at 16, 2048, 7168 and 7680 streams and at hops
      4, on device-resident blocks, with the throughput S x 42.67 ms / (ms
@@ -56,14 +60,16 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-18 after
      the pool would pass 40 GB of device memory, which brackets the
      capacity by measurement; K3 against its plain version and the cuFFT
      yardstick, per bucket; the design line; the history shift; K6 copy
-     and frame; device time by kernel and the idle share under
-     torch.profiler;
+     and frame, each with its plain version, its share of the bound and
+     one PyTorch call that reads the whole history (a sum over its
+     hw-long pieces, its bytes named; K6's `library_ms`); device time by
+     kernel and the idle share under torch.profiler;
   9. a JSON line of per-kernel results (launches from the main paths'
      runs; bounds from this run's shapes and the least work of each
      function: its FFTs or its bytes, whichever takes longer; a kernel
      whose bound is more than 105% of its time fails the run; K1's and
-     K3's library_ms is the cuFFT yardstick of their transforms), then
-     the last line {"ok": true, "device": {...}};
+     K3's library_ms is the cuFFT yardstick of their transforms; K6 one
+     entry per mode), then the last line {"ok": true, "device": {...}};
  10. fused kernel parity: K2 (K1's FFT kernels with an epilogue that
      writes its span) against its plain version in float64 on the card, on
      the three buckets the sharded path routes to it, at the sharded
@@ -126,7 +132,22 @@ any failure exits nonzero (phases 10-13 run between 5 and 6, 14-18 after
      mode with 16 live clients in a child process for a few seconds, at
      pipeline 1 and 2: its cycle and dispatch times after a warm-up round
      (p50, p99 and mean from ServerMetrics) beside the card's name and
-     power limit.
+     power limit;
+ 19. offline geometries: `Upmixer` on phase 4's input at overlap 0.65
+     and with max_block_size 49152 (the whole-file torch.fft program: no
+     K1 or K2 launch) and with a custom window (a registered vector: K1
+     launched as in phase 4), each >= 60 dB against the float64
+     whole-file path at bench.py's probe slices, with its realtime factor
+     beside phase 5's;
+ 20. `ShardedUpmixer` at overlap 0.65 on the 2 x 4 mesh, two files of
+     2^21 samples (bench.py's edges with blocks capped at 2048: sequence
+     sharding refuses bench.py's own blocks at that overlap, as the JAX
+     package does, which is checked too): no kernel launch, >= 60 dB
+     against float64, < 1e-3 from `Upmixer` around each shard edge, its
+     realtime factor beside phase 13's;
+ 21. `make_stream_pool` with the custom window at 2048 streams: the CUDA
+     pool, K3 launched, >= 60 dB against the float64 plain step, warmup
+     blocks exact zeros.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -156,6 +177,7 @@ POOL_SR = 48000.0
 POOL_HW = 2048
 POOL_STREAMS = 2048
 POOL_BLOCKS = 12
+FLOOR_STREAMS = (1, 5, POOL_STREAMS)  # K6's parity at these stream counts
 # Pools near the size that S = 2048's rate extrapolates to at the 42.67 ms
 # deadline (about 7,900 streams), in steps of 512: timed too, to see which
 # pool sizes meet the deadline.
@@ -170,6 +192,14 @@ SWEEP_SPLITS = 3  # halvings of the bracket once a size misses the deadline
 SHARD_MESH = {"data": 2, "seq": 4}
 SHARD_FILES = 2
 SHARD_SAMPLES = 2**21
+# Phases 19-21: geometries no kernel takes and a custom window.  bench.py's
+# config with max_block_size 49152 gives its 0 and 30 Hz bands blocks of
+# 49152; at overlap 0.65 the sharded run caps blocks at 2048 (threshold 64:
+# the 7680 Hz band gets 512), since sequence sharding refuses bench.py's
+# own blocks at that overlap (a frame-grid unit of 1.5e9 samples).
+ODD_BLOCK = 49152
+SHARD_065 = {"max_block_size": 2048, "threshold_factor": 64.0}
+CUSTOM_WINDOW = "kaiser_8"  # np.kaiser(4096, 8.0), registered as a vector
 BATCH_FILES, BATCH_SIZE, BATCH_SAMPLES = 3, 2, 2**20
 
 # NVIDIA H100 SXM at its 700 W limit (the data sheet): FP32 outside the
@@ -507,7 +537,9 @@ def main():
         "bound_by": k1_by,
         "library_ms": k1_lib_ms,
     }]
-    kernels.append(sharded_phases(smi, dev))
+    k2, shard_rtf = sharded_phases(smi, dev)
+    kernels.append(k2)
+    geometry_phases(smi, dev, audio_s / path_ms * 1e3, shard_rtf)
     kernels += pool_phases(smi, dev)
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
@@ -694,7 +726,133 @@ def sharded_phases(smi: str, dev) -> dict:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": k2_lib_ms,
-    }
+    }, audio_s / path_ms * 1e3
+
+
+def geometry_phases(smi: str, dev, path_rtf: float, shard_rtf: float):
+    """Phases 19-21: the offline geometries no kernel takes and custom
+    windows, through the entry points a user calls."""
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models import Upmixer
+    from upmix_tpu_torch.models.offline import build_offline_fn
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
+    from upmix_tpu_torch.ops import fused, omnibus, pool
+    from upmix_tpu_torch.ops.pool import pool_step_lcr_plain
+    from upmix_tpu_torch.ops.windows import register_window_vector
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh, sequence_plan
+
+    audio = np.random.default_rng(0)  # phase 4's input
+    L = torch.as_tensor(audio.standard_normal(N_SAMPLES).astype(np.float32), device=dev)
+    R = torch.as_tensor(audio.standard_normal(N_SAMPLES).astype(np.float32), device=dev)
+    audio_s = N_SAMPLES / SR
+    window = register_window_vector(CUSTOM_WINDOW, np.kaiser(4096, 8.0), overwrite=True)
+
+    def offline(label, cfg, want_k1):
+        """Upmixer on phase 4's input: K1 launched want_k1 times (K2 never),
+        >= 60 dB against the float64 whole-file path at bench.py's probe
+        slices; its realtime factor."""
+        up = Upmixer(cfg, device=dev)
+        omnibus.LAUNCHES = fused.LAUNCHES = 0
+        outs = up.process(L, R)
+        torch.cuda.synchronize()
+        k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+        if outs[0].shape != (N_SAMPLES,) or not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"{label}: output shape {tuple(outs[0].shape)} or non-finite values")
+        ref = build_offline_fn(cfg, N_SAMPLES, chunk=0, device=dev)(L.double(), R.double())
+        e2e = min(snr_db(r[s : s + PROBE_W], o[s : s + PROBE_W]) for r, o in zip(ref, outs) for s in PROBE_STARTS)
+        del ref
+        ms = time_ms(lambda: up.process(L, R), loops=5, iters=1)
+        blocks = sorted({(b.block_size, b.hop_size) for b in cfg.bands}, reverse=True)
+        print(f"{label} [{smi}]: buckets B/H {blocks}; Upmixer K1 launches {k1} (want {want_k1}), K2 {k2}; "
+              f"worst probe SNR vs float64 whole-file path {e2e:.1f} dB (bar >= {E2E_BAR_DB} dB); {ms:.3f} ms = "
+              f"{audio_s / ms * 1e3:.1f}x realtime (phase 5's kernel path {path_rtf:.1f}x)", flush=True)
+        if (k1, k2) != (want_k1, 0):
+            fail(f"{label}: K1 launched {k1} times (want {want_k1}), K2 {k2} (want 0)")
+        if not (e2e >= E2E_BAR_DB):
+            fail(f"{label}: SNR {e2e:.1f} dB < {E2E_BAR_DB} dB")
+        torch.cuda.empty_cache()
+
+    # 19. offline: hop not dividing the block, blocks that are not powers
+    # of two (the whole-file torch.fft program), and a custom window (K1).
+    offline("offline overlap 0.65", UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK, overlap=0.65), 0)
+    offline(f"offline max_block_size {ODD_BLOCK}", UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=ODD_BLOCK), 0)
+    bench_k1 = 6  # phase 4's launches: one a bucket, two for 65536
+    offline(f"offline custom window {window}", UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK,
+                                                                window=window), bench_k1)
+
+    # 20. sharded at overlap 0.65.  bench.py's config is refused there by
+    # both packages (its frame-grid unit is lcm(65536, 22937) = 1.5e9
+    # samples); blocks capped at 2048 keep the unit at 366,592.
+    try:
+        sequence_plan(UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK, overlap=0.65), SHARD_SAMPLES, 4)
+        fail("sequence_plan accepted bench.py's config at overlap 0.65")
+    except ValueError as e:
+        print(f"sharded overlap 0.65: bench.py's config refused as the JAX package refuses it: {str(e)[:90]}",
+              flush=True)
+    cfg = UpmixConfig.make(BAND_EDGES, sr=SR, overlap=0.65, **SHARD_065)
+    mesh = make_mesh(SHARD_MESH, devices=[dev] * (SHARD_FILES * SHARD_MESH["seq"]))
+    su = ShardedUpmixer(cfg, mesh)
+    chunk = sequence_plan(cfg, SHARD_SAMPLES, SHARD_MESH["seq"]).chunk
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((SHARD_FILES, 2, SHARD_SAMPLES)),
+                        dtype=torch.float32, device=dev)
+    omnibus.LAUNCHES = fused.LAUNCHES = 0
+    y = su.process_batch(x)
+    torch.cuda.synchronize()
+    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    up = Upmixer(cfg, device=dev)
+    e2e, edge_err = float("inf"), 0.0
+    for i in range(SHARD_FILES):
+        ref = build_offline_fn(cfg, SHARD_SAMPLES, chunk=0, device=dev)(x[i, 0].double(), x[i, 1].double())
+        e2e = min(e2e, *(snr_db(r, y[i, o]) for o, r in enumerate(ref)))
+        single = torch.stack(up.process(x[i, 0], x[i, 1]))
+        for e in range(chunk, SHARD_SAMPLES, chunk):
+            edge_err = max(edge_err, float((single[:, e - 64 : e + 64] - y[i, :, e - 64 : e + 64]).abs().max()))
+    del ref, single
+    ms = time_ms(lambda: su.process_batch(x), loops=3, iters=1)
+    blocks = sorted({(b.block_size, b.hop_size) for b in cfg.bands}, reverse=True)
+    print(f"sharded overlap 0.65 [{smi}]: bench.py's edges, {SHARD_065}, buckets B/H {blocks}, chunk {chunk} per "
+          f"shard; K1 launches {k1}, K2 {k2} (want 0, 0); worst SNR vs float64 whole-file path {e2e:.1f} dB "
+          f"(bar >= {E2E_BAR_DB} dB); max |sharded - Upmixer| within 64 samples of the shard edges {edge_err:.3e} "
+          f"(bar < 1e-3); {ms:.3f} ms = {SHARD_FILES * SHARD_SAMPLES / SR / ms * 1e3:.1f}x realtime "
+          f"(phase 13's kernel path {shard_rtf:.1f}x)", flush=True)
+    if (k1, k2) != (0, 0) or not (e2e >= E2E_BAR_DB) or not (edge_err < 1e-3):
+        fail("sharded overlap 0.65: a kernel launched, or SNR or shard edges off")
+    del su, up, x, y
+    torch.cuda.empty_cache()
+
+    # 21. the serving pool with a custom window: make_stream_pool must be
+    # the CUDA pool and launch K3; >= 60 dB against a float64 run of the
+    # plain step.
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW, window=window)
+    S, hw = POOL_STREAMS, POOL_HW
+    sp = make_stream_pool(cfg, hw, S)
+    if type(sp) is not CudaStreamPool:
+        fail(f"make_stream_pool with a custom window gave {type(sp).__name__}, not CudaStreamPool")
+    plan = sp.plan
+    blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(3))
+    pool.LAUNCHES = 0
+    outs = torch.stack([torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks])  # [T, 3, S, hw]
+    torch.cuda.synchronize()
+    k3 = pool.LAUNCHES
+    got = outs.permute(2, 1, 0, 3).reshape(S, 3, -1)
+    K, warm = plan.warmup, (plan.warmup - 1) * hw
+    silent = not bool((got[..., :warm] != 0).any())
+    # The float64 reference on every 32nd stream (streams are independent):
+    # all blocks in one call of the plain step, the history from zeros.
+    rows = torch.arange(0, S, 32, device=dev)
+    n = len(rows)
+    h = torch.cat([blocks.new_zeros((n, 2, warm)), blocks[:, :, rows].permute(2, 1, 0, 3).reshape(n, 2, -1)], -1)
+    ref, _ = pool_step_lcr_plain(h.double(), torch.ones(n, dtype=torch.int32, device=dev),
+                                 [h.new_zeros((n, 3, b.block), dtype=torch.float64) for b in plan.buckets],
+                                 plan, POOL_BLOCKS)
+    e2e = snr_db(ref[..., warm:], got[rows][..., warm:])
+    print(f"pool custom window {window}: CudaStreamPool, {POOL_BLOCKS} blocks x {S} streams, K3 launches {k3}; "
+          f"SNR vs float64 plain step (every 32nd stream) {e2e:.1f} dB (bar >= {E2E_BAR_DB} dB); warmup blocks "
+          f"exact zeros {silent}", flush=True)
+    if k3 == 0 or not (e2e >= E2E_BAR_DB) or not silent:
+        fail("pool with a custom window: K3 not launched, SNR below the bar or warmup not silent")
+    del sp, blocks, outs, h, ref, got
+    torch.cuda.empty_cache()
 
 
 def pool_phases(smi: str, dev) -> list:
@@ -769,14 +927,23 @@ def pool_phases(smi: str, dev) -> list:
         fail(f"pool kernel parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
     del hist, t, carries, got, got_c, ref, ref_c
     window = torch.randn((S, 2, plan.window), device=dev, generator=torch.Generator(dev).manual_seed(2))
-    floor_err = 0.0
-    for mode in ("copy", "frame"):
-        got_f, ref_f = pool_floor.pool_floor(window, hw, mode, plan), pool_floor_plain(window, hw, mode, plan)
-        same = torch.equal(got_f, ref_f)
-        floor_err = max(floor_err, float((got_f - ref_f).abs().max()))
-        print(f"floor parity {mode}: bit-exact {same}", flush=True)
-        if not same:
-            fail(f"floor kernel ({mode}) differs from its plain version")
+    floor_err = {"copy": 0.0, "frame": 0.0}
+    # K6 at the pool's stream counts and at the window of hw 2048 and 4096.
+    for f_hw in (hw, 2 * hw):
+        f_cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=f_hw)
+        for f_S in FLOOR_STREAMS:
+            f_plan = make_pool_plan(f_cfg, f_hw, f_S, device=dev)
+            f_hist = torch.randn((f_S, 2, f_plan.window), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(f_S + f_hw))
+            for mode in ("copy", "frame"):
+                got_f = pool_floor.pool_floor(f_hist, f_hw, mode, f_plan)
+                ref_f = pool_floor_plain(f_hist, f_hw, mode, f_plan)
+                same = torch.equal(got_f, ref_f)
+                floor_err[mode] = max(floor_err[mode], float((got_f - ref_f).abs().max()))
+                print(f"floor parity {mode} S={f_S} hw={f_hw} window={f_plan.window}: bit-exact {same}", flush=True)
+                if not same:
+                    fail(f"floor kernel ({mode}, S={f_S}, hw={f_hw}) differs from its plain version")
+    del f_hist, got_f, ref_f
 
     # 7. end to end through the user's entry point
     blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(3))
@@ -835,19 +1002,21 @@ def pool_phases(smi: str, dev) -> list:
         fail("pool: silence in did not give exact zeros out")
     if mono > 1e-5:
         fail(f"pool: mono in gave side energy {mono:.3e} > 1e-5")
-    # The floor probe's own run: the probe scan of bench_pool_floor.py,
-    # history shift then K6, over the same blocks.
-    pool_floor.LAUNCHES = 0
-    h = torch.zeros((S, 2, (K - 1) * hw), device=dev)
-    for blk in blocks:
-        full = torch.cat([h, blk.transpose(0, 1)], dim=-1)
-        pool_floor.pool_floor(full, hw, "copy")
-        h = full[..., hw:]
-    torch.cuda.synchronize()
-    k6_launches = pool_floor.LAUNCHES
-    print(f"floor probe run: {POOL_BLOCKS} blocks, floor kernel launches {k6_launches}", flush=True)
-    if k6_launches == 0:
-        fail("the floor probe launched no floor kernel")
+    # The floor probe's own run, in both modes as bench_pool_floor.py:129-133
+    # runs them: the probe scan, history shift then K6, over the same blocks.
+    k6_launches = {}
+    for mode in ("copy", "frame"):
+        pool_floor.LAUNCHES = 0
+        h = torch.zeros((S, 2, (K - 1) * hw), device=dev)
+        for blk in blocks:
+            full = torch.cat([h, blk.transpose(0, 1)], dim=-1)
+            pool_floor.pool_floor(full, hw, mode, plan)
+            h = full[..., hw:]
+        torch.cuda.synchronize()
+        k6_launches[mode] = pool_floor.LAUNCHES
+        print(f"floor probe run ({mode}): {POOL_BLOCKS} blocks, floor kernel launches {k6_launches[mode]}", flush=True)
+        if k6_launches[mode] == 0:
+            fail(f"the floor probe ({mode}) launched no floor kernel")
     # The single-stream engine on the card goes through the pool kernel too.
     pool.LAUNCHES = 0
     sig = blocks[:, :, 0].permute(1, 0, 2).reshape(2, POOL_BLOCKS * hw)  # stream 0's blocks
@@ -967,16 +1136,26 @@ def pool_phases(smi: str, dev) -> list:
     shift_ms = time_ms(lambda: torch.cat([h, x], dim=-1))
     print(f"timing [{smi}]: history shift (cat of [{S}, 2, {(K - 1) * hw}] and the block) "
           f"{shift_ms:.3f} ms", flush=True)
+    # K6 in both modes, beside one PyTorch call that reads the whole history
+    # and writes [S, 2, hw] (`pool_floor.library_call`, timed only; its
+    # bytes are not quite K6's, so its own share is shown).
     floor = {}
+    nbytes = floor_bytes(S, plan.window, hw)
+    lib_bytes = 4 * S * 2 * (plan.window + hw)
+    lib_ms = time_ms(lambda: pool_floor.library_call(window, hw), loops=20, iters=10)
     for mode in ("copy", "frame"):
-        f_ms = time_ms(lambda: pool_floor.pool_floor(window, hw, mode, plan))
-        f_plain = time_ms(lambda: pool_floor_plain(window, hw, mode, plan))
-        nbytes = floor_bytes(S, plan.window, hw)
-        f_bound, f_by = bound(S * hw * 3.0, nbytes)
+        f_ms = time_ms(lambda: pool_floor.pool_floor(window, hw, mode, plan), loops=20, iters=10)
+        f_plain = time_ms(lambda: pool_floor_plain(window, hw, mode, plan), loops=20, iters=10)
+        # Operations: the three outputs' adds (copy: one a sample; frame: a
+        # sum over the buckets and two more), against bytes at HBM rate.
+        n_adds = 1 if mode == "copy" else len(plan.buckets) + 1
+        f_bound, f_by = bound(S * hw * n_adds, nbytes)
         floor[mode] = (f_ms, f_plain, f_bound, f_by)
-        print(f"timing [{smi}]: floor {mode} (S={S}) {f_ms * 1e3:.1f} us, plain version "
-              f"{f_plain * 1e3:.1f} us; bound {f_bound * 1e3:.1f} us ({f_by}: {nbytes / 1e6:.1f} MB), "
-              f"kernel at {f_bound / f_ms:.1%} of it", flush=True)
+        print(f"timing [{smi}]: floor {mode} (S={S}, window {plan.window}, hw {hw}) {f_ms * 1e3:.2f} us, plain version "
+              f"{f_plain * 1e3:.2f} us; bound {f_bound * 1e3:.2f} us ({f_by}: {nbytes / 1e6:.1f} MB), kernel at "
+              f"{f_bound / f_ms:.1%} of it; same-bytes call (sum over the history's hw-long pieces, "
+              f"{lib_bytes / 1e6:.1f} MB) {lib_ms * 1e3:.2f} us, at {lib_bytes / HBM_BYTES_PER_S / lib_ms * 1e3:.1%} "
+              f"of its own bytes' bound", flush=True)
     for n_streams in (16, S):
         tp = CudaStreamPool(cfg, hw, n_streams, device=dev)
         run, fresh = tp.make_sustained_runner(POOL_BLOCKS)
@@ -999,19 +1178,21 @@ def pool_phases(smi: str, dev) -> list:
             "bound_by": k3_by,
             "library_ms": k3_lib_ms,
         },
+    ] + [
         {
-            "name": "pool_floor",
+            "name": f"pool_floor_{mode}",
             "route": "cuda",
             "source": "upmix_tpu_torch/csrc/pool.cu",
             "replaces": "scripts/bench_pool_floor.py:53",
-            "launches": k6_launches,
-            "max_abs_err": floor_err,
-            "ms": floor["copy"][0],
-            "plain_ms": floor["copy"][1],
-            "bound_ms": floor["copy"][2],
-            "bound_by": floor["copy"][3],
-            "library_ms": None,
-        },
+            "launches": k6_launches[mode],
+            "max_abs_err": floor_err[mode],
+            "ms": floor[mode][0],
+            "plain_ms": floor[mode][1],
+            "bound_ms": floor[mode][2],
+            "bound_by": floor[mode][3],
+            "library_ms": lib_ms,
+        }
+        for mode in ("copy", "frame")
     ]
 
 

@@ -6,10 +6,12 @@ the same errors, and the same bin and block-size arithmetic.
 import dataclasses
 import itertools
 
+import numpy as np
 import pytest
 
 import upmix_tpu.config as jcfg
 import upmix_tpu_torch.config as pcfg
+from upmix_tpu_torch.ops.windows import register_window
 from test_torch_offline import PARITY
 
 BENCH_EDGES = [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0]
@@ -93,9 +95,16 @@ def test_helpers_equal():
 
 
 def test_custom_window_raises_at_construction():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: custom windows"):
-        pcfg.UpmixConfig.make([0.0, 400.0], sr=8000.0, window="my_window")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcfg.BandSpec(0.0, 400.0, 8000.0, 256, window="my_window")
+    # A window name neither registry knows raises ValueError when the config
+    # is built, in both packages; once registered in the port's registry
+    # the port builds the config (tests/test_torch_windows.py).
+    for mod in (pcfg, jcfg):
+        with pytest.raises(ValueError, match="unknown window 'never_registered'"):
+            mod.UpmixConfig.make([0.0, 400.0], sr=8000.0, window="never_registered")
+        with pytest.raises(ValueError, match="unknown window"):
+            mod.BandSpec(0.0, 400.0, 8000.0, 256, window="never_registered")
+    register_window("config_test_window", np.hanning, overwrite=True)
+    band = pcfg.BandSpec(0.0, 400.0, 8000.0, 256, window="config_test_window")
+    assert band.window == "config_test_window"
     with pytest.raises(ValueError, match="hop size"):
         pcfg.BandSpec(0.0, 400.0, 8000.0, 256, overlap=1.0)

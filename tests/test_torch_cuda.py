@@ -208,11 +208,36 @@ def test_pool_floor_bit_exact(cuda, mode):
     from upmix_tpu_torch.ops.pool import make_pool_plan
     from upmix_tpu_torch.ops.pool_floor import pool_floor, pool_floor_plain
 
-    for (edges, sr), hw in (POOL_CASES[k] for k in ("h64", "block_over_hw", "bela_48k")):  # windows that fit a block
+    for (edges, sr), hw in POOL_CASES.values():  # every window: the kernel keeps none in shared memory
         cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
         plan = make_pool_plan(cfg, hw, 7, device=cuda)
         hist = torch.randn((7, 2, plan.window), device=cuda, generator=torch.Generator(cuda).manual_seed(hw))
         assert torch.equal(pool_floor(hist, hw, mode, plan), pool_floor_plain(hist, hw, mode, plan))
+
+
+@pytest.mark.parametrize("mode", ["copy", "frame"])
+@pytest.mark.parametrize("hw", [2048, 4096])
+@pytest.mark.parametrize("S", [1, 5, 2048])
+def test_pool_floor_at_the_pool_shapes(cuda, S, hw, mode):
+    # The Bela config's floor at the stream counts and windows the pool
+    # runs (windows 8192 and 16384), bit for bit; then a history that
+    # starts 4 bytes off 16 (the kernel's one-float columns) and one whose
+    # window is not a multiple of 4.
+    from upmix_tpu_torch.ops import pool_floor as pf
+    from upmix_tpu_torch.ops.pool import make_pool_plan
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=hw)
+    plan = make_pool_plan(cfg, hw, S, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(S * hw)
+    hist = torch.randn((S, 2, plan.window), device=cuda, generator=gen)
+    before = pf.LAUNCHES
+    assert torch.equal(pf.pool_floor(hist, hw, mode, plan), pf.pool_floor_plain(hist, hw, mode, plan))
+    assert pf.LAUNCHES - before == 1
+    off = torch.randn(S * 2 * plan.window + 1, device=cuda, generator=gen)[1:].view(S, 2, plan.window)
+    assert torch.equal(pf.pool_floor(off, hw, mode, plan), pf.pool_floor_plain(off, hw, mode, plan))
+    if mode == "copy":
+        odd = torch.randn((S, 2, plan.window + 3), device=cuda, generator=gen)
+        assert torch.equal(pf.pool_floor(odd, hw + 1, mode), pf.pool_floor_plain(odd, hw + 1, mode))
 
 
 def test_cuda_pool_matches_torch_engine(cuda):
@@ -409,6 +434,74 @@ def test_sharded_upmixer_launches_both_kernels(cuda):
             assert _snr(ref[o], y[i, o]) > 90.0
         single = torch.stack(Upmixer(cfg, device=cuda).process(x[i, 0], x[i, 1]))
         assert float((single - y[i]).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("kw", [dict(overlap=0.65), dict(max_block_size=3000)], ids=["overlap_065", "block_3000"])
+def test_geometries_no_kernel_takes_run_on_torch_fft(cuda, kw):
+    # Hop not dividing the block, or a block that is not a power of two:
+    # Upmixer and BatchUpmixer run the whole config on torch.fft and launch
+    # no kernel; ShardedUpmixer keeps the buckets of kernel geometry on
+    # K2/K1 (the 1024 bucket of max_block_size 3000 on K2) and runs the
+    # rest inside each shard.  All match the float64 whole-file program.
+    from upmix_tpu_torch.models import BatchUpmixer
+    from upmix_tpu_torch.ops import fused
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
+    from upmix_tpu_torch.parallel.sharded import route_buckets, split_plans
+
+    cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, **{"max_block_size": 512, **kw})
+    n = 3 * 2**15 + 11
+    x = torch.randn((2, 2, n), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    up = Upmixer(cfg, device=cuda)
+    got = torch.stack(up.process(x[0, 0], x[0, 1]))
+    batch = BatchUpmixer(cfg, n, 2, device=cuda)
+    rows = list(batch.process_files([a.cpu().numpy() for a in x]))
+    torch.cuda.synchronize()
+    assert (omnibus.LAUNCHES, fused.LAUNCHES) == (k1, k2) and not up.kernel_path
+    su = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 2}, devices=[cuda] * 4))
+    sharded = su.process_batch(x)
+    torch.cuda.synchronize()
+    omni, narrow = route_buckets(plans_from_numpy(split_plans(cfg)[0], "cpu"), su._compiled(n)[1].chunk)
+    want = (sum(launches_per_bucket(b.block) for b in omni.buckets) if omni else 0, len(narrow))
+    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == want == ((0, 1) if "max_block_size" in kw else (0, 0))
+    for i in range(2):
+        ref = build_offline_fn(cfg, n, chunk=0, device=cuda)(x[i, 0].double(), x[i, 1].double())
+        for o in range(3):
+            assert _snr(ref[o], sharded[i, o]) >= 60.0 and _snr(ref[o], torch.as_tensor(rows[i][o])) >= 60.0
+            if i == 0:
+                assert _snr(ref[o], got[o]) >= 60.0
+        assert float((torch.as_tensor(rows[i], device=cuda) - sharded[i]).abs().max()) < 1e-3
+
+
+def test_custom_window_launches_the_kernels(cuda):
+    # A registered window reaches K1 and K3 as arrays of their plans.
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import pool_step_lcr_plain
+    from upmix_tpu_torch.ops.windows import register_window_vector
+
+    name = register_window_vector("gpu_test_kaiser", np.kaiser(1000, 8.0), overwrite=True)
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512, window=name)
+    x = torch.randn((2, 5000), device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    before = omnibus.LAUNCHES
+    got = Upmixer(cfg, device=cuda).process(x[0], x[1])
+    assert omnibus.LAUNCHES - before == 2  # buckets 512 and 256
+    for r, g in zip(build_offline_fn(cfg, 5000, chunk=0, device=cuda)(x[0].double(), x[1].double()), got):
+        assert _snr(r, g) >= 60.0
+    scfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=256, window=name)
+    sp = make_stream_pool(scfg, 256, 4, device=cuda)
+    assert type(sp) is CudaStreamPool
+    blocks = torch.randn((8, 2, 4, 256), device=cuda, generator=torch.Generator(cuda).manual_seed(7))
+    before = pool.LAUNCHES
+    outs = torch.stack([torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks])  # [T, 3, S, hw]
+    assert pool.LAUNCHES > before
+    K = sp.plan.warmup
+    h = torch.cat([blocks.new_zeros((4, 2, (K - 1) * 256)), blocks.permute(2, 1, 0, 3).reshape(4, 2, -1)], -1)
+    ref, _ = pool_step_lcr_plain(h.double(), torch.ones(4, dtype=torch.int32, device=cuda),
+                                 [h.new_zeros((4, 3, b.block), dtype=torch.float64) for b in sp.plan.buckets],
+                                 sp.plan, 8)
+    got = outs.permute(2, 1, 0, 3).reshape(4, 3, -1)
+    assert _snr(ref[..., (K - 1) * 256 :], got[..., (K - 1) * 256 :]) >= 60.0
 
 
 def test_batch_upmixer_pipelined_on_cuda(cuda):

@@ -1,8 +1,10 @@
 """The torch port must run where jax is not installed: importing every
 module of upmix_tpu_torch and running an Upmixer, a BatchUpmixer, a
 ShardedUpmixer on a CPU mesh, a stream pool, a stream-server session,
-both probes' plain versions and the CLI on a WAV file leaves jax, and
-every module of the JAX package, unimported.
+both probes' plain versions and the CLI on a WAV file, the custom-window
+registry, and the routes of geometries no kernel takes (overlap 0.65
+offline, batched and sharded, `--window-file` and `--overlap` in the
+CLI) leaves jax, and every module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -65,6 +67,21 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--device", "cpu"]) == 0
     outs = [f for f in os.listdir(tmp) if f.startswith("in_Sum_")]
     assert len(outs) == 1 and read_wav(os.path.join(tmp, outs[0]))[0].shape == (3000, 2)
+from upmix_tpu_torch.ops.windows import register_window_vector, window_names
+name = register_window_vector("nojax_window", np.kaiser(300, 6.0))
+assert name in window_names()
+odd = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=512, overlap=0.65, window=name)
+c, _, _ = Upmixer(odd, device="cpu").process_np(L, 0.5 * L)
+b, = BatchUpmixer(odd, 3000, 1, device="cpu").process_files([np.stack([L, 0.5 * L])])
+assert np.isfinite(c).all() and float(np.abs(b[0] - c).max()) < 1e-5
+y = ShardedUpmixer(odd, make_mesh({"seq": 2}, devices=["cpu"] * 2)).process_batch(np.stack([L, 0.5 * L])[None])
+assert float((y[0, 0] - torch.as_tensor(c)).abs().max()) < 1e-3
+with tempfile.TemporaryDirectory() as tmp:
+    wav, win = os.path.join(tmp, "in.wav"), os.path.join(tmp, "w.txt")
+    write_wav(wav, np.stack([L, 0.5 * L], 1), 8000)
+    np.savetxt(win, np.hanning(64))
+    assert cli.main([wav, "--out-dir", tmp, "--band-edges", "0,400,1600", "--max-block-size", "512",
+                     "--overlap", "0.65", "--window-file", win, "--device", "cpu"]) == 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_package = sorted(m for m in sys.modules if m == "upmix_tpu" or m.startswith("upmix_tpu."))

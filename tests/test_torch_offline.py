@@ -159,23 +159,47 @@ def test_plans_from_jax_give_bitwise_same_output():
     ],
 )
 def test_unsupported_configs_raise(edges, kw):
+    # Geometries no kernel takes: the entry points no longer raise, they
+    # run the whole-file torch.fft program (as the JAX package runs them on
+    # XLA), > 60 dB against the oracle; the kernel path's own guard still
+    # refuses such a bucket (`make_bucket` -> `check_geometry`).
+    from upmix_tpu.models.offline import _plan_buckets as jplan
+
+    from upmix_tpu_torch.ops.omnibus import make_bucket
+
     cfg = UpmixConfig.make(edges, **kw)
-    L = np.zeros(4096, np.float32)
+    L, R = (a.astype(np.float32) for a in make_stereo(4096, 8000.0, seed=13))
+    ref = oracle_multiband(L, R, JaxUpmixConfig.make(edges, **kw))
+    for got in (
+        Upmixer(cfg, device="cpu").process_np(L, R),
+        [t.numpy() for t in build_offline_chunked_fn(cfg, 4096, device="cpu")(torch.as_tensor(L), torch.as_tensor(R))],
+    ):
+        for r, g in zip(ref, got):
+            assert snr_db(r, g) > 60.0
+    odd = [p for p in jplan(JaxUpmixConfig.make(edges, **kw), 4096) if p.block_size & (p.block_size - 1) or p.block_size % p.hop_size]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Upmixer(cfg, device="cpu").process_np(L, L)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_offline_chunked_fn(cfg, 4096, device="cpu")
+        make_bucket(odd[0], "cpu")
 
 
 def test_custom_window_raises():
     from upmix_tpu.ops.windows import register_window
+    from upmix_tpu_torch.ops.windows import register_window as port_register_window
 
-    # The JAX package knows the window; the port refuses it when the
-    # config is built.
+    # The same window registered in both packages: the port builds the
+    # config (it raised before its registry) and gives the JAX package's
+    # stems, > 80 dB (the file's bar against the JAX chunked path).
     register_window("torch_port_test_window", np.hanning, overwrite=True)
-    JaxUpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, window="torch_port_test_window")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, window="torch_port_test_window")
+    port_register_window("torch_port_test_window", np.hanning, overwrite=True)
+    kw = dict(sr=8000.0, max_block_size=256, window="torch_port_test_window")
+    cfg = UpmixConfig.make([0.0, 400.0], **kw)
+    jcfg = JaxUpmixConfig.make([0.0, 400.0], **kw)
+    L, R = (a.astype(np.float32) for a in make_stereo(4096, 8000.0, seed=14))
+    got = Upmixer(cfg, device="cpu").process_np(L, R)
+    want = jax_build_chunked(jcfg, 4096, use_pallas=False)(L, R)
+    for r, g in zip(oracle_multiband(L, R, jcfg), got):
+        assert snr_db(r, g) > 60.0
+    for w, g in zip(want, got):
+        assert snr_db(np.asarray(w), g) > 80.0
 
 
 def test_upmixer_cache_padding_and_lru():

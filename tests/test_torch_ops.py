@@ -59,8 +59,12 @@ def test_windows_equal(name):
 
 
 def test_custom_window_name_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A name no registry knows is refused by both packages, with the same
+    # error; a registered one is built (tests/test_torch_windows.py).
+    with pytest.raises(ValueError, match="unknown window 'my_window'"):
         windows.make_window("my_window", 64)
+    with pytest.raises(ValueError, match="unknown window 'my_window'"):
+        jwin.make_window("my_window", 64)
 
 
 @pytest.mark.parametrize("case", range(len(CONFIGS)))

@@ -358,6 +358,18 @@ def _probe_body(histL, histR, geometry, hw, mode):
     return acc, acc + histL[:, :hw], acc + histR[:, :hw]
 
 
+def test_floor_library_call_and_timing_entry_point():
+    # The same-bytes yardstick reads the whole history (the sum of its
+    # hw-long pieces); the timing entry point needs the card and says so.
+    from upmix_tpu_torch.ops.pool_floor import library_call, main
+
+    hist = torch.as_tensor(np.random.default_rng(9).standard_normal((3, 2, 1024)), dtype=torch.float32)
+    torch.testing.assert_close(library_call(hist, 256), sum(hist[..., k * 256 : (k + 1) * 256] for k in range(4)))
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            main([])
+
+
 @pytest.mark.parametrize("mode", ["copy", "frame"])
 @pytest.mark.parametrize("hw", [256, 512])
 def test_floor_matches_probe_body(mode, hw):

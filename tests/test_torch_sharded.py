@@ -202,10 +202,25 @@ def test_data_only_mesh_pure_dp():
     ],
 )
 def test_unsupported_geometry_raises(axes, spec, kw):
-    # As the port's Upmixer (ROADMAP.md, Queue 1: gather framing); the JAX package
-    # runs these through its gather path.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedUpmixer(_cfg(spec, **kw), _mesh(axes))
+    # Geometries no kernel takes run as the JAX package runs them: inside
+    # each shard on torch.fft (a seq mesh) or through the offline
+    # whole-file program (a data-only mesh).  Where the JAX package
+    # refuses the geometry (overlap 0.65 on 8 sequence shards pads 5000
+    # samples to 65M: sequence_plan's padding guard), the port refuses it
+    # too, with a ValueError, not a NotImplementedError.
+    cfg, jcfg = _cfg(spec, **kw), _jcfg(spec, **kw)
+    L, R = _stereo32(5000, cfg.sr, seed=21)
+    try:
+        want = JaxShardedUpmixer(jcfg, jax_make_mesh(axes)).process(L, R)
+    except ValueError as e:
+        with pytest.raises(ValueError, match="sequence sharding would pad"):
+            ShardedUpmixer(cfg, _mesh(axes)).process(L, R)
+        assert "sequence sharding would pad" in str(e)
+        return
+    got = ShardedUpmixer(cfg, _mesh(axes)).process_np(L, R)
+    for r, w, g in zip(oracle_multiband(L, R, jcfg), want, got):
+        assert snr_db(r, g) > 60.0
+        assert snr_db(np.asarray(w), g) > 80.0
 
 
 def test_production_geometry_seq8_parity_vs_oracle():

@@ -11,12 +11,16 @@ stream server with its network client (`--connect`) and metrics
 (default cuda) takes the place of the JAX package's platform choice and
 of its `--kernel` flag: on the card the offline path runs the omnibus
 kernel, `--mesh` the fused bucket kernel beside it, the streaming modes
-and the stream server the pool kernel.  Flags of modes that are not
+and the stream server the pool kernel.  Geometries no kernel takes
+(`--overlap 0.65`, a non-power-of-two `--max-block-size`) run on
+torch.fft, as the JAX CLI runs them on XLA.  Flags of modes that are not
 ported yet exit with a one-line error.
 
 Usage:
   python -m upmix_tpu_torch.cli song.wav [more.wav ...] --export-mode stereo_sum
   python -m upmix_tpu_torch.cli song.wav --device cpu      # the plain versions
+  python -m upmix_tpu_torch.cli song.wav --overlap 0.65    # any overlap: torch.fft where no kernel fits
+  python -m upmix_tpu_torch.cli song.wav --window-file w.npy   # a custom window vector (.npy or text)
   python -m upmix_tpu_torch.cli - --serve-stream 7000 --sr 48000
   python -m upmix_tpu_torch.cli song.wav --connect 127.0.0.1:7000
 """
@@ -37,7 +41,6 @@ NOT_PORTED = {
     "save_aot": ("--save-aot", "AOT artifacts"),
     "load_aot": ("--load-aot", "AOT artifacts"),
     "pool_mesh": ("--pool-mesh", "the serving pool on a mesh"),
-    "window_file": ("--window-file", "custom windows"),
 }
 
 
@@ -62,8 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated crossover edges in Hz (reference default)")
     p.add_argument("--overlap", type=float, default=0.75, help="STFT overlap (default 0.75)")
     p.add_argument("--window", default="blackman_harris",
-                   help="analysis window: blackman_harris, sqrt_hann, hann, blackman, hamming or rect "
-                   "(default blackman_harris)")
+                   help="analysis window: blackman_harris, sqrt_hann, hann, blackman, hamming, rect, or a name "
+                   "registered via upmix_tpu_torch.ops.windows.register_window (default blackman_harris)")
+    p.add_argument("--window-file", default=None, metavar="FILE",
+                   help="load a custom analysis-window VECTOR (.npy, or whitespace-separated text) and use it "
+                   "instead of --window; it is linearly resampled to each band's block size")
     p.add_argument("--xover-mode", default="raised_cosine", choices=["raised_cosine", "hard_zero"],
                    help="band-edge treatment (default raised_cosine)")
     p.add_argument("--max-block-size", type=int, default=2**16, help="cap on per-band STFT size (default 65536)")
@@ -232,6 +238,25 @@ def build_mesh(text: str, device: str = "cuda"):
         raise SystemExit(f"error: --mesh {text!r}: {e}")
 
 
+def load_window_file(path: str) -> str:
+    """Load a window vector from FILE (.npy or text) and register it under
+    a content-derived name, which it returns: two runs with the same file
+    get the same name, and a changed file cannot reuse a plan built with
+    the old one."""
+    import hashlib
+
+    import numpy as np
+
+    from upmix_tpu_torch.ops.windows import is_known_window, register_window_vector
+
+    vec = np.load(path) if path.endswith(".npy") else np.loadtxt(path, dtype=np.float64)
+    vec = np.asarray(vec, np.float32).ravel()
+    name = f"file:{hashlib.sha1(vec.tobytes()).hexdigest()[:10]}"
+    if not is_known_window(name):
+        register_window_vector(name, vec)
+    return name
+
+
 def _check_not_ported(args):
     for dest, (flag, what) in NOT_PORTED.items():
         if getattr(args, dest):
@@ -242,10 +267,19 @@ def _check_not_ported(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_not_ported(args)
-    from upmix_tpu_torch.ops.windows import BUILTIN_WINDOWS
+    if args.window_file is not None:
+        try:
+            args.window = load_window_file(args.window_file)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"error: --window-file {args.window_file!r}: {e}")
+    else:
+        # Validated here, after --window-file had its chance to register,
+        # so that a typo is a one-line exit and not a traceback.
+        from upmix_tpu_torch.ops.windows import is_known_window, window_names
 
-    if args.window not in BUILTIN_WINDOWS:
-        raise SystemExit(f"error: unknown --window {args.window!r}; one of {', '.join(sorted(BUILTIN_WINDOWS))}")
+        if not is_known_window(args.window):
+            raise SystemExit(f"error: unknown --window {args.window!r}; one of {', '.join(sorted(window_names()))} "
+                             "(or register one via --window-file / upmix_tpu_torch.ops.windows.register_window)")
     if args.engine == "native":
         raise SystemExit("error: --engine native (the C++ host shell) is not ported to upmix_tpu_torch; "
                          "use --engine torch")

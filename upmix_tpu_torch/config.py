@@ -3,10 +3,10 @@
 
 Standard library only, so importing the package stays free of torch.
 The two packages build equal configs from the same arguments
-(`tests/test_torch_config.py` pins `dataclasses.asdict` of both).  The
-one difference: a window name that is not built in raises
-`NotImplementedError` at construction, where the JAX package looks it
-up in its runtime registry of custom windows.
+(`tests/test_torch_config.py` pins `dataclasses.asdict` of both).  A
+window name that is not built in is looked up in the port's own runtime
+registry of custom windows (`ops/windows.py`), as the JAX package looks
+it up in its own.
 """
 
 from __future__ import annotations
@@ -27,14 +27,10 @@ MAX_BANDS_STREAM = 8
 
 def _check_window(name: str) -> None:
     # ops.windows imports EPS from this module: import it here, lazily.
-    from upmix_tpu_torch.ops.windows import BUILTIN_WINDOWS
+    from upmix_tpu_torch.ops.windows import is_known_window, window_names
 
-    if name not in BUILTIN_WINDOWS:
-        raise NotImplementedError(
-            f"custom window {name!r}: the torch port supports only the "
-            f"built-in windows {BUILTIN_WINDOWS} (ROADMAP.md, Queue 1: custom "
-            "windows)"
-        )
+    if not is_known_window(name):
+        raise ValueError(f"unknown window {name!r}; one of {tuple(window_names())}")
 
 
 def next_power_of_2(x: int) -> int:
@@ -301,10 +297,22 @@ def streaming_stft_table(
 
 def config_to_dict(config: UpmixConfig) -> dict:
     """JSON-safe dict of the full band-resolved config (the port's copy of
-    `upmix_tpu/aot.py::config_to_dict`).  The port builds no custom
-    windows (they raise at construction), so it carries no window
-    payloads."""
-    return dataclasses.asdict(config)
+    `upmix_tpu/aot.py::config_to_dict`).  Custom windows are process-local
+    registrations: their coefficients ride along under "custom_windows"
+    (`ops.windows.window_payload`), so a server checkpoint taken with one
+    window does not match a server whose window of that name differs."""
+    from upmix_tpu_torch.ops import windows
+
+    d = dataclasses.asdict(config)
+    payloads = {}
+    for b in config.bands:
+        if not windows.is_builtin_window(b.window) and b.window not in payloads:
+            payloads[b.window] = windows.window_payload(
+                b.window, [bb.block_size for bb in config.bands if bb.window == b.window]
+            )
+    if payloads:
+        d["custom_windows"] = payloads
+    return d
 
 
 def bucket_bands(bands: Iterable[BandSpec]) -> dict:

@@ -39,20 +39,37 @@
 //
 // floor_kernel replaces the probe scripts/bench_pool_floor.py
 // (main.make_call), which DMAs each group's whole [G, window] history of
-// both channels into VMEM and writes three [G, hw] outputs from it.  Here
-// one thread block per stream stages that stream's whole [2, window]
-// history in shared memory (16-byte loads, coalesced), then writes the
-// outputs from it: "copy" the sums and slices of bench_pool_floor.py:75-78,
-// "frame" also the framed rows of every bucket (see ops/pool_floor.py).
-// So it moves what the pool step must move of the history and the
-// outputs: bound by bytes, 184 MB at 2048 streams and window 8192 (55 us
-// at 3.35 TB/s).  The same float32 sums in the same order as its plain
-// version, so the output matches bit for bit.
+// both channels into VMEM and writes three [G, hw] outputs from it: "copy"
+// the sums and slices of bench_pool_floor.py:75-78, "frame" also the
+// framed rows of every bucket (see ops/pool_floor.py).  It moves what the
+// pool step must move of the history and the outputs: every history byte
+// read from HBM once, the outputs written once, 184 MB at 2048 streams and
+// window 8192 (55 us at 3.35 TB/s).  Bound by bytes, with nothing to
+// reuse: an output element needs L and R at one column, or a bucket's row.
+//
+// Design.  A streaming pass over the history, no shared memory: thread
+// (s, c) loads the 16-byte column c of stream s's L and R rows with
+// non-caching loads that the compiler may not drop (the probe must read
+// every byte, and most columns feed no output), then writes what that
+// column feeds with 16-byte streaming stores: column c < hw gives out0
+// (and in "frame" mode out1, out2), column c >= window - hw gives out1,
+// out2 in "copy" mode.  A bucket's row with M = 1 is the thread's own L
+// column; a row with M > 1 (stream s / M, frame s % M) is read with a
+// 16-byte load issued with the history's: it lies in the first M*B
+// samples of the first S/M streams, which L2 holds.  Small blocks, many
+// loads in flight on every SM, no staging and no tail wave.  The first
+// version of this kernel staged each stream's whole [2, window] history
+// (64 KB) in shared memory before writing: 3 blocks an SM, loads and
+// stores apart, its rows read with scalar loads (26.6% of the bound in
+// "frame" mode, PERF.md).
+// The same float32 sums in the same order as its plain version, so the
+// output matches it bit for bit.  Unaligned geometries (a window or hw
+// not a multiple of 4, a pointer off 16 bytes) run the same pass on
+// single floats.
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
 #include "fft.cuh"
-#include "tile.cuh"
 
 namespace {
 
@@ -91,6 +108,7 @@ struct PoolSink {
 };
 
 constexpr int MAX_FLOOR_BUCKETS = 8;  // ops/pool_floor.py: MAX_BUCKETS
+constexpr int FLOOR_THREADS = 256;
 
 struct FloorGeom {
   int n;  // buckets; 0 for the copy mode
@@ -98,39 +116,75 @@ struct FloorGeom {
   int M[MAX_FLOOR_BUCKETS];
 };
 
-__global__ void __launch_bounds__(THREADS)
-floor_kernel(const float* __restrict__ hist, float* __restrict__ out, int W, int hw, FloorGeom geo) {
-  extern __shared__ __align__(16) float row[];  // [2, W]: this stream's L then R
-  const int s = blockIdx.x;
-  const float* src = hist + (long long)s * 2 * W;
-  if (W % 2 == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
-    for (int i = threadIdx.x; i < W / 2; i += blockDim.x)
-      reinterpret_cast<float4*>(row)[i] = reinterpret_cast<const float4*>(src)[i];
-  } else {
-    for (int i = threadIdx.x; i < 2 * W; i += blockDim.x) row[i] = src[i];
-  }
-  __syncthreads();
-  const float* L = row;
-  const float* R = row + W;
-  float* o = out + (long long)s * 3 * hw;
-  for (int n = threadIdx.x; n < hw; n += blockDim.x) {
-    if (geo.n == 0) {
-      o[n] = L[n] + R[n];
-      o[hw + n] = L[W - hw + n];
-      o[2 * hw + n] = R[W - hw + n];
-      continue;
+// A history load that is issued even when its value feeds no output, and
+// allocates no L1 line (each byte is read once).
+__device__ __forceinline__ float4 load_once(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_once(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+
+// T = float4 (V = 4 floats a column) or float (V = 1); W, hw, every B a
+// multiple of V.  Thread idx: stream idx / (W / V), column idx % (W / V).
+template <typename T>
+__global__ void __launch_bounds__(FLOOR_THREADS)
+floor_kernel(const float* __restrict__ hist, float* __restrict__ out, long long n_cols, int W, int hw,
+             FloorGeom geo) {
+  constexpr int V = sizeof(T) / sizeof(float);
+  const long long idx = (long long)blockIdx.x * FLOOR_THREADS + threadIdx.x;
+  if (idx >= n_cols) return;
+  const int Wv = W / V;
+  const int s = (int)(idx / Wv);
+  const int n = (int)(idx - (long long)s * Wv) * V;  // first sample of the column
+  const T* L = reinterpret_cast<const T*>(hist + (long long)s * 2 * W + n);
+  const T l = load_once(L);
+  const T r = load_once(L + Wv);
+  T* o = reinterpret_cast<T*>(out + (long long)s * 3 * hw + n);
+  const int hv = hw / V;
+  if (geo.n == 0) {
+    if (n < hw) __stcs(o, add(l, r));
+    if (n >= W - hw) {
+      T* tail = reinterpret_cast<T*>(out + (long long)s * 3 * hw + n - (W - hw));
+      __stcs(tail + hv, l);
+      __stcs(tail + 2 * hv, r);
     }
-    float acc = 0.f;
-    for (int b = 0; b < geo.n; ++b) {
-      const int Bk = geo.B[b], Mk = geo.M[b];
+    return;
+  }
+  if (n >= hw) return;
+  // Rows of buckets with M > 1 first, all in flight at once.
+  T row[MAX_FLOOR_BUCKETS];
+#pragma unroll
+  for (int b = 0; b < MAX_FLOOR_BUCKETS; ++b) {
+    if (b < geo.n && geo.M[b] > 1 && n < min(hw, geo.B[b])) {
+      const int Mk = geo.M[b];
       // Row s of the framed matrix: frame s % M of stream s / M.
-      const float x = n < min(hw, Bk) ? hist[(long long)(s / Mk) * 2 * W + (s % Mk) * Bk + n] : 0.f;
-      acc = b == 0 ? x : acc + x;
+      row[b] = __ldg(reinterpret_cast<const T*>(hist + (long long)(s / Mk) * 2 * W + (s % Mk) * geo.B[b] + n));
     }
-    o[n] = acc;
-    o[hw + n] = acc + L[n];
-    o[2 * hw + n] = acc + R[n];
   }
+  T acc = zero<T>();
+#pragma unroll
+  for (int b = 0; b < MAX_FLOOR_BUCKETS; ++b) {
+    if (b < geo.n) {
+      const T x = n < min(hw, geo.B[b]) ? (geo.M[b] > 1 ? row[b] : l) : zero<T>();
+      acc = b == 0 ? x : add(acc, x);
+    }
+  }
+  __stcs(o, acc);
+  __stcs(o + hv, add(acc, l));
+  __stcs(o + 2 * hv, add(acc, r));
 }
 
 }  // namespace
@@ -177,21 +231,24 @@ int pool_wide_inverse(const float* part, const float* carry_in, const int* t, fl
 }
 
 // out: [S, 3, hw] from hist [S, 2, W]; geom: n_buckets (B, M) pairs.
-// One stream's [2, W] history must fit one block's shared memory.
 int pool_floor(const float* hist, float* out, int S, int W, int hw, int n_buckets,
                const int* geom, void* stream) {
-  if (n_buckets < 0 || n_buckets > MAX_FLOOR_BUCKETS) return (int)cudaErrorInvalidValue;
+  if (n_buckets < 0 || n_buckets > MAX_FLOOR_BUCKETS || S < 1 || hw < 1 || hw > W) return (int)cudaErrorInvalidValue;
   FloorGeom geo = {};
   geo.n = n_buckets;
+  bool vec = W % 4 == 0 && hw % 4 == 0 && (reinterpret_cast<unsigned long long>(hist) & 15) == 0 &&
+             (reinterpret_cast<unsigned long long>(out) & 15) == 0;
   for (int b = 0; b < n_buckets; ++b) {
     geo.B[b] = geom[2 * b];
     geo.M[b] = geom[2 * b + 1];
+    vec = vec && geo.B[b] % 4 == 0;
   }
-  const size_t smem = sizeof(float) * 2 * (size_t)W;
-  const cudaError_t err =
-      cudaFuncSetAttribute(floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  floor_kernel<<<S, THREADS, smem, (cudaStream_t)stream>>>(hist, out, W, hw, geo);
+  const long long n_cols = (long long)S * (vec ? W / 4 : W);
+  const unsigned grid = (unsigned)((n_cols + FLOOR_THREADS - 1) / FLOOR_THREADS);
+  if (vec)
+    floor_kernel<float4><<<grid, FLOOR_THREADS, 0, (cudaStream_t)stream>>>(hist, out, n_cols, W, hw, geo);
+  else
+    floor_kernel<float><<<grid, FLOOR_THREADS, 0, (cudaStream_t)stream>>>(hist, out, n_cols, W, hw, geo);
   return (int)cudaGetLastError();
 }
 

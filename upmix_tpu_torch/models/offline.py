@@ -15,13 +15,23 @@ Two things differ from the JAX chunked path:
     signals: `build_offline_rows_fn` takes [batch, 2, n] and puts every
     row's segments into that one call (models/batch.py, the data-only
     sharded path).
-  - Every length goes through the kernel path.  The JAX package sends
-    inputs under 2^18 samples to a whole-file program because that was
-    faster on its TPU; that threshold does not carry over.
+  - Every length of a config on the kernel path goes through it.  The
+    JAX package sends inputs under 2^18 samples to a whole-file program
+    because that was faster on its TPU; that threshold does not carry
+    over.
 
 `build_offline_fn(..., chunk=0)` runs the whole-file program instead:
 `_bucket_lcr` on torch.fft, in the inputs' dtype, so float64 inputs give
 the reference the kernel path is checked against.
+
+Geometry decides the route, as in the JAX package's `build_offline_fn`
+(`upmix_tpu/models/offline.py:487-493`): a config with any band whose
+hop does not divide its block (overlap 0.65, say) or whose block is not
+a power of two runs the whole-file program whatever `chunk` says, on any
+device (`kernel_config`).  No kernel computes these buckets in either
+package: the JAX package runs them on XLA (gather framing and a
+matmul DFT), the port on torch.fft.  The route is fixed when a program
+is built, never by a caught error.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from upmix_tpu_torch.ops.framing import frame_signal, offline_frame_plan, overla
 from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.mask import center_mask
 from upmix_tpu_torch.ops.omnibus import (
-    check_geometry,
+    kernel_geometry,
     make_bucket,
     make_omnibus_plan,
     omnibus_lcr_batch,
@@ -87,20 +97,45 @@ def _plan_buckets(config: UpmixConfig, n_samples: int):
     return plans
 
 
-def _bucket_lcr(plan, L: torch.Tensor, R: torch.Tensor, n_samples: int):
-    """One bucket's (C, Ls, Rs) over the whole signal via torch.fft, in the
-    dtype of L and R.  Returns [3, n_samples]."""
-    dev, dt = L.device, L.dtype
-    x = tnf.pad(torch.stack([L, R]), (0, plan.total_padded - n_samples))
-    frames = frame_signal(x, plan.block_size, plan.hop_size, plan.num_frames)
+def kernel_config(config: UpmixConfig) -> bool:
+    """Whether the config runs on the kernel path: every band's geometry
+    is one the kernels take (`ops/omnibus.py::kernel_geometry`)."""
+    return all(kernel_geometry(b.block_size, b.hop_size) for b in config.bands)
+
+
+def _spectral_lcr(plan, frames: torch.Tensor) -> torch.Tensor:
+    """frames [..., 2, F, B] (L, R) -> [..., 3, F, B] (C, Ls, Rs): analysis
+    window, rfft, gain x center mask summed over the bucket's bands,
+    irfft, synthesis window; torch.fft in the frames' dtype.  `plan` is a
+    bucket plan of numpy arrays (`_BucketPlan`, `sharded._SeqBucketPlan`)."""
+    dev, dt = frames.device, frames.dtype
     aw = torch.as_tensor(plan.analysis_window, device=dev).to(dt)
-    spec = torch.fft.rfft(frames * aw)  # [2, F, n_bins]
-    gains = torch.as_tensor(plan.gains, device=dev).to(dt)[:, None, :]
-    spec_c, spec_ls, spec_rs = center_mask(spec[0][None] * gains, spec[1][None] * gains)
-    summed = torch.stack([spec_c.sum(0), spec_ls.sum(0), spec_rs.sum(0)])
+    spec = torch.fft.rfft(frames * aw)  # [..., 2, F, n_bins]
+    gains = torch.as_tensor(plan.gains, device=dev).to(dt)[:, None, :]  # [bands, 1, n_bins]
+    spec_c, spec_ls, spec_rs = center_mask(spec[..., 0, None, :, :] * gains, spec[..., 1, None, :, :] * gains)
+    summed = torch.stack([spec_c.sum(-3), spec_ls.sum(-3), spec_rs.sum(-3)], dim=-3)
     sw = torch.as_tensor(plan.synthesis_window, device=dev).to(dt)
-    rec = torch.fft.irfft(summed, n=plan.block_size) * sw  # [3, F, block]
-    return overlap_add(rec, plan.hop_size)[:, :n_samples]
+    return torch.fft.irfft(summed, n=plan.block_size) * sw
+
+
+def _bucket_lcr(plan, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """One bucket's (C, Ls, Rs) over whole signals via torch.fft, in x's
+    dtype: x [..., 2, n_samples] -> [..., 3, n_samples].  Any hop: framing
+    is a strided view, the overlap-add shifted adds of whole hops
+    (ops/framing.py)."""
+    x = tnf.pad(x, (0, plan.total_padded - n_samples))
+    frames = frame_signal(x, plan.block_size, plan.hop_size, plan.num_frames)
+    return overlap_add(_spectral_lcr(plan, frames), plan.hop_size)[..., :n_samples]
+
+
+def _whole_file_rows(plans, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """The whole-file program: x [..., 2, n_samples] -> [..., 3, n_samples],
+    every bucket's `_bucket_lcr` summed in plan order."""
+    acc = None
+    for plan in plans:
+        contrib = _bucket_lcr(plan, x, n_samples)
+        acc = contrib if acc is None else acc + contrib
+    return acc
 
 
 def _chain_block_lcm(plans) -> int:
@@ -133,9 +168,11 @@ def build_offline_rows_fn(
     n_samples] float32, each row an independent signal.  Every row's
     segments are rows of one omnibus call, and the spill carry is one
     vectorised add.  `buckets` is the device plan (`plans_from_numpy`);
-    built here when not given."""
-    for b in config.bands:
-        check_geometry(b.block_size, b.hop_size)
+    built here when not given.  A config off the kernel path
+    (`kernel_config`) runs the whole-file program on every row at once."""
+    if not kernel_config(config):
+        whole = _plan_buckets(config, n_samples)
+        return lambda x: _whole_file_rows(whole, x.float(), n_samples)
     plans = _plan_buckets(config, chunk)  # geometry is per chunk
     unit = _chain_block_lcm(plans)
     # Clamp to the input length (unit-rounded) so short inputs do not pad
@@ -199,16 +236,14 @@ def build_offline_fn(
 ):
     """fn(L, R) -> (C, Ls, Rs) for a fixed input length.  The kernel path
     (chunked, CHUNK_SAMPLES unless `chunk` says otherwise) by default;
-    chunk=0 runs the whole-file torch.fft program, in the inputs' dtype."""
-    if chunk == 0:
+    chunk=0, or a config off the kernel path (`kernel_config`), runs the
+    whole-file torch.fft program, in the inputs' dtype."""
+    if chunk == 0 or not kernel_config(config):
         plans = _plan_buckets(config, n_samples)
 
         def fn(L: torch.Tensor, R: torch.Tensor):
-            acc = None
-            for plan in plans:
-                contrib = _bucket_lcr(plan, L, R, n_samples)
-                acc = contrib if acc is None else acc + contrib
-            return acc[0], acc[1], acc[2]
+            y = _whole_file_rows(plans, torch.stack([L, R]), n_samples)
+            return y[0], y[1], y[2]
 
         return fn
     return build_offline_chunked_fn(
@@ -238,6 +273,7 @@ class Upmixer:
         self.pad_granularity = max(1, int(pad_granularity))
         self.max_programs = max(1, int(max_programs))
         self.chunk = chunk  # None = CHUNK_SAMPLES, 0 = whole-file torch.fft program
+        self.kernel_path = chunk != 0 and kernel_config(config)  # else the whole-file program
         self._buckets = None
         self._cache = OrderedDict()
         if self.device.type == "cuda":
@@ -250,7 +286,7 @@ class Upmixer:
         if fn is not None:
             self._cache.move_to_end(n_padded)
             return fn
-        if self.chunk != 0 and self._buckets is None:
+        if self.kernel_path and self._buckets is None:
             self._buckets = plans_from_numpy(_plan_buckets(self.config, 1), self.device)
         fn = build_offline_fn(
             self.config, n_padded, chunk=self.chunk, device=self.device, buckets=self._buckets

@@ -1,9 +1,9 @@
 """Framing and overlap-add on tensors (port of `upmix_tpu/ops/framing.py`).
 
-With hop | block, framing is a view (`unfold`) and overlap-add is
-block/hop shifted adds in a fixed order, so the sums are deterministic
-and match the JAX fold element for element.  Other hops fold with
-`index_add_`.
+Framing is a view (`unfold`) at any hop, and overlap-add is
+ceil(block/hop) shifted adds in a fixed order, so the sums are
+deterministic and match the JAX fold element for element (its grouped
+fold when hop | block, its scatter-add otherwise).
 """
 
 from __future__ import annotations
@@ -24,23 +24,26 @@ def frame_signal(x: torch.Tensor, block_size: int, hop_size: int, num_frames: in
 
 
 def overlap_add(frames: torch.Tensor, hop_size: int) -> torch.Tensor:
-    """[..., num_frames, block] -> [..., (num_frames - 1) * hop + block]."""
+    """[..., num_frames, block] -> [..., (num_frames - 1) * hop + block]:
+    ceil(block / hop) shifted adds of the frames' hop-long parts.  When hop
+    does not divide the block each frame is zero-padded to whole hops and
+    the parts add last first, so every position sums its frames in
+    increasing frame order, as the JAX package's scatter-add does.  No
+    scatter: deterministic on the card too."""
     *batch, num_frames, block_size = frames.shape
     total = (num_frames - 1) * hop_size + block_size
-    if block_size % hop_size == 0:
-        k_frames = block_size // hop_size
-        z = frames.reshape(*batch, num_frames, k_frames, hop_size)
-        acc = None
-        for k in range(k_frames):
-            # Frame part k lands k hops later: pad the frame axis.
-            part = tnf.pad(z[..., :, k, :], (0, 0, k, k_frames - 1 - k))
-            acc = part if acc is None else acc + part
-        return acc.reshape(*batch, total)
-    idx = (
-        torch.arange(num_frames)[:, None] * hop_size + torch.arange(block_size)[None, :]
-    ).reshape(-1).to(frames.device)
-    out = frames.new_zeros((*batch, total))
-    return out.index_add_(-1, idx, frames.reshape(*batch, -1))
+    k_frames = -(-block_size // hop_size)
+    order = range(k_frames)
+    if block_size % hop_size:
+        frames = tnf.pad(frames, (0, k_frames * hop_size - block_size))
+        order = reversed(order)
+    z = frames.reshape(*batch, num_frames, k_frames, hop_size)
+    acc = None
+    for k in order:
+        # Frame part k lands k hops later: pad the frame axis.
+        part = tnf.pad(z[..., :, k, :], (0, 0, k, k_frames - 1 - k))
+        acc = part if acc is None else acc + part
+    return acc.reshape(*batch, (num_frames + k_frames - 1) * hop_size)[..., :total]
 
 
 def offline_frame_plan(n_samples: int, block_size: int, hop_size: int) -> tuple:

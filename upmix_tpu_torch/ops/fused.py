@@ -21,11 +21,13 @@ wider bucket (`launches_per_bucket`), at `omnibus.launch_geometry`.  On a CPU te
 `fused_bucket_lcr_batch_plain` (torch.fft).  There is no fallback
 between the two.
 
-Routing.  The port's omnibus takes any bucket, so nothing is left over as
-on the TPU; the sharded path sends a bucket here when the JAX package's
-gate for building a fused plan admits it (hop | block and B * 2K * 4 <=
-7 MiB per direction, `upmix_tpu/models/offline.py:320`;
-`parallel/sharded.py::route_buckets`).
+Routing.  The port's omnibus takes every bucket of kernel geometry
+(`omnibus.kernel_geometry`: a power-of-two block whose hop divides it);
+the sharded path sends such a bucket here when the JAX package's gate
+for building a fused plan admits it (hop | block and B * 2K * 4 <= 7 MiB
+per direction, `upmix_tpu/models/offline.py:320`;
+`parallel/sharded.py::route_buckets`), and runs the other geometries on
+torch.fft inside each shard.
 """
 
 from __future__ import annotations

@@ -118,14 +118,23 @@ class OmnibusBucket:
         return self.block - self.hop
 
 
+def kernel_geometry(block: int, hop: int) -> bool:
+    """Whether the kernels take a bucket: a power-of-two block whose hop
+    divides it.  The offline entry points route every other geometry to
+    torch.fft programs (`models/offline.py::build_offline_fn`,
+    `parallel/sharded.py`), as the JAX package routes them past its
+    Pallas kernels."""
+    return not block & (block - 1) and block % hop == 0
+
+
 def check_geometry(block: int, hop: int) -> None:
-    """The chunked path needs power-of-two blocks and hop | block."""
-    if block & (block - 1) or block % hop:
+    """The kernel path's guard: raise unless `kernel_geometry`."""
+    if not kernel_geometry(block, hop):
         raise NotImplementedError(
-            f"block {block} / hop {hop}: the torch port runs power-of-two "
-            "blocks whose hop divides the block; the gather path (hop not "
-            "dividing the block) and the non-power-of-two fallback are "
-            "later items of ROADMAP.md, Queue 1"
+            f"block {block} / hop {hop}: the kernels take power-of-two "
+            "blocks whose hop divides the block; the offline entry points "
+            "route other geometries to torch.fft (a kernel for them is a "
+            "later performance item of ROADMAP.md)"
         )
 
 

@@ -1,10 +1,15 @@
-"""Built-in analysis windows and the WOLA synthesis-window design.
+"""Analysis windows, the runtime registry of custom windows and the WOLA
+synthesis-window design.
 
-Numpy copies of `upmix_tpu/ops/windows.py` (the built-in windows and
-`design_wola_synthesis_window`): the port imports nothing of the JAX
-package.  tests/test_torch_ops.py pins every window to the JAX
-package's output bit for bit.  `BUILTIN_WINDOWS` is the set of names
-the port's configs accept.
+Numpy copies of `upmix_tpu/ops/windows.py` (the built-in windows, the
+registry: `register_window`, `register_window_vector`, `window_names`,
+`is_known_window`, `window_payload`, and `design_wola_synthesis_window`):
+the port imports nothing of the JAX package.  tests/test_torch_ops.py
+pins every built-in window to the JAX package's output bit for bit, and
+tests/test_torch_windows.py the registry.  A registered name is accepted
+wherever a built-in one is (configs, the CLI's --window); the kernels
+take the windows as arrays of their plans, so a custom window runs on
+them unchanged.
 """
 
 from __future__ import annotations
@@ -37,15 +42,107 @@ _WINDOWS = {
 }
 BUILTIN_WINDOWS = tuple(_WINDOWS)
 
+# User-registered windows: name -> fn(N) -> array[N].  The name flows
+# through BandSpec / UpmixConfig unchanged and make_window resolves it.
+_CUSTOM: dict = {}
+
+
+def register_window(name: str, fn, overwrite: bool = False) -> str:
+    """Register a custom analysis-window generator under `name`.
+
+    `fn(N) -> array[N]` is called per band with that band's block size.
+    Registration is process-wide; redefining a name needs overwrite=True
+    and fresh model objects (plans hold the windows they were built with).
+    """
+    name = str(name)
+    if name in _WINDOWS:
+        raise ValueError(f"{name!r} is a built-in window name")
+    if name in _CUSTOM and not overwrite:
+        raise ValueError(
+            f"window {name!r} already registered; pass overwrite=True "
+            "(and rebuild any models created with the old definition)"
+        )
+    probe = np.asarray(fn(16), dtype=np.float32)
+    if probe.shape != (16,) or not np.all(np.isfinite(probe)):
+        raise ValueError(
+            f"window fn for {name!r} must return a finite length-N 1-D "
+            f"array; got shape {probe.shape}"
+        )
+    _CUSTOM[name] = fn
+    return name
+
+
+def window_from_vector(vec):
+    """A window generator from a fixed VECTOR: a band whose block size is
+    the vector's length gets it verbatim, any other linear resampling over
+    [0, 1] with the endpoints aligned.  The float32 vector is kept as
+    `.vector`."""
+    base = np.asarray(vec, dtype=np.float32).ravel()
+    if base.size < 2:
+        raise ValueError("window vector needs at least 2 samples")
+    if not np.all(np.isfinite(base)):
+        raise ValueError("window vector must be finite")
+
+    def fn(N: int) -> np.ndarray:
+        N = int(N)
+        if N == base.size:
+            return base.copy()
+        x = np.linspace(0.0, 1.0, N)
+        xp = np.linspace(0.0, 1.0, base.size)
+        return np.interp(x, xp, base.astype(np.float64)).astype(np.float32)
+
+    fn.vector = base
+    return fn
+
+
+def register_window_vector(name: str, vec, overwrite: bool = False) -> str:
+    """register_window() for a fixed coefficient vector, resampled per band
+    (window_from_vector)."""
+    return register_window(name, window_from_vector(vec), overwrite=overwrite)
+
+
+def window_names() -> tuple:
+    """Every valid window name, built-ins first."""
+    return tuple(_WINDOWS) + tuple(_CUSTOM)
+
+
+def is_known_window(name: str) -> bool:
+    return name in _WINDOWS or name in _CUSTOM
+
+
+def is_builtin_window(name: str) -> bool:
+    return name in _WINDOWS
+
 
 def make_window(name: str, N: int) -> np.ndarray:
-    fn = _WINDOWS.get(name)
+    fn = _WINDOWS.get(name) or _CUSTOM.get(name)
     if fn is None:
-        raise NotImplementedError(
-            f"window {name!r} is not built in; the torch port supports "
-            f"{BUILTIN_WINDOWS} (ROADMAP.md, Queue 1: custom windows)"
+        raise ValueError(
+            f"unknown window {name!r}; one of {sorted(window_names())} "
+            "(register custom windows via upmix_tpu_torch.ops.windows.register_window)"
         )
-    return fn(int(N))
+    w = np.asarray(fn(int(N)), dtype=np.float32)
+    if w.shape != (int(N),):
+        raise ValueError(f"window {name!r} returned shape {w.shape}, expected ({N},)")
+    return w
+
+
+def window_payload(name: str, sizes) -> dict:
+    """JSON-safe record of a registered custom window: a vector-backed one
+    (register_window_vector, --window-file) as its vector, any other as
+    its values at `sizes` (the block sizes of the config being saved).
+    `config.config_to_dict` carries it, so two processes whose windows of
+    one name differ give different dicts."""
+    fn = _CUSTOM.get(name)
+    if fn is None:
+        raise ValueError(f"{name!r} is not a registered custom window")
+    vec = getattr(fn, "vector", None)
+    if vec is not None:
+        return {"kind": "vector", "coeffs": [float(v) for v in vec]}
+    return {
+        "kind": "sampled",
+        "sizes": {str(int(n)): [float(v) for v in make_window(name, int(n))] for n in sorted({int(s) for s in sizes})},
+    }
 
 
 def design_wola_synthesis_window(analysis_window: np.ndarray, overlap: float) -> np.ndarray:

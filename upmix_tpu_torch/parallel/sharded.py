@@ -24,10 +24,18 @@ devices=["cuda:0"] * 8)` runs a 2 x 4 mesh on one card, as XLA's virtual
 host devices do for the JAX package.  Inside the body each bucket goes to
 the kernel whose design fits it: the fused bucket kernel (ops/fused.py)
 for buckets within its gate, one omnibus call (ops/omnibus.py) over the
-rest.  A mesh without a ``seq`` axis is pure data parallelism: each
-device's rows go through the chunked offline path
-(`models/offline.py::build_offline_rows_fn`).  There is no `kernel=` or
-`use_pallas=` knob: the device decides, as everywhere in the port.
+rest.  A bucket no kernel takes (hop not dividing the block, or a block
+that is not a power of two: `ops/omnibus.py::kernel_geometry`) runs
+inside every shard's [chunk + halo] input on torch.fft, as the JAX body
+runs it on XLA (`upmix_tpu/parallel/sharded.py:213-240`): gather
+framing, the spectral core, the overlap-add, added into the
+shard's output before the output-halo add.  `sequence_plan` makes the
+chunk a multiple of lcm(block, hop) for every bucket, so shard edges
+land on every bucket's frame grid at any overlap.  A mesh without a
+``seq`` axis is pure data parallelism: each device's rows go through
+the offline path (`models/offline.py::build_offline_rows_fn`, which
+routes by geometry itself).  There is no `kernel=` or `use_pallas=`
+knob: the geometry decides the route, as everywhere in the port.
 """
 
 from __future__ import annotations
@@ -40,10 +48,11 @@ import torch
 import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
-from upmix_tpu_torch.models.offline import build_offline_rows_fn, plans_from_numpy
+from upmix_tpu_torch.models.offline import _spectral_lcr, build_offline_rows_fn, plans_from_numpy
+from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, takes_fused
 from upmix_tpu_torch.ops.gains import band_gain_curve
-from upmix_tpu_torch.ops.omnibus import check_geometry, make_omnibus_plan, omnibus_lcr_batch
+from upmix_tpu_torch.ops.omnibus import kernel_geometry, make_omnibus_plan, omnibus_lcr_batch
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
 
 
@@ -192,13 +201,35 @@ def sequence_plan(config: UpmixConfig, n_samples: int, n_seq: int) -> SequencePl
 def route_buckets(buckets, chunk: int):
     """(omnibus plan or None, fused buckets): each live bucket of a device
     plan to K2 when the JAX package's fused gate admits it
-    (`ops/fused.py::takes_fused`), else to the omnibus (K1)."""
+    (`ops/fused.py::takes_fused`), else to the omnibus (K1).  The device
+    plan holds the buckets of `kernel_geometry` only (`_device_plans`)."""
     live = [b for b in buckets if b is not None]
     fused = tuple(b for b in live if takes_fused(b))
     return make_omnibus_plan([b for b in live if not takes_fused(b)], chunk), fused
 
 
-def _local_lcr(x_ext: torch.Tensor, chunk: int, halo: int, omni_plan, fused: tuple) -> torch.Tensor:
+def split_plans(config: UpmixConfig) -> tuple:
+    """(kernel plans, leftover plans) of the config's buckets
+    (`_SeqBucketPlan`): the kernels take the first (`kernel_geometry`),
+    torch.fft the rest inside each shard (`_leftover_lcr`)."""
+    plans = _plan_seq_buckets(config)
+    ok = [p for p in plans if kernel_geometry(p.block_size, p.hop_size)]
+    return ok, [p for p in plans if not kernel_geometry(p.block_size, p.hop_size)]
+
+
+def _leftover_lcr(x_ext: torch.Tensor, plan: _SeqBucketPlan, chunk: int) -> torch.Tensor:
+    """One leftover bucket inside a shard: x_ext [rows, 2, >= chunk + B - H]
+    -> [rows, 3, chunk + B - H].  Frames f = 0 .. chunk/H - 1 start in
+    the shard (sequence_plan makes chunk % H == 0); gather framing, the
+    spectral core and the overlap-add, as the JAX body
+    (`upmix_tpu/parallel/sharded.py:213-227`)."""
+    B, H = plan.block_size, plan.hop_size
+    F = chunk // H
+    frames = frame_signal(x_ext[..., : (F - 1) * H + B], B, H, F)
+    return overlap_add(_spectral_lcr(plan, frames), H)
+
+
+def _local_lcr(x_ext: torch.Tensor, chunk: int, halo: int, omni_plan, fused: tuple, leftover: tuple) -> torch.Tensor:
     """Per-shard body, no communication: x_ext [rows, 2, chunk + halo]
     (each shard's samples and its input halo) -> [rows, 3, chunk + halo],
     the shard's output with its spill tail past `chunk`."""
@@ -211,6 +242,9 @@ def _local_lcr(x_ext: torch.Tensor, chunk: int, halo: int, omni_plan, fused: tup
         main, tail = kernel(x_ext[..., : chunk + spill].contiguous(), plan)
         y[..., :chunk] += main
         y[..., chunk : chunk + spill] += tail
+    for plan in leftover:
+        contrib = _leftover_lcr(x_ext, plan, chunk)
+        y[..., : contrib.shape[-1]] += contrib
     return y
 
 
@@ -246,10 +280,9 @@ def build_sharded_offline_fn(
     parallelism (one sequence shard, no halo exchange).  Use `plan` to
     pad and trim.  `buckets` maps a device to its device plan
     (`plans_from_numpy`) and is filled in for devices it lacks, so a
-    caller can share the plans between lengths.
+    caller can share the plans between lengths.  Buckets off the kernels'
+    geometry run on torch.fft inside each shard (`_leftover_lcr`).
     """
-    for b in config.bands:
-        check_geometry(b.block_size, b.hop_size)
     shape = mesh.shape
     if seq_axis is not None and seq_axis not in shape:
         seq_axis = None
@@ -259,9 +292,12 @@ def build_sharded_offline_fn(
     n_data, n_seq = grid.shape
     out_dev = mesh.devices.flat[0]
     buckets = {} if buckets is None else buckets
+    kernel_plans, leftover = split_plans(config)
     for dev in set(grid.flat):
         if dev not in buckets:
-            buckets[dev] = plans_from_numpy(_plan_seq_buckets(config), dev)
+            buckets[dev] = plans_from_numpy(kernel_plans, dev)
+    # Dead leftovers (all gains zero) add nothing.
+    leftover = tuple(p for p in leftover if p.gains.any())
 
     def split_batch(x, n_padded):
         if x.dim() != 3 or x.shape[1] != 2 or x.shape[2] != n_padded or x.shape[0] % n_data:
@@ -312,7 +348,7 @@ def build_sharded_offline_fn(
                 else:
                     head = own.new_zeros(own.shape[:-1] + (halo,))
                 items.append((grid[d, q], torch.cat([own, head], dim=-1)))
-        ys = _run_grouped(items, lambda dev, rows: _local_lcr(rows, chunk, halo, *routes[dev]))
+        ys = _run_grouped(items, lambda dev, rows: _local_lcr(rows, chunk, halo, *routes[dev], leftover))
         # Output halo: each shard's tail [chunk:] lands on its right
         # neighbour's head (disjoint from that neighbour's own tail).
         y = torch.empty((x.shape[0], 3, plan.n_padded), dtype=torch.float32, device=out_dev)
@@ -341,8 +377,6 @@ class ShardedUpmixer:
         self.mesh = mesh if mesh is not None else make_mesh()
         self._cache = {}
         self._buckets = {}  # device -> device plan, shared by every length
-        for b in config.bands:
-            check_geometry(b.block_size, b.hop_size)
         # Fail n-independent geometry problems (pathological frame-grid
         # LCM) at construction, not first process(); the n-dependent
         # padding-blowup check still runs per call in sequence_plan.
