@@ -15,9 +15,11 @@ config (the Bela setup: edges 0/500/2000/8000 Hz, 48 kHz, hardware block
 two probes through their entry points (`ops.int8_dot` check and bench,
 `ops.overhead_probe.run_configs`); and the CLI in process on WAV files
 (offline, --streaming, --pipe, --serve); and the stream server on
-loopback through `run_stream_server`.  Phases, one line each or more,
-any failure exits nonzero (phases 10-13 and 19-21 run between 5 and 6,
-14-18 after 8):
+loopback through `run_stream_server`; the pool's spectral OLA through
+`make_stream_pool(..., ola="spectral")`, the pool on a mesh and the
+tuner (`python -m upmix_tpu_torch.tune`'s two sweeps).  Phases, one line
+each or more, any failure exits nonzero (phases 10-13 and 19-21 run
+between 5 and 6, 22-25 after 8, then 14-18):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -67,9 +69,10 @@ any failure exits nonzero (phases 10-13 and 19-21 run between 5 and 6,
   9. a JSON line of per-kernel results (launches from the main paths'
      runs; bounds from this run's shapes and the least work of each
      function: its FFTs or its bytes, whichever takes longer; a kernel
-     whose bound is more than 105% of its time fails the run; K1's and
-     K3's library_ms is the cuFFT yardstick of their transforms; K6 one
-     entry per mode), then the last line {"ok": true, "device": {...}};
+     whose bound is more than 105% of its time fails the run; K1's,
+     K3's and K3s's library_ms is the cuFFT yardstick of their
+     transforms; K6 one entry per mode), then the last line {"ok": true,
+     "device": {...}};
  10. fused kernel parity: K2 (K1's FFT kernels with an epilogue that
      writes its span) against its plain version in float64 on the card, on
      the three buckets the sharded path routes to it, at the sharded
@@ -147,7 +150,33 @@ any failure exits nonzero (phases 10-13 and 19-21 run between 5 and 6,
      realtime factor beside phase 13's;
  21. `make_stream_pool` with the custom window at 2048 streams: the CUDA
      pool, K3 launched, >= 60 dB against the float64 plain step, warmup
-     blocks exact zeros.
+     blocks exact zeros;
+ 22. K3s parity (the pool kernel's spectral-OLA body, csrc/pool_spectral.cu)
+     against its float64 plain version at 1, 5 and 2048 streams, hops 1
+     and 4, hw 2048 and 8192 (its 32768 bucket through the split), mixed
+     block counts and nonzero carried spectra, per bucket at 2048 streams
+     and whole (>= 80 dB, exact zeros where the plain version has them),
+     two calls bit-identical, and its output against K3's from a fresh
+     state (>= 80 dB: the two dataflows compute one function);
+ 23. the spectral pool end to end: make_stream_pool(cfg, 2048, 2048,
+     ola="spectral") must be the CUDA pool and launch K3s (and not K3);
+     12 blocks, warmup exact zeros, the rest >= 60 dB against float64; a
+     snapshot (the JAX package's packed layout) restored into a fresh pool
+     continues bit for bit; reset_streams; then ms per block of the K3s
+     and K3 pools at 16 and 2048 streams, hops 1 and 4, in one run; K3s
+     alone beside K3, its plain version, its bound and design line (its
+     own FFTs and bytes), per bucket beside a cuFFT yardstick of its
+     transforms; the profiler's idle share;
+ 24. the pool on a data = 2 mesh of the one card ([cuda:0] * 2) at 2048
+     streams in both OLA modes: K3 or K3s launched, outputs and
+     snapshots bit for bit the unsharded pool's; a stream-server session
+     on run_stream_server(mesh=...) (spectral), checkpointed, then resumed
+     on an unsharded server: the clients' frames equal the pool fed
+     directly bit for bit;
+ 25. the tuner: `tune.main` (python -m upmix_tpu_torch.tune) over 1024
+     and 2048 streams, both OLA modes, hops 1 and 4, protocol "scan", then
+     the offline chunks 2^19-2^22 on bench.py's config at 2^23 samples:
+     every candidate timed, best printed.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -200,6 +229,13 @@ SHARD_SAMPLES = 2**21
 ODD_BLOCK = 49152
 SHARD_065 = {"max_block_size": 2048, "threshold_factor": 64.0}
 CUSTOM_WINDOW = "kaiser_8"  # np.kaiser(4096, 8.0), registered as a vector
+# Phases 22-25: K3s at the pool's hw and at 8192 (its 32768 bucket split);
+# the tuner's pool sweep and its offline sweep (bench.py's config on
+# 2^23 samples, so that no chunk clamps to the input).
+SPECTRAL_HWS = (POOL_HW, 4 * POOL_HW)
+TUNE_BATCHES = (1024, 2048)
+TUNE_CHUNKS = (2**19, 2**20, 2**21, 2**22)
+TUNE_OFFLINE_SAMPLES = 2**23
 BATCH_FILES, BATCH_SIZE, BATCH_SAMPLES = 3, 2, 2**20
 
 # NVIDIA H100 SXM at its 700 W limit (the data sheet): FP32 outside the
@@ -281,6 +317,16 @@ def design_work(plan_buckets, S: int, chunk: int, n_sm: int):
             nbytes += 4 * S * F * 2 * B + 8 * S * F * w.groups * 2 * K * (1 + geo.blocks * per_block / (S * F))
             nbytes += 4 * 2 * 3 * S * width * Kf
     return flop, nbytes
+
+
+def exact_zeros(got: torch.Tensor, ref: torch.Tensor):
+    """(got is exactly 0 wherever ref is, zeros of got where ref is not,
+    ref's largest magnitude there): a pool kernel's exact zeros where its
+    plain version has them (not-ready hops).  A ready float32 sample can
+    round to exactly 0 by chance (a few in 5e7): counted, not failed."""
+    stray = (got == 0) & (ref != 0)
+    return (bool((got[ref == 0] == 0).all()), int(stray.sum()),
+            float(ref[stray].abs().max()) if bool(stray.any()) else 0.0)
 
 
 def fail(msg: str):
@@ -541,6 +587,9 @@ def main():
     kernels.append(k2)
     geometry_phases(smi, dev, audio_s / path_ms * 1e3, shard_rtf)
     kernels += pool_phases(smi, dev)
+    kernels.append(spectral_phases(smi, dev))
+    mesh_phases(smi, dev)
+    tune_phases(smi, dev)
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
     server_phases(smi, dev)
@@ -905,12 +954,7 @@ def pool_phases(smi: str, dev) -> list:
         torch.cuda.synchronize()
         snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
         snrs += [snr_db(r, g) for r, g in zip(ref_c, got_c)]
-        # Exact zeros where the plain version has them (not-ready hops).  A
-        # ready float32 sample can round to exactly 0 by chance (a few in
-        # 5e7): counted, with the reference's largest magnitude there.
-        zeros_agree = bool((got[ref == 0] == 0).all())
-        stray = (got == 0) & (ref != 0)
-        stray_ref = float(ref[stray].abs().max()) if bool(stray.any()) else 0.0
+        zeros_agree, n_stray, stray_ref = exact_zeros(got, ref)
         err = float((got.double() - ref).abs().max())
         max_abs_err = max(max_abs_err, err)
         worst = min(worst, *snrs)
@@ -918,7 +962,7 @@ def pool_phases(smi: str, dev) -> list:
               + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs[:3]))
               + ", carries " + ", ".join(f"{v:.1f}" for v in snrs[3:])
               + f" dB, max abs err {err:.3e}, exact zeros where the plain version has them {zeros_agree} "
-              f"(zeros elsewhere {int(stray.sum())}, the reference there at most {stray_ref:.1e}) "
+              f"(zeros elsewhere {n_stray}, the reference there at most {stray_ref:.1e}) "
               f"(bar >= {KERNEL_BAR_DB} dB)",
               flush=True)
         if not zeros_agree:
@@ -1194,6 +1238,355 @@ def pool_phases(smi: str, dev) -> list:
         }
         for mode in ("copy", "frame")
     ]
+
+
+def spectral_phases(smi: str, dev) -> dict:
+    """Phases 22-23 on the pool's spectral OLA (K3s); returns its result entry."""
+    import dataclasses
+
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import (
+        make_pool_plan,
+        pool_step_lcr,
+        pool_step_spectral_plain,
+        spectral_launches_per_bucket,
+        spectral_pass,
+    )
+
+    # 22. K3s parity against its float64 plain version, and against K3
+    worst, max_abs_err = float("inf"), 0.0
+    for hw in SPECTRAL_HWS:
+        cfg_h = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=hw)
+        for S in FLOOR_STREAMS:
+            plan = make_pool_plan(cfg_h, hw, S, device=dev, ola="spectral")
+            tplan = make_pool_plan(cfg_h, hw, S, device=dev)
+            K = plan.warmup
+            rng = np.random.default_rng(S + hw)
+            for hops in (1, 4):
+                hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32,
+                                       device=dev)
+                t = torch.as_tensor(rng.integers(1, K + 4, S), dtype=torch.int32, device=dev)
+                carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)) * 0.1, dtype=torch.float32,
+                                           device=dev) for b in plan.buckets]
+                if S == POOL_STREAMS:
+                    for b, c in zip(plan.buckets, carries):
+                        sub = dataclasses.replace(plan, buckets=(b,))
+                        got, got_c = pool_step_lcr(hist, t, [c], sub, hops)
+                        ref, ref_c = pool_step_spectral_plain(hist.double(), t, [c.double()], sub, hops)
+                        snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
+                        snrs += [snr_db(ref_c[0], got_c[0])] if b.overlap > 1 else []
+                        worst = min(worst, *snrs)
+                        print(f"K3s parity hw={hw} S={S} hops={hops} bucket B={b.block} H={b.hop} K={b.kept}"
+                              f"{' (split)' if b.wide is not None else ''}: "
+                              + ", ".join(f"{n} {v:.1f} dB" for n, v in zip((*OUTPUTS, "carry"), snrs)), flush=True)
+                got, got_c = pool_step_lcr(hist, t, carries, plan, hops)
+                again, again_c = pool_step_lcr(hist, t, carries, plan, hops)
+                ref, ref_c = pool_step_spectral_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
+                torch.cuda.synchronize()
+                snrs = [snr_db(ref[:, o], got[:, o]) for o in range(3)]
+                snrs += [snr_db(r, g) for b, r, g in zip(plan.buckets, ref_c, got_c) if b.overlap > 1]
+                repeat = bool(torch.equal(got, again)) and all(torch.equal(a, b) for a, b in zip(got_c, again_c))
+                zeros_agree, n_stray, stray_ref = exact_zeros(got, ref)
+                err = float((got.double() - ref).abs().max())
+                max_abs_err = max(max_abs_err, err)
+                worst = min(worst, *snrs)
+                del ref, ref_c, again, again_c
+                # The two dataflows compute one function: from a fresh state,
+                # every stream ready, K3s's output against K3's.
+                ready = torch.full((S,), K + 1, dtype=torch.int32, device=dev)
+                spec0 = [torch.zeros(b.spectral_carry_shape(S), device=dev) for b in plan.buckets]
+                time0 = [torch.zeros((S, 3, b.block), device=dev) for b in tplan.buckets]
+                vs_time = snr_db(pool_step_lcr(hist, ready, time0, tplan, hops)[0],
+                                 pool_step_lcr(hist, ready, spec0, plan, hops)[0])
+                worst = min(worst, vs_time)
+                print(f"K3s parity hw={hw} S={S} hops={hops} all buckets: "
+                      + ", ".join(f"{n} {v:.1f} dB" for n, v in zip(OUTPUTS, snrs[:3]))
+                      + ", carries " + ", ".join(f"{v:.1f}" for v in snrs[3:])
+                      + f" dB, max abs err {err:.3e}; exact zeros where the plain version has them {zeros_agree} "
+                      f"(zeros elsewhere {n_stray}, the reference there at most {stray_ref:.1e}); two calls "
+                      f"bit-identical {repeat}; against K3 from a fresh state {vs_time:.1f} dB (bar >= "
+                      f"{KERNEL_BAR_DB} dB)", flush=True)
+                if not zeros_agree:
+                    fail("K3s's exact zeros differ from its plain version's")
+                if not repeat:
+                    fail("two calls of K3s on the same input differ")
+                del hist, carries, got, got_c, spec0, time0
+                torch.cuda.empty_cache()
+    if not (worst >= KERNEL_BAR_DB):
+        fail(f"K3s parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
+
+    # 23. the spectral pool end to end through the user's entry point
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    S, hw = POOL_STREAMS, POOL_HW
+    blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(23))
+    sp = make_stream_pool(cfg, hw, S, ola="spectral")
+    if type(sp) is not CudaStreamPool or sp.ola != "spectral":
+        fail(f"make_stream_pool(ola='spectral') gave {type(sp).__name__} (ola {getattr(sp, 'ola', None)})")
+    plan = sp.plan
+    K = plan.warmup
+    per_block = sum(spectral_launches_per_bucket(b.block) for b in plan.buckets)
+    pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = 0
+    outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
+    torch.cuda.synchronize()
+    k3s_launches = pool.SPECTRAL_LAUNCHES
+    print(f"spectral pool e2e: CudaStreamPool(ola='spectral'), {POOL_BLOCKS} blocks x {S} streams, K3s launches "
+          f"{k3s_launches} (want {POOL_BLOCKS * per_block}), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
+    if k3s_launches != POOL_BLOCKS * per_block or pool.LAUNCHES:
+        fail(f"the spectral pool launched K3s {k3s_launches} times and K3 {pool.LAUNCHES} times")
+    hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)
+    carries64 = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=dev) for b in plan.buckets]
+    e2e = float("inf")
+    for i, (b, out) in enumerate(zip(blocks, outs)):
+        h = torch.cat([hist64, b.transpose(0, 1).double()], dim=-1)
+        ref, carries64 = pool_step_spectral_plain(h, torch.full((S,), i + 1, dtype=torch.int32, device=dev),
+                                                  carries64, plan)
+        hist64 = h[..., hw:]
+        if not torch.isfinite(out).all() or out.shape != (3, S, hw):
+            fail(f"spectral pool block {i}: shape {tuple(out.shape)} or non-finite values")
+        if i < K - 1:
+            if bool((out != 0).any()):
+                fail(f"spectral pool block {i} is not silent during warmup")
+        else:
+            e2e = min(e2e, snr_db(ref.transpose(0, 1), out))
+    del hist64, carries64, ref, h
+    print(f"spectral pool e2e: warmup blocks 0..{K - 2} exact zeros; worst block SNR vs float64 plain step "
+          f"{e2e:.1f} dB (bar >= {E2E_BAR_DB} dB)", flush=True)
+    if not (e2e >= E2E_BAR_DB):
+        fail(f"spectral pool end-to-end SNR {e2e:.1f} dB < {E2E_BAR_DB} dB")
+    snap = sp.snapshot()  # the JAX package's packed layout
+    a = torch.stack(sp.push_blocks(blocks[0, 0], blocks[0, 1]))
+    a2 = torch.stack(sp.push_blocks(blocks[1, 0], blocks[1, 1]))
+    fresh = CudaStreamPool(cfg, hw, S, device=dev, ola="spectral")
+    fresh.restore(snap)
+    resumed = (torch.equal(torch.stack(fresh.push_blocks(blocks[0, 0], blocks[0, 1])), a)
+               and torch.equal(torch.stack(fresh.push_blocks(blocks[1, 0], blocks[1, 1])), a2))
+    layout = {k: tuple(v.shape) for k, v in snap["ola"].items()}
+    sp.restore(snap)
+    slot = S // 2
+    sp.reset_streams([slot])
+    b0 = torch.stack(sp.push_blocks(blocks[0, 0], blocks[0, 1]))
+    others = [s for s in range(S) if s != slot]
+    churn_ok = bool(torch.equal(a[:, others], b0[:, others])) and not bool((b0[:, slot] != 0).any())
+    print(f"spectral pool e2e: snapshot carries in the JAX layout {layout}, restored into a fresh pool: the next two "
+          f"blocks bit for bit {resumed}; reset_streams re-warms slot {slot}, others bit-identical {churn_ok}",
+          flush=True)
+    if not resumed or not churn_ok:
+        fail("the spectral pool's snapshot did not resume bit for bit, or reset_streams touched other streams")
+    del sp, fresh, outs, snap, a, a2, b0
+
+    # Timing: K3s and K3 in the same run.
+    deadline_ms = hw / POOL_SR * 1e3
+
+    def sustained(n_streams, hops, ola):
+        tp = CudaStreamPool(cfg, hw, n_streams, device=dev, ola=ola)
+        run, fresh_state = tp.make_sustained_runner(POOL_BLOCKS, hops=hops)
+        slabs = (blocks[:, :, :n_streams].reshape(POOL_BLOCKS // hops, hops, 2, n_streams, hw)
+                 .permute(0, 2, 3, 1, 4).reshape(POOL_BLOCKS // hops, 2, n_streams, hops * hw).contiguous())
+        state, _ = run(fresh_state(), slabs)
+        return time_ms(lambda: run(state, slabs), loops=5, iters=1) / POOL_BLOCKS, (run, state, slabs)
+
+    for n_streams, hops in ((16, 1), (S, 1), (S, 4)):
+        ms_s, _ = sustained(n_streams, hops, "spectral")
+        ms_t, _ = sustained(n_streams, hops, "time")
+        torch.cuda.empty_cache()
+        print(f"spectral pool timing [{smi}]: S={n_streams} hops={hops} ({POOL_BLOCKS} blocks a call): K3s pool "
+              f"{ms_s:.3f} ms per block, K3 pool {ms_t:.3f} ms (K3s/K3 {ms_s / ms_t:.2f}); the {deadline_ms:.2f} ms "
+              f"deadline met {ms_s <= deadline_ms}", flush=True)
+    rng = np.random.default_rng(24)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, K * hw)), dtype=torch.float32, device=dev)
+    t = torch.full((S,), K + 1, dtype=torch.int32, device=dev)
+    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)) * 0.1, dtype=torch.float32, device=dev)
+               for b in plan.buckets]
+    tplan = make_pool_plan(cfg, hw, S, device=dev)
+    tcarries = [torch.zeros((S, 3, b.block), device=dev) for b in tplan.buckets]
+    k3s_ms = time_ms(lambda: pool_step_lcr(hist, t, carries, plan))
+    k3_ms = time_ms(lambda: pool_step_lcr(hist, t, tcarries, tplan))
+    k3s_plain_ms = time_ms(lambda: pool_step_spectral_plain(hist, t, carries, plan))
+    # The function's least work is K3's: the FFTs of every frame; its bytes
+    # the history read, the spectral carries read and written, the outputs
+    # written and t, gains and windows read once.
+    k3s_flop = sum(fft_flop(S * b.passes, b.block) for b in plan.buckets)
+    carry_floats = sum(3 * (b.overlap - 1) * b.kept * 2 for b in plan.buckets)
+    k3s_bytes = 4 * (S * 2 * K * hw + 2 * S * carry_floats + S * 3 * hw + S
+                     + sum(2 * b.block + b.gains.numel() for b in plan.buckets))
+    k3s_bound, k3s_by = bound(k3s_flop, k3s_bytes)
+    print(f"timing [{smi}]: K3s (S={S}, hops=1, all ready) {k3s_ms:.3f} ms, K3 {k3_ms:.3f} ms (K3s/K3 "
+          f"{k3s_ms / k3_ms:.2f}), plain version {k3s_plain_ms:.3f} ms; bound {k3s_bound:.3f} ms ({k3s_by}: "
+          f"{k3s_flop:.3e} FLOP by FFT, {k3s_bytes / 1e9:.3f} GB with {carry_floats} carried floats a stream), "
+          f"K3s at {k3s_bound / k3s_ms:.1%} of it", flush=True)
+
+    def design(b):
+        """(FLOP, bytes) of K3s's own work on bucket b at its launch
+        geometry: G frames a pass forward (zero frames included) and, per
+        stream, the P + Kr - 1 frames that reach the output inverted (C +
+        i Ls one transform, the Rs of two frames another); 5 N log2 N a
+        complex FFT; frames read, the new spectra written and read, the
+        carries, the output read and written."""
+        G, F, Kr = spectral_pass(b.block), b.passes, b.overlap
+        fwd = -(-F // G) * G
+        inv = sum(nf + -(-nf // 2) for nf in [min(G, F + Kr - 1 - i) for i in range(0, F + Kr - 1, G)])
+        flop = S * (fwd + inv) * 5 * b.block * np.log2(b.block)
+        nbytes = 4 * S * (fwd * 2 * b.block + 2 * 3 * F * b.kept * 2 + 2 * 3 * (Kr - 1) * b.kept * 2 + 2 * 3 * hw)
+        return flop, nbytes
+
+    d = [design(b) for b in plan.buckets]
+    d_flop, d_bytes = sum(x for x, _ in d), sum(y for _, y in d)
+    d_bound, d_by = bound(d_flop, d_bytes)
+    print(f"design [{smi}]: K3s FFTs in shared memory {d_flop:.3e} FLOP ({d_flop / k3s_flop:.2f}x the function's), "
+          f"{d_bytes / 1e9:.3f} GB -> {d_bound:.3f} ms ({d_by}); K3s at {d_bound / k3s_ms:.1%} of it "
+          f"({d_flop / k3s_ms / 1e9:.2f} TFLOP/s)", flush=True)
+    parts, k3s_lib_ms = [], 0.0
+    for b, c, (b_flop, _) in zip(plan.buckets, carries, d):
+        sub = dataclasses.replace(plan, buckets=(b,))
+        tsub = dataclasses.replace(tplan, buckets=(tplan.buckets[plan.buckets.index(b)],))
+        b_ms = time_ms(lambda: pool_step_lcr(hist, t, [c], sub))
+        b_k3 = time_ms(lambda: pool_step_lcr(hist, t, [tcarries[plan.buckets.index(b)]], tsub))
+        b_plain = time_ms(lambda: pool_step_spectral_plain(hist, t, [c], sub))
+        # The cuFFT yardstick of its transforms: rfft of the new frames,
+        # irfft of the three outputs of every frame that reaches the output.
+        rows, _ = cufft_inputs(hist, b, b.passes)
+        gen = torch.Generator(dev).manual_seed(b.block)
+        shape = (S, 3, b.passes + b.overlap - 1, b.block // 2 + 1)
+        spec = torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+        c_ms = cufft_ms(rows, spec, b.block)
+        del rows, spec
+        k3s_lib_ms += c_ms
+        parts.append(f"B={b.block} {b_ms:.3f} ms ({b_flop / b_ms / 1e9:.2f} TFLOP/s of its own FFTs; K3 {b_k3:.3f}) "
+                     f"vs plain {b_plain:.3f} ms, cuFFT yardstick {c_ms:.3f} ms")
+    print(f"timing [{smi}]: K3s per bucket: " + "; ".join(parts)
+          + f"; cuFFT yardstick over the buckets {k3s_lib_ms:.3f} ms", flush=True)
+    for n_streams in (16, S):
+        _, (run, state, slabs) = sustained(n_streams, 1, "spectral")
+        print(f"spectral pool profile (S={n_streams}, {POOL_BLOCKS} blocks per call): "
+              f"{device_share(lambda: run(state, slabs), iters=2)}", flush=True)
+        del run, state, slabs
+    del hist, carries, tcarries, blocks
+    torch.cuda.empty_cache()
+    return {
+        "name": "pool_step_spectral",
+        "route": "cuda",
+        "source": "upmix_tpu_torch/csrc/pool_spectral.cu",
+        "replaces": "upmix_tpu/ops/pallas_pool.py:249",
+        "launches": k3s_launches,
+        "max_abs_err": max_abs_err,
+        "ms": k3s_ms,
+        "plain_ms": k3s_plain_ms,
+        "bound_ms": k3s_bound,
+        "bound_by": k3s_by,
+        "library_ms": k3s_lib_ms,
+    }
+
+
+def mesh_phases(smi: str, dev):
+    """Phase 24: the serving pool on a data = 2 mesh of the one card."""
+    import tempfile
+
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.parallel import make_mesh
+    from upmix_tpu_torch.serve_stream import StreamSession, run_stream_server
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    S, hw = POOL_STREAMS, POOL_HW
+    mesh = make_mesh({"data": 2}, devices=[dev] * 2)
+    blocks = torch.randn((6, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(24))
+    for ola in ("time", "spectral"):
+        shard = CudaStreamPool(cfg, hw, S, device=dev, mesh=mesh, ola=ola)
+        plain = CudaStreamPool(cfg, hw, S, device=dev, ola=ola)
+        launches, same = 0, True
+        for b in blocks:
+            before = pool.SPECTRAL_LAUNCHES if ola == "spectral" else pool.LAUNCHES
+            got = torch.stack(shard.push_blocks(b[0], b[1]))
+            launches += (pool.SPECTRAL_LAUNCHES if ola == "spectral" else pool.LAUNCHES) - before
+            same &= bool(torch.equal(got, torch.stack(plain.push_blocks(b[0], b[1]))))
+        snaps_same = all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in
+                         zip(shard.snapshot()["histL"], plain.snapshot()["histL"]))
+        print(f"mesh pool [{smi}] ola={ola}: data=2 over one card, S={S} (plan {shard.plan.n_streams} streams a "
+              f"shard), {len(blocks)} blocks, {'K3s' if ola == 'spectral' else 'K3'} launches {launches}; outputs "
+              f"bit for bit the unsharded pool's {same}, snapshots equal {snaps_same}", flush=True)
+        if launches == 0 or not same or not snaps_same:
+            fail(f"the mesh pool ({ola}) launched {launches} kernels or differs from the unsharded pool")
+        del shard, plain
+    # A stream-server session on the mesh pool, checkpointed, then restored
+    # into an unsharded server: the clients' frames equal the pool fed
+    # directly in the server's cycles, bit for bit.
+    kw = dict(sr=POOL_SR, hw_block_size=POOL_HW, band_edges=POOL_EDGES, verbose=False, device=dev, engine="cuda",
+              ola="spectral", n_streams=SERVER_SLOTS, lockstep=True)
+    rng = np.random.default_rng(241)
+    n = SERVER_BLOCKS * hw
+    x = (rng.standard_normal((SERVER_CLIENTS, n, 2)) * 0.3).astype(np.float32)
+    ref = _direct_frames(CudaStreamPool(cfg, hw, SERVER_SLOTS, device=dev, ola="spectral"), x, 1)
+    skip = (CudaStreamPool(cfg, hw, 1, device=dev).warmup_blocks - 1) * hw
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/sessions.npz"
+        pool.SPECTRAL_LAUNCHES = 0
+        srv = run_stream_server(0, mesh=mesh, **kw)
+        try:
+            if srv.pool.mesh is None or srv.pool.ola != "spectral":
+                fail("run_stream_server(mesh=...) did not build the spectral CUDA pool on the mesh")
+            sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(SERVER_CLIENTS)]
+            part1 = _serve_clients(sessions, x, 0, SERVER_CUT, SERVER_CUT * hw - skip, False)
+            saved = srv.save_checkpoint(ckpt)
+            for s in sessions:
+                s.close()
+        finally:
+            srv.close()
+        srv = run_stream_server(0, snapshot_path=ckpt, **kw)
+        try:
+            sessions = [StreamSession(*srv.address, mix="lcr", token=s.token) for s in sessions]
+            part2 = _serve_clients(sessions, x, SERVER_CUT, SERVER_BLOCKS, n - part1.shape[1], True)
+            for s in sessions:
+                s.close()
+            unsharded = srv.pool.mesh is None
+        finally:
+            srv.close()
+    got = np.concatenate([part1, part2], axis=1)
+    same = bool(np.array_equal(got, ref))
+    print(f"mesh server [{smi}]: {SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks on a data=2 mesh pool "
+          f"(spectral), checkpointed at block {SERVER_CUT} ({saved} sessions) and resumed on an unsharded server "
+          f"({unsharded}); K3s launches {pool.SPECTRAL_LAUNCHES}; frames equal the pool fed directly bit for bit: "
+          f"{same} (max abs err {float(np.abs(got - ref).max()):.3g})", flush=True)
+    if saved != SERVER_CLIENTS or not unsharded or not same or pool.SPECTRAL_LAUNCHES == 0:
+        fail("the mesh pool's server session did not resume bit for bit on an unsharded server")
+
+
+def tune_phases(smi: str, dev):
+    """Phase 25: `python -m upmix_tpu_torch.tune`'s two sweeps on the card."""
+    import contextlib
+    import io
+
+    from upmix_tpu_torch import tune
+
+    def run(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tune.main(argv + ["--json"])
+        return rc, json.loads(out.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+    rc, rep, took = run(["--batches", ",".join(map(str, TUNE_BATCHES)), "--ola", "time,spectral", "--hops", "1,4",
+                         "--protocol", "scan", "--blocks", "16", "--visits", "3"])
+    for r in rep["results"]:
+        print(f"tune pool [{smi}]: {r['label']}: " + (
+            f"{r['seconds_per_block'] * 1e3:.3f} ms per block, {r['streams_per_chip']:.0f} streams in real time"
+            if r["ok"] else f"FAILED {r['error']}"), flush=True)
+    best = rep["best"]
+    print(f"tune pool: best {best and best['label']}; transport floor "
+          f"{rep['protocol']['transport_floor_seconds'] * 1e3:.3f} ms; {took:.1f} s", flush=True)
+    if rc != 0 or len(rep["results"]) != 2 * 2 * len(TUNE_BATCHES) or not all(r["ok"] for r in rep["results"]):
+        fail(f"the pool sweep ran {len(rep['results'])} candidates, not all with a time (rc {rc})")
+    rc, rep, took = run(["--offline", "--samples", str(TUNE_OFFLINE_SAMPLES), "--chunks",
+                         ",".join(map(str, TUNE_CHUNKS)), "--inner", "2", "--visits", "3"])
+    for r in rep["results"]:
+        print(f"tune offline [{smi}]: {r['label']} on {TUNE_OFFLINE_SAMPLES} samples: " + (
+            f"{r['realtime_factor']:.1f}x realtime" if r["ok"] else f"FAILED {r.get('error')}"), flush=True)
+    print(f"tune offline: best {rep['best'] and rep['best']['label']}; {took:.1f} s", flush=True)
+    if rc != 0 or len(rep["results"]) != len(TUNE_CHUNKS) or not all(r["ok"] for r in rep["results"]):
+        fail(f"the offline sweep gave {len(rep['results'])} candidates, not all with a time (rc {rc})")
 
 
 def probe_phases(smi: str, dev) -> list:

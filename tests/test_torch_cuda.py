@@ -9,7 +9,8 @@ Marked `gpu`: skipped where no CUDA device is present.  On a GPU machine
 Small configs cover the kernels' edges that the bench config does not:
 blocks from 128 to 2^21 points (odd and even powers of two, the
 two-stage split, its N2 grown past 2^20 points), overlaps 0.5 to 0.875,
-K2 at every frame-pass size, several segments per launch,
+K2 at every frame-pass size, several segments per launch, K3s (the pool's
+spectral OLA) at every pool case and 1, 5 and 2048 streams,
 one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
 32768 bucket split); the bench config covers each of its block sizes,
@@ -296,6 +297,128 @@ def test_engines_on_cuda_launch_the_pool_kernel(cuda):
     assert pool.LAUNCHES - before == 2 * n * sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     assert _snr(ref[0], torch.cat(pushed, dim=-1)) > 90.0
     assert _snr(ref.transpose(0, 1), torch.cat(batched, dim=-1)) > 90.0
+
+
+# The pool kernel's spectral-OLA body (K3s) and the pool on a mesh.
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+@pytest.mark.parametrize("S,hops", [(1, 1), (5, 4), (2048, 1), (2048, 4)])
+def test_spectral_kernel_matches_plain_float64(cuda, case, S, hops):
+    # K3s against its float64 plain version from nonzero carried spectra
+    # with mixed t, stream 0 below the warmup holding its carry; its
+    # output against K3's on the same blocks from a fresh state.
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_spectral_plain
+
+    (edges, sr), hw = POOL_CASES[case]
+    if S == 2048 and hw > 2048:
+        S = 256  # the same launch geometry (one block a stream), a tenth of the plain version's memory
+    cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
+    plan = make_pool_plan(cfg, hw, S, device=cuda, ola="spectral")
+    K = plan.warmup
+    rng = np.random.default_rng(S * 10 + hops + 7)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=cuda)
+    t = torch.as_tensor(rng.integers(1, K + 4, S), dtype=torch.int32, device=cuda)
+    t[0] = 1
+    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)), dtype=torch.float32, device=cuda)
+               for b in plan.buckets]
+    before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+    out, new = pool_step_lcr(hist, t, carries, plan, hops)
+    again, _ = pool_step_lcr(hist, t, carries, plan, hops)
+    torch.cuda.synchronize()
+    per_call = sum(pool.spectral_launches_per_bucket(b.block) for b in plan.buckets)
+    assert (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 2 * per_call)
+    assert torch.equal(out, again)
+    ref, ref_new = pool_step_spectral_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
+    assert bool((out[ref == 0] == 0).all())  # not-ready hops are exact zeros
+    if bool((ref != 0).any()):
+        assert _snr(ref, out) >= 80.0
+    for b, c, r, n in zip(plan.buckets, carries, ref_new, new):
+        if b.overlap > 1:  # else an empty carry
+            assert _snr(r, n) >= 80.0
+            if hops + 1 <= K:
+                assert torch.equal(n[0], c[0])  # stream 0 not ready: carry held
+    # The two dataflows compute one function: from a fresh state, K3s's
+    # output against K3's on the same history.
+    tplan = make_pool_plan(cfg, hw, S, device=cuda)
+    ready = torch.full((S,), K + 1, dtype=torch.int32, device=cuda)
+    zs = [torch.zeros(b.spectral_carry_shape(S), device=cuda) for b in plan.buckets]
+    zt = [torch.zeros((S, 3, b.block), device=cuda) for b in tplan.buckets]
+    assert _snr(pool_step_lcr(hist, ready, zt, tplan, hops)[0], pool_step_lcr(hist, ready, zs, plan, hops)[0]) >= 80.0
+
+
+def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
+    # make_stream_pool(ola="spectral") on the card is the CUDA pool, which
+    # launches K3s (never K3, never the plain version) and holds >= 60 dB
+    # against a float64 run; a NaN in one stream leaves the others alone.
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import pool_step_spectral_plain
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    S, hw = 16, 2048
+    sp = make_stream_pool(cfg, hw, S, device=cuda, ola="spectral")
+    assert type(sp) is CudaStreamPool and sp.ola == "spectral"
+    plan = sp.plan
+    K = plan.warmup
+    blocks = torch.randn((8, 2, S, hw), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    calls = []
+    real = pool.pool_step_spectral_plain
+    pool.pool_step_spectral_plain = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+        outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
+        torch.cuda.synchronize()
+    finally:
+        pool.pool_step_spectral_plain = real
+    per_call = sum(pool.spectral_launches_per_bucket(b.block) for b in plan.buckets)
+    assert not calls and (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 8 * per_call)
+    hist = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=cuda)
+    carries = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=cuda) for b in plan.buckets]
+    for i, (b, out) in enumerate(zip(blocks, outs)):
+        h = torch.cat([hist, b.transpose(0, 1).double()], dim=-1)
+        ref, carries = pool_step_spectral_plain(h, torch.full((S,), i + 1, dtype=torch.int32, device=cuda), carries,
+                                                plan)
+        hist = h[..., hw:]
+        if i < K - 1:
+            assert torch.all(out == 0)
+        else:
+            assert _snr(ref.transpose(0, 1), out) >= 60.0
+    sp.reset()
+    clean = make_stream_pool(cfg, hw, S, device=cuda, ola="spectral")
+    for i, b in enumerate(blocks):
+        bad = b.clone()
+        if i >= 5:
+            bad[:, 3] = float("nan")
+        got, want = torch.stack(sp.push_blocks(bad[0], bad[1])), torch.stack(clean.push_blocks(b[0], b[1]))
+        others = torch.arange(S, device=cuda) != 3
+        assert torch.equal(got[:, others], want[:, others])
+
+
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+def test_mesh_pool_on_the_card(cuda, ola):
+    # data = 2 over the one card, repeated: the shards run as rows of one
+    # launch a bucket (the unsharded pool's launches), bit for bit the
+    # unsharded pool.
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.parallel import make_mesh
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    S, hw = 64, 2048
+    mesh = make_mesh({"data": 2}, devices=[cuda] * 2)
+    shard = CudaStreamPool(cfg, hw, S, device=cuda, mesh=mesh, ola=ola)
+    plain = CudaStreamPool(cfg, hw, S, device=cuda, ola=ola)
+    assert shard.plan.n_streams == S // 2
+    count = (lambda: pool.SPECTRAL_LAUNCHES) if ola == "spectral" else (lambda: pool.LAUNCHES)
+    per = pool.spectral_launches_per_bucket if ola == "spectral" else pool.launches_per_bucket
+    blocks = torch.randn((6, 2, S, hw), device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    for b in blocks:
+        before = count()
+        got = torch.stack(shard.push_blocks(b[0], b[1]))
+        assert count() - before == sum(per(x.block) for x in shard.plan.buckets)
+        assert torch.equal(got, torch.stack(plain.push_blocks(b[0], b[1])))
 
 
 # The fused bucket kernel (K2) and the sharded and batch paths.

@@ -1,6 +1,8 @@
 """The torch port must run where jax is not installed: importing every
 module of upmix_tpu_torch and running an Upmixer, a BatchUpmixer, a
-ShardedUpmixer on a CPU mesh, a stream pool, a stream-server session,
+ShardedUpmixer on a CPU mesh, the stream pools (a spectral one and one
+on a mesh of two CPU devices among them), the tuner's two sweeps, a
+stream-server session,
 both probes' plain versions and the CLI on a WAV file, the custom-window
 registry, and the routes of geometries no kernel takes (overlap 0.65
 offline, batched and sharded, `--window-file` and `--overlap` in the
@@ -29,7 +31,7 @@ for name in names:
     importlib.import_module(name)
 for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
             "ops.fused", "parallel.sharded", "models.batch", "ops.int8_dot", "ops.overhead_probe", "app",
-            "cli", "io.wav", "metrics", "serve_stream"):
+            "cli", "io.wav", "metrics", "serve_stream", "tune"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
@@ -47,6 +49,20 @@ for engine in ("cuda", "torch"):
     for _ in range(5):
         out = pool.push_blocks(np.random.default_rng(1).standard_normal((3, 256)), np.ones((3, 256)))
     assert np.isfinite(out[0].numpy()).all() and out[0].abs().max() > 0
+from upmix_tpu_torch.models.streaming import CudaStreamPool
+spectral = CudaStreamPool(scfg, 256, 2, device="cpu", ola="spectral")
+on_mesh = CudaStreamPool(scfg, 256, 4, device="cpu", mesh=make_mesh({"data": 2}, devices=["cpu", "cpu:0"]))
+for i in range(5):
+    x = np.random.default_rng(i).standard_normal((2, 4, 256))
+    a = spectral.push_blocks(x[0, :2], x[1, :2])
+    m = on_mesh.push_blocks(x[0], x[1])
+assert a[0].abs().max() > 0 and float((m[0][:2] - a[0]).abs().max()) < 1e-5
+assert spectral.snapshot()["ola"]["1024"].shape == (2, 3 * 3 * 640)
+from upmix_tpu_torch.tune import tune_offline, tune_pool
+assert tune_pool(scfg, 256, batch_sizes=(2,), ola=("time", "spectral"), blocks=1, visits=1, device="cpu",
+                 verbose=False)["best"] is not None
+assert tune_offline(cfg, n_samples=3000, chunks=(0, 4096), inner=1, visits=1, device="cpu",
+                    verbose=False)["best"] is not None
 from upmix_tpu_torch.serve_stream import StreamServer, fetch_metrics, stream_client
 with StreamServer(make_stream_pool(scfg, 256, 2, engine="cuda", device="cpu"), lockstep=True) as srv:
     got = stream_client(*srv.address, L[:1000], 0.5 * L[:1000], mix="lcr")

@@ -23,6 +23,7 @@ from upmix_tpu_torch.ops import pool
 from upmix_tpu_torch.ops.fftplan import pass_twiddles
 from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor, pool_floor_plain
+from upmix_tpu_torch.parallel import make_mesh
 
 HW = 256
 EDGES = [0.0, 400.0, 1600.0]
@@ -261,11 +262,24 @@ def test_loaded_carry_waits_for_warmup_as_in_jax():
 
 
 def test_restore_rejects_mismatched_snapshots():
+    # A JAX spectral snapshot restores into a spectral port pool and the
+    # two continue together; across OLA modes a snapshot raises, as in the
+    # JAX package, and so does one of another pool size.
     cfg, jcfg = _cfgs()
     port = CudaStreamPool(cfg, HW, 8, device="cpu")
     spectral = PallasStreamPool(jcfg, HW, n_streams=8, group=8, ola="spectral")
-    with pytest.raises(ValueError):
+    blocks = _blocks(8, 8, 50)
+    for b in blocks[:5]:
+        spectral.push_blocks(b[:, 0], b[:, 1])
+    with pytest.raises(ValueError, match="OLA format"):
         port.restore(spectral.snapshot())
+    port_spectral = CudaStreamPool(cfg, HW, 8, device="cpu", ola="spectral")
+    port_spectral.restore(spectral.snapshot())
+    with pytest.raises(ValueError, match="OLA format"):
+        port_spectral.restore(port.snapshot())
+    for t, b in enumerate(blocks[5:]):
+        _assert_close(_stack(spectral.push_blocks(b[:, 0], b[:, 1])),
+                      _stack(port_spectral.push_blocks(b[:, 0], b[:, 1])), what=f"block {5 + t}")
     with pytest.raises(ValueError, match="histL"):
         CudaStreamPool(cfg, HW, 4, device="cpu").restore(port.snapshot())
 
@@ -327,10 +341,13 @@ def test_cpu_dispatch_is_the_plain_version_and_options_not_ported():
         pool_step_lcr(hist.to("meta"), t, carries, plan)
     with pytest.raises(ValueError):
         pool_step_lcr(hist[..., :-1], t, carries, plan)
-    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
-        CudaStreamPool(cfg, HW, 8, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="spectral"):
-        CudaStreamPool(cfg, HW, 8, device="cpu", ola="spectral")
+    # A mesh and the spectral dataflow construct (tests/test_torch_pool_mesh.py
+    # and test_torch_spectral.py run them); AOT loading is not ported.
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    assert CudaStreamPool(cfg, HW, 8, device="cpu", mesh=mesh).plan.n_streams == 4
+    assert CudaStreamPool(cfg, HW, 8, device="cpu", ola="spectral").plan.ola == "spectral"
+    with pytest.raises(ValueError, match="unknown ola"):
+        CudaStreamPool(cfg, HW, 8, device="cpu", ola="freq")
     with pytest.raises(NotImplementedError, match="Queue 1: aot.py"):
         CudaStreamPool(cfg, HW, 8, device="cpu", _shape_only=True)
 

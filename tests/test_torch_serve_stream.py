@@ -38,6 +38,7 @@ from upmix_tpu_torch.models.streaming import (
     StreamingUpmixer,
     stream_warmup_blocks,
 )
+from upmix_tpu_torch.parallel import make_mesh
 from upmix_tpu_torch.serve_stream import (
     MAGIC_HELLO,
     MAGIC_REPLY,
@@ -649,21 +650,27 @@ def test_stopping_server_refuses_admission_mid_handshake():
 
 
 def test_run_stream_server_pool_options():
-    # The engine and device the caller asks for; the pool options that
-    # are not ported raise at construction with the pool's message; the
-    # TPU grid-step group is accepted and ignored; a misspelled keyword
-    # raises at the call.
-    srv = run_stream_server(0, sr=SR, n_streams=8, hw_block_size=HW, band_edges=EDGES, lockstep=True,
-                            engine="cuda", group=8, verbose=False, device="cpu")
-    try:
-        assert isinstance(srv.pool, CudaStreamPool) and srv.pool.device.type == "cpu"
-        L, R = _signal(6 * HW, 91)
-        _check(stream_client(*srv.address, L, R), _aligned_reference(L, R))
-    finally:
-        srv.close()
-    for kw in (dict(ola="spectral"), dict(ola="spectral", engine="torch"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_stream_server(0, sr=SR, hw_block_size=HW, band_edges=EDGES, verbose=False, device="cpu", **kw)
+    # The engine and device the caller asks for; the spectral dataflow
+    # (on the CUDA pool, and ignored by the batch pool as in the JAX
+    # package) and a mesh each serve a client; the TPU grid-step group is
+    # accepted and ignored; an unknown OLA mode and a misspelled keyword
+    # raise at the call.
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    for kw, kind in ((dict(engine="cuda", group=8), CudaStreamPool), (dict(ola="spectral", engine="cuda"), CudaStreamPool),
+                     (dict(ola="spectral"), BatchStreamingUpmixer),
+                     (dict(ola="spectral", engine="torch"), BatchStreamingUpmixer),
+                     (dict(mesh=mesh), BatchStreamingUpmixer)):
+        srv = run_stream_server(0, sr=SR, n_streams=8, hw_block_size=HW, band_edges=EDGES, lockstep=True,
+                                verbose=False, device="cpu", **kw)
+        try:
+            assert type(srv.pool) is kind and srv.pool.device.type == "cpu", kw
+            assert getattr(srv.pool, "ola", "time") == kw.get("ola", "time") or kind is BatchStreamingUpmixer
+            L, R = _signal(6 * HW, 91)
+            _check(stream_client(*srv.address, L, R), _aligned_reference(L, R))
+        finally:
+            srv.close()
+    with pytest.raises(ValueError, match="unknown ola"):
+        run_stream_server(0, sr=SR, hw_block_size=HW, band_edges=EDGES, verbose=False, device="cpu", ola="freq")
     with pytest.raises(TypeError):
         run_stream_server(0, sr=SR, lockstp=True)
 
@@ -773,7 +780,10 @@ def test_cli_server_guards():
         (["-", "--fetch-metrics", "nohost"], "HOST:PORT"),
         (["x.wav", "--connect", "127.0.0.1:1", "--serve"], "exclusive"),
         (["-", "--serve-stream", "0", "--sr", "8000", "--mesh", "seq=2"], "offline pipeline only"),
-        (["-", "--serve-stream", "0", "--sr", "8000", "--pool-ola", "spectral", "--device", "cpu"], "not ported"),
+        (["-", "--pool-mesh", "data=2"], "requires --serve-stream"),
+        (["-", "--serve-stream", "0", "--sr", "8000", "--pool-mesh", "seq=2", "--device", "cpu"], "data"),
+        (["-", "--serve-stream", "0", "--sr", "8000", "--streams", "3", "--pool-mesh", "data=2", "--pool-engine",
+          "cuda", "--device", "cpu"], "divide evenly"),
         (["-", "--serve-stream", "0", "--sr", "8000", "--serve-hops", "2", "--pool-engine", "torch", "--device",
           "cpu"], "multi-hop"),
     ):

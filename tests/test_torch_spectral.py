@@ -1,0 +1,396 @@
+"""The pool's spectral-OLA dataflow in the port (on the CPU: its plain
+version, `ops/pool.py::pool_step_spectral_plain`) against the JAX
+package's PallasStreamPool(ola="spectral") run in interpret mode, the
+port's time-OLA pool and the float64 streaming oracle.
+
+Mirrors tests/test_streaming.py's spectral cases (multi-hop, matches
+time, snapshots and the cross-mode guard, NaN isolation, the seeded
+random-config fuzz) and tests/test_serve_stream.py's spectral server.
+Inputs are made from a seed with numpy.  The JAX kernel multiplies in
+bf16x3, the port runs float32 FFTs: outputs and packed carries are held
+at 80 dB, with exact zeros where the JAX pool has them, and at 60 dB
+against the oracle.  Configs the JAX spectral plan refuses only for its
+TPU layout (no hop a dot of whole lanes, a hop equal to its block) are
+held against the port's time pool.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import make_stereo, snr_db
+from upmix_tpu.config import UpmixConfig as JaxUpmixConfig
+from upmix_tpu.models.streaming import BatchStreamingUpmixer as JaxBatch
+from upmix_tpu.models.streaming import PallasStreamPool
+from upmix_tpu.oracle.reference import oracle_stream_multiband
+from upmix_tpu.ops.pallas_pool import make_pool_plan as jax_make_pool_plan
+from upmix_tpu.ops.pallas_pool import pool_step_lcr as jax_pool_step_lcr
+from upmix_tpu_torch.config import UpmixConfig
+from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
+from upmix_tpu_torch.ops import pool
+from upmix_tpu_torch.ops.pool import (
+    make_pool_plan,
+    pack_spectral_carry,
+    pool_step_lcr,
+    pool_step_spectral_plain,
+    spectral_lanes,
+    unpack_spectral_carry,
+)
+from upmix_tpu_torch.serve_stream import StreamServer, stream_client
+
+HW = 256
+SR = 8000.0
+EDGES = [0.0, 400.0, 1600.0]
+
+
+def _cfgs(edges=EDGES, sr=SR, hw=HW, **kw):
+    return (
+        UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw, **kw),
+        JaxUpmixConfig.streaming(edges, sr=sr, hw_block_size=hw, **kw),
+    )
+
+
+def _blocks(n_blocks, S, seed, hw=HW):
+    return np.random.default_rng(seed).standard_normal((n_blocks, S, 2, hw)).astype(np.float32) * 0.3
+
+
+def _stack(outs):
+    return np.stack([np.asarray(o) for o in outs])
+
+
+def _assert_close(want, got, bar=80.0, what=""):
+    """> bar dB against a reference that is not silent, exact zeros against
+    one that is.  (A single value can be zero on one side and a rounding
+    error on the other: Rs at a bin where R - C cancels.)"""
+    want, got = np.asarray(want), np.asarray(got)
+    if np.abs(want).max() == 0:
+        assert np.abs(got).max() == 0.0, f"not silent: {what}"
+    else:
+        assert snr_db(want, got) > bar, what
+
+
+def _assert_blocks_close(want, got, hw=HW, bar=80.0, what=""):
+    """_assert_close per stream and per hardware block of [3, S, n * hw]
+    outputs: the warmup gate's silent blocks must be exact zeros."""
+    want, got = np.asarray(want), np.asarray(got)
+    for s in range(want.shape[1]):
+        for i in range(want.shape[2] // hw):
+            cut = (slice(None), s, slice(i * hw, (i + 1) * hw))
+            _assert_close(want[cut], got[cut], bar, f"{what} stream {s} block {i}")
+
+
+def _spectral(cfg, S, hw=HW):
+    return CudaStreamPool(cfg, hw, S, device="cpu", ola="spectral")
+
+
+@pytest.mark.parametrize("hops", [1, 3])
+def test_spectral_step_matches_jax_interpret(hops):
+    # One step from nonzero carried spectra with t straddling the warmup:
+    # outputs and packed carries against the JAX kernel's spectral body.
+    cfg, jcfg = _cfgs()
+    S = 8
+    plan = make_pool_plan(cfg, HW, S, device="cpu", ola="spectral")
+    jplan = jax_make_pool_plan(jcfg, HW, S, group=8, ola="spectral")
+    assert [(b.block, b.hop, b.passes, b.overlap) for b in plan.buckets] == [(b.B, b.H, b.P, b.Kr) for b in jplan.buckets]
+    assert [3 * (b.overlap - 1) * spectral_lanes(b.kept) for b in plan.buckets] == [b.spec_width for b in jplan.buckets]
+    nq = plan.warmup
+    rng = np.random.default_rng(hops + 10)
+    hist = rng.standard_normal((S, 2, (nq - 1 + hops) * HW)).astype(np.float32)
+    t = np.array([1, 2, 3, 4, 5, 6, 1, 3], np.int32)
+    carries = [rng.standard_normal(b.spectral_carry_shape(S)).astype(np.float32) for b in plan.buckets]
+
+    (oc, ols, ors), jnew = jax_pool_step_lcr(
+        [hist[:, 0, q * HW : (q + 1) * HW] for q in range(nq - 1 + hops)],
+        [hist[:, 1, q * HW : (q + 1) * HW] for q in range(nq - 1 + hops)],
+        t, tuple(pack_spectral_carry(c) for c in carries), jplan, interpret=True, hops=hops,
+    )
+    out, new = pool_step_lcr(torch.as_tensor(hist), torch.as_tensor(t), [torch.as_tensor(c) for c in carries],
+                             plan, hops)
+    ref = np.stack([np.asarray(oc), np.asarray(ols), np.asarray(ors)])
+    _assert_blocks_close(ref, out.numpy().transpose(1, 0, 2))
+    for b, j, n in zip(plan.buckets, jnew, new):
+        packed = pack_spectral_carry(n.numpy())
+        held = pack_spectral_carry(carries[plan.buckets.index(b)])
+        for s in range(S):
+            _assert_close(np.asarray(j)[s], packed[s], what=f"carry B={b.block} stream {s}")
+            if t[s] + hops - 1 < plan.warmup:  # no hop ready: the carry is held, bit for bit
+                np.testing.assert_array_equal(packed[s], held[s])
+    # The float64 plain version is the reference the kernel is held to on the card.
+    out64, _ = pool_step_spectral_plain(torch.as_tensor(hist, dtype=torch.float64), torch.as_tensor(t),
+                                        [torch.as_tensor(c, dtype=torch.float64) for c in carries], plan, hops)
+    assert snr_db(out64.numpy(), out.numpy()) > 120.0
+
+
+def test_spectral_pool_multi_hop():
+    # tests/test_streaming.py::test_pallas_pool_multi_hop_spectral: the
+    # spectral carry chains across the hops of one call as across calls.
+    cfg, jcfg = _cfgs()
+    S, n_blocks, hops = 8, 8, 4
+    blocks = _blocks(n_blocks, S, 45)
+    seq = _spectral(cfg, S)
+    jseq = PallasStreamPool(jcfg, HW, n_streams=S, group=8, ola="spectral")
+    seq_out = [_stack(seq.push_blocks(b[:, 0], b[:, 1])) for b in blocks]
+    multi = _spectral(cfg, S)
+    for t0 in range(0, n_blocks, hops):
+        xl = np.concatenate([blocks[t0 + i, :, 0] for i in range(hops)], axis=1)
+        xr = np.concatenate([blocks[t0 + i, :, 1] for i in range(hops)], axis=1)
+        out = _stack(multi.push_blocks_multi(xl, xr))
+        for i in range(hops):
+            t = t0 + i
+            got = out[..., i * HW : (i + 1) * HW]
+            _assert_blocks_close(seq_out[t], got, bar=100.0, what=f"block {t}")
+            _assert_blocks_close(_stack(jseq.push_blocks(blocks[t, :, 0], blocks[t, :, 1])), got, what=f"jax block {t}")
+    np.testing.assert_array_equal(multi.state["t"].numpy(), seq.state["t"].numpy())
+
+
+def test_spectral_pool_matches_time():
+    # tests/test_streaming.py::test_pallas_pool_spectral_matches_time: the
+    # spectral pool computes the time pool's function, through warmup
+    # silence and slot churn; and the JAX spectral pool's, at 80 dB.
+    cfg, jcfg = _cfgs()
+    S, n_blocks = 16, 12
+    blocks = _blocks(n_blocks, S, 53)
+    t_pool = CudaStreamPool(cfg, HW, S, device="cpu")
+    s_pool = _spectral(cfg, S)
+    j_pool = PallasStreamPool(jcfg, HW, n_streams=S, group=8, ola="spectral")
+    assert s_pool.ola == "spectral" and s_pool.plan.ola == "spectral"
+    for t in range(n_blocks):
+        if t == n_blocks // 2:
+            for p in (t_pool, s_pool, j_pool):
+                p.reset_streams([2, 9])
+        want = _stack(t_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))
+        got = _stack(s_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+        _assert_blocks_close(want, got, bar=100.0, what=f"block {t}")
+        _assert_blocks_close(_stack(j_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])), got, what=f"jax block {t}")
+        if t < s_pool.warmup_blocks - 1:
+            assert np.abs(got).max() == 0.0
+
+
+def test_spectral_pool_against_the_oracle():
+    # One stream of the spectral pool against the float64 streaming oracle.
+    cfg, jcfg = _cfgs()
+    n_blocks = 16
+    L, R = make_stereo(n_blocks * HW, SR, seed=5)
+    L, R = L.astype(np.float32), R.astype(np.float32)
+    ref_l, ref_r = oracle_stream_multiband(L, R, jcfg, HW)
+    p = _spectral(cfg, 1)
+    outs = [_stack(p.push_blocks(L[None, i * HW : (i + 1) * HW], R[None, i * HW : (i + 1) * HW]))[:, 0]
+            for i in range(n_blocks)]
+    lcr = np.concatenate(outs, axis=1)
+    got_l, got_r = lcr[1] + 0.5 * lcr[0], lcr[2] + 0.5 * lcr[0]
+    assert snr_db(ref_l, got_l) >= 60.0 and snr_db(ref_r, got_r) >= 60.0
+
+
+def test_spectral_snapshots_both_ways_and_cross_mode_guard():
+    # tests/test_streaming.py::test_pallas_pool_spectral_snapshot_and_cross_mode_guard,
+    # across the packages: a JAX spectral snapshot continues in the port and
+    # a port snapshot in the JAX pool; a port snapshot resumes the port bit
+    # for bit; per-stream rows move both ways; a snapshot of the other OLA
+    # mode raises in either package.
+    cfg, jcfg = _cfgs()
+    S, n_blocks = 8, 10
+    blocks = _blocks(n_blocks, S, 59)
+    jpool = PallasStreamPool(jcfg, HW, n_streams=S, group=8, ola="spectral")
+    port = _spectral(cfg, S)
+    for b in blocks[:5]:
+        jpool.push_blocks(b[:, 0], b[:, 1])
+        port.push_blocks(b[::-1, 0], b[::-1, 1])
+    jsnap, psnap = jpool.snapshot(), port.snapshot()
+    for k, v in psnap["ola"].items():
+        assert v.shape == np.asarray(jsnap["ola"][k]).shape
+    into_port = _spectral(cfg, S)
+    into_port.restore(jsnap)
+    into_jax = PallasStreamPool(jcfg, HW, n_streams=S, group=8, ola="spectral")
+    into_jax.restore(psnap)
+    again = _spectral(cfg, S)
+    again.restore(psnap)
+    for t, b in enumerate(blocks[5:]):
+        _assert_blocks_close(_stack(jpool.push_blocks(b[:, 0], b[:, 1])),
+                             _stack(into_port.push_blocks(b[:, 0], b[:, 1])), what=f"jax -> port block {5 + t}")
+        mine = _stack(port.push_blocks(b[::-1, 0], b[::-1, 1]))
+        np.testing.assert_array_equal(_stack(again.push_blocks(b[::-1, 0], b[::-1, 1])), mine)
+        _assert_blocks_close(_stack(into_jax.push_blocks(b[::-1, 0], b[::-1, 1])), mine,
+                             what=f"port -> jax block {5 + t}")
+    rows = jpool.extract_streams([1, 6])
+    port.load_streams([3, 0], rows)
+    for k, v in port.extract_streams([3, 0])["ola"].items():
+        _assert_close(np.asarray(rows["ola"][k]), v, what=f"rows {k}")
+    jpool.load_streams([2], port.extract_streams([5]))
+
+    t_port = CudaStreamPool(cfg, HW, S, device="cpu")
+    t_jax = PallasStreamPool(jcfg, HW, n_streams=S, group=8)
+    for target, snap in ((t_port, jsnap), (t_port, psnap), (port, t_jax.snapshot()), (port, t_port.snapshot())):
+        with pytest.raises(ValueError, match="OLA format"):
+            target.restore(snap)
+    with pytest.raises(ValueError, match="OLA format"):
+        t_jax.restore(psnap)
+    with pytest.raises(ValueError, match="OLA format"):
+        jpool.restore(t_port.snapshot())
+
+
+def test_spectral_nan_stream_isolation():
+    # tests/test_streaming.py::test_pallas_pool_spectral_nan_stream_isolation:
+    # a stream fed NaN from block 5 on leaves its neighbours as they were,
+    # and reset_streams recovers it.
+    cfg, _ = _cfgs()
+    S, n_blocks = 8, 10
+    blocks = _blocks(n_blocks, S, 23)
+    clean, dirty = _spectral(cfg, S), _spectral(cfg, S)
+    ok = [i for i in range(S) if i != 2]
+    for t in range(n_blocks):
+        want = _stack(clean.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))
+        bad = blocks[t].copy()
+        if t >= 5:
+            bad[2] = np.nan
+        got = _stack(dirty.push_blocks(bad[:, 0], bad[:, 1]))
+        np.testing.assert_array_equal(got[:, ok], want[:, ok])
+        if t >= 5:
+            assert not np.all(np.isfinite(got[:, 2]))
+    dirty.reset_streams([2])
+    for t in range(dirty.warmup_blocks + 1):
+        assert np.all(np.isfinite(_stack(dirty.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))))
+
+
+def test_spectral_random_config_fuzz():
+    # tests/test_streaming.py::test_pallas_pool_spectral_random_config_fuzz:
+    # random pool configs (Kr 2 and 4, hops of 32 to 128 samples, single-
+    # frame buckets).  Where the JAX spectral plan takes the config, the
+    # port's spectral pool is held against it; where it refuses it only for
+    # its TPU layout, against the port's time pool (and that against the
+    # JAX time pool).
+    rng = np.random.default_rng(991)
+    against_jax = against_time = 0
+    for trial in range(10):
+        sr = float(rng.choice([8000, 16000]))
+        edges = [0.0] + sorted(float(f) for f in rng.uniform(sr * 0.02, sr * 0.4, size=int(rng.integers(1, 4))))
+        overlap = float(rng.choice([0.5, 0.75]))
+        hw = int(rng.choice([64, 128, 256]))
+        kw = dict(sr=sr, overlap=overlap, max_block_size=hw * 2, synthesis="analysis", bin_rounding="cpp")
+        cfg, jcfg = UpmixConfig.make(edges, **kw), JaxUpmixConfig.make(edges, **kw)
+        S = 8
+        if make_pool_plan(cfg, hw, S, device="cpu") is None:
+            assert jax_make_pool_plan(jcfg, hw, S, group=8) is None
+            continue
+        blocks = _blocks(6, S, 300 + trial, hw)
+        s_pool = _spectral(cfg, S, hw)
+        jax_takes = jax_make_pool_plan(jcfg, hw, S, group=8, ola="spectral") is not None
+        if jax_takes:
+            ref = PallasStreamPool(jcfg, hw, n_streams=S, group=8, ola="spectral")
+            against_jax += 1
+        else:
+            ref = CudaStreamPool(cfg, hw, S, device="cpu")
+            jref = PallasStreamPool(jcfg, hw, n_streams=S, group=8)
+            against_time += 1
+        for t in range(6):
+            got = _stack(s_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))
+            want = _stack(ref.push_blocks(blocks[t, :, 0], blocks[t, :, 1]))
+            what = f"trial {trial} block {t} (edges={edges}, ov={overlap}, hw={hw})"
+            _assert_blocks_close(want, got, hw, what=what)
+            if not jax_takes:
+                _assert_blocks_close(_stack(jref.push_blocks(blocks[t, :, 0], blocks[t, :, 1])), want, hw, what=what)
+    assert against_jax >= 3 and against_time >= 2, (against_jax, against_time)
+
+
+def test_spectral_configs_the_jax_plan_refuses():
+    # Kr = 1 (hop = block: an empty carry) and hops of 32 and 48 samples
+    # (no legal hops-per-dot on the TPU): the port's spectral pool runs
+    # them, held against its time pool, which the JAX time pool holds.
+    for edges, kw, hw in (([0.0, 1000.0], dict(overlap=0.0, max_block_size=128), 128),
+                          (EDGES, dict(overlap=0.75, max_block_size=128), 64),
+                          ([0.0], dict(overlap=0.75, max_block_size=192), 96)):
+        kw = dict(sr=SR, synthesis="analysis", bin_rounding="cpp", **kw)
+        cfg, jcfg = UpmixConfig.make(edges, **kw), JaxUpmixConfig.make(edges, **kw)
+        S = 3
+        assert jax_make_pool_plan(jcfg, hw, 8, group=8, ola="spectral") is None
+        plan = make_pool_plan(cfg, hw, S, device="cpu", ola="spectral")
+        assert plan is not None
+        s_pool, t_pool = _spectral(cfg, S, hw), CudaStreamPool(cfg, hw, S, device="cpu")
+        snap = None
+        for t, b in enumerate(_blocks(8, S, 17, hw)):
+            got = _stack(s_pool.push_blocks(b[:, 0], b[:, 1]))
+            _assert_blocks_close(_stack(t_pool.push_blocks(b[:, 0], b[:, 1])), got, hw, bar=100.0,
+                                 what=f"{edges} {kw} block {t}")
+            if t == 4:
+                snap = s_pool.snapshot()
+        if any(b.overlap == 1 for b in plan.buckets):
+            assert all(v.shape == (S, 0) for v in snap["ola"].values())
+        back = _spectral(cfg, S, hw)
+        back.restore(snap)
+        assert back.snapshot()["t"].tolist() == snap["t"].tolist()
+
+
+def test_spectral_split_bucket_on_cpu():
+    # At hw 8192 the 32768 bucket is over FFT_MAX: a CPU plan has no split
+    # tables and the plain version runs it, against the JAX XLA engine.
+    hw, S = 8192, 2
+    cfg, jcfg = _cfgs(edges=[0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw=hw)
+    port = CudaStreamPool(cfg, hw, S, device="cpu", ola="spectral")
+    assert any(b.block > 16384 and b.wide is None for b in port.plan.buckets)
+    ref = JaxBatch(jcfg, hw, n_streams=S)
+    for i, b in enumerate(_blocks(6, S, 8, hw)):
+        _assert_blocks_close(_stack(ref.push_blocks(b[:, 0], b[:, 1])), _stack(port.push_blocks(b[:, 0], b[:, 1])),
+                             hw, what=f"block {i}")
+
+
+def test_pack_and_unpack_the_jax_layout():
+    rng = np.random.default_rng(0)
+    carry = rng.standard_normal((4, 3, 3, 91, 2)).astype(np.float32)
+    packed = pack_spectral_carry(carry)
+    kp = spectral_lanes(91)
+    assert kp == 256 and packed.shape == (4, 3 * 3 * kp)
+    lanes = packed.reshape(4, 3, 3, kp)  # output-major, then slot-major
+    np.testing.assert_array_equal(lanes[..., :91], carry[..., 0])
+    np.testing.assert_array_equal(lanes[..., 91:182], carry[..., 1])
+    assert not lanes[..., 182:].any()
+    np.testing.assert_array_equal(unpack_spectral_carry(packed, 3, 91), carry)
+    with pytest.raises(ValueError, match="packed spectral carry"):
+        unpack_spectral_carry(packed[:, :-1], 3, 91)
+
+
+def test_spectral_dispatch_on_the_cpu_is_the_plain_version():
+    cfg, _ = _cfgs()
+    plan = make_pool_plan(cfg, HW, 2, device="cpu", ola="spectral")
+    rng = np.random.default_rng(1)
+    hist = torch.as_tensor(rng.standard_normal((2, 2, 4 * HW)), dtype=torch.float32)
+    t = torch.tensor([3, 9], dtype=torch.int32)
+    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(2)), dtype=torch.float32)
+               for b in plan.buckets]
+    before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+    for a, b in zip(pool_step_lcr(hist, t, carries, plan), pool_step_spectral_plain(hist, t, carries, plan)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == before
+    time_carries = [torch.zeros((2, 3, b.block)) for b in plan.buckets]
+    with pytest.raises(ValueError, match="spectral carry"):
+        pool_step_lcr(hist, t, time_carries, plan)
+    with pytest.raises(ValueError):
+        pool_step_lcr(hist.to("meta"), t, carries, plan)
+    # make_stream_pool: the CUDA pool in the requested mode when forced; the
+    # batch pool (no OLA mode) on the CPU's "auto" and for "torch".
+    assert make_stream_pool(cfg, HW, 4, engine="cuda", device="cpu", ola="spectral").ola == "spectral"
+    assert not hasattr(make_stream_pool(cfg, HW, 4, device="cpu", ola="spectral"), "ola")
+    with pytest.raises(ValueError, match="unknown ola"):
+        make_stream_pool(cfg, HW, 4, device="cpu", ola="freq")
+    # The single-stream engine keeps the time dataflow.
+    assert StreamingUpmixer(cfg, HW, device="cpu")._plan.ola == "time"
+
+
+def test_spectral_pool_serves_clients():
+    # tests/test_serve_stream.py::test_spectral_pool_serves_clients: a
+    # client of a spectral pool gets the single-stream engine's output.
+    cfg, _ = _cfgs()
+    with StreamServer(_spectral(cfg, 8), lockstep=True) as srv:
+        L, R = make_stereo(8 * HW, SR, seed=67)
+        L, R = L.astype(np.float32), R.astype(np.float32)
+        got = stream_client(*srv.address, L, R)
+    eng = StreamingUpmixer(cfg, HW, device="cpu")
+    skip = (eng.warmup_blocks - 1) * HW
+    n = len(L)
+    pad = -(-n // HW) * HW + skip
+    Lp, Rp = np.zeros(pad, np.float32), np.zeros(pad, np.float32)
+    Lp[:n], Rp[:n] = L, R
+    ref = [o.numpy()[skip : skip + n] for o in eng.process_signal(Lp, Rp, mix="stereo_sum")]
+    assert len(got) == 2
+    for g, r in zip(got, ref):
+        assert np.asarray(g).shape == r.shape
+        assert snr_db(r, np.asarray(g)) > 80.0

@@ -25,6 +25,7 @@ from upmix_tpu_torch.models import (
     mix_stereo_sum,
 )
 from upmix_tpu_torch.models.streaming import WARMUP_BLOCKS, init_stream_state, stream_warmup_blocks
+from upmix_tpu_torch.parallel import make_mesh
 
 HW = 256
 EDGES = [0.0, 400.0, 1600.0]
@@ -204,8 +205,9 @@ def test_batch_churn_and_checkpoint_round_trip():
         pool.push_blocks(np.zeros((S, hw - 1)), np.zeros((S, hw - 1)))
     with pytest.raises(ValueError):
         BatchStreamingUpmixer(cfg, hw, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
-        BatchStreamingUpmixer(cfg, hw, 2, device="cpu", mesh=object())
+    # A mesh splits the streams over its 'data' axis (test_torch_pool_mesh.py).
+    on_mesh = BatchStreamingUpmixer(cfg, hw, 2, device="cpu", mesh=make_mesh({"data": 2}, devices=["cpu"] * 2))
+    assert on_mesh.plan.n_streams == 1
 
 
 def test_make_stream_pool_selection_on_cpu():
@@ -215,8 +217,11 @@ def test_make_stream_pool_selection_on_cpu():
     assert type(make_stream_pool(cfg, hw, 5, engine="cuda", device="cpu")) is CudaStreamPool
     with pytest.raises(ValueError, match="unknown engine"):
         make_stream_pool(cfg, hw, 8, engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1: the pool on a mesh"):
-        make_stream_pool(cfg, hw, 8, device="cpu", mesh=object())
+    # With a mesh, "auto" is the batch pool and "cuda" the sharded CUDA pool,
+    # as in the JAX package.
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    assert type(make_stream_pool(cfg, hw, 8, device="cpu", mesh=mesh)) is BatchStreamingUpmixer
+    assert type(make_stream_pool(cfg, hw, 8, engine="cuda", device="cpu", mesh=mesh)) is CudaStreamPool
 
 
 def test_mix_stereo_sum_layout():

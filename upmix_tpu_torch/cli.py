@@ -6,7 +6,8 @@ bela/upmix.cpp:24-29,525 as flags) for the modes that run on the ported
 engines: offline (one or many files; `--mesh` over the devices of this
 process, with the data-axis batch for many files), `--streaming`,
 `--pipe`, the `--serve` job server, the `--serve-stream` multi-client
-stream server with its network client (`--connect`) and metrics
+stream server (its pool in either OLA dataflow, `--pool-ola`, and on a
+mesh, `--pool-mesh`) with its network client (`--connect`) and metrics
 (`--fetch-metrics`, `--prometheus`, `--metrics-http`).  `--device`
 (default cuda) takes the place of the JAX package's platform choice and
 of its `--kernel` flag: on the card the offline path runs the omnibus
@@ -40,7 +41,6 @@ log = get_logger(__name__)
 NOT_PORTED = {
     "save_aot": ("--save-aot", "AOT artifacts"),
     "load_aot": ("--load-aot", "AOT artifacts"),
-    "pool_mesh": ("--pool-mesh", "the serving pool on a mesh"),
 }
 
 
@@ -131,7 +131,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stream-server pool engine (default auto: the CUDA pool on the card when the config is "
                    "eligible, else the batched engine; both run the pool step)")
     p.add_argument("--pool-ola", choices=("time", "spectral"), default="time",
-                   help="pool OLA dataflow: 'time' (ported); 'spectral' is not ported yet")
+                   help="pool OLA dataflow: 'time' ([S, B] carries) or 'spectral' (the last frames' masked spectra); "
+                   "the same function by two kernels")
+    p.add_argument("--pool-mesh", default=None, metavar="SPEC",
+                   help="with --serve-stream: split the session slots over a mesh, 'data=D' (--streams a multiple of "
+                   "D; over the visible CUDA devices for --device cuda, else --device repeated D times); the pool is "
+                   "the one --pool-engine names (auto: the batch pool)")
     p.add_argument("--pool-group", type=int, default=16,
                    help="the JAX pool's streams per TPU grid step: accepted and ignored (the card's pool has no group)")
     p.add_argument("--serve-hops", type=int, default=1, metavar="T",
@@ -217,14 +222,14 @@ def parse_mesh_spec(text: str):
     return axes
 
 
-def build_mesh(text: str, device: str = "cuda"):
-    """A --mesh from a CLI spec, with CLI-friendly errors: over the visible
+def build_mesh(text: str, device: str = "cuda", allowed=("data", "seq"), flag: str = "--mesh"):
+    """A mesh from a CLI spec, with CLI-friendly errors: over the visible
     CUDA devices for --device cuda, else over `device` repeated (shards on
     one device run as rows of one launch)."""
     axes = parse_mesh_spec(text)
-    bad = [a for a in axes if a not in ("data", "seq")]
+    bad = [a for a in axes if a not in allowed]
     if bad:
-        raise SystemExit(f"error: --mesh axis must be one of data/seq, got {bad[0]!r}")
+        raise SystemExit(f"error: {flag} axis must be one of {'/'.join(allowed)}, got {bad[0]!r}")
     from upmix_tpu_torch.parallel import make_mesh
 
     devices = None
@@ -235,7 +240,7 @@ def build_mesh(text: str, device: str = "cuda"):
     try:
         return make_mesh(axes, devices=devices)
     except ValueError as e:
-        raise SystemExit(f"error: --mesh {text!r}: {e}")
+        raise SystemExit(f"error: {flag} {text!r}: {e}")
 
 
 def load_window_file(path: str) -> str:
@@ -286,7 +291,9 @@ def main(argv=None) -> int:
     edges = parse_edges(args.band_edges)
     if args.mesh is not None and (args.pipe or args.streaming or args.serve or args.serve_stream is not None
                                   or args.connect is not None):
-        raise SystemExit("error: --mesh applies to the offline pipeline only (--pool-mesh is not ported)")
+        raise SystemExit("error: --mesh applies to the offline pipeline only (use --pool-mesh with --serve-stream)")
+    if args.pool_mesh is not None and args.serve_stream is None:
+        raise SystemExit("error: --pool-mesh requires --serve-stream")
     if args.chunk is not None and args.chunk < 0:
         raise SystemExit("error: --chunk must be >= 0 (0 = whole-file)")
     if args.chunk is not None and args.mesh is not None:
@@ -373,13 +380,16 @@ def _serve_stream(args, edges) -> int:
             raise SystemExit("error: --snapshot-every requires --snapshot-path")
         if args.snapshot_every <= 0:
             raise SystemExit("error: --snapshot-every must be > 0")
+    pool_mesh = None
+    if args.pool_mesh is not None:
+        pool_mesh = build_mesh(args.pool_mesh, args.device, allowed=("data",), flag="--pool-mesh")
     try:
         server = run_stream_server(
             args.serve_stream, sr=args.sr, n_streams=args.streams, hw_block_size=args.hw_block, band_edges=edges,
             host=args.serve_host, lockstep=args.lockstep, window=args.window, xover_mode=args.xover_mode,
             threshold_factor=args.threshold_factor, synthesis=args.synthesis or "analysis",
             bin_rounding=args.bin_rounding or "cpp", engine=args.pool_engine, ola=args.pool_ola,
-            group=args.pool_group, snapshot_path=args.snapshot_path, snapshot_every=args.snapshot_every,
+            group=args.pool_group, mesh=pool_mesh, snapshot_path=args.snapshot_path, snapshot_every=args.snapshot_every,
             metrics_http_port=args.metrics_http, hops=args.serve_hops, pipeline=args.serve_pipeline,
             resume_ttl=args.resume_ttl, device=args.device,
         )

@@ -65,7 +65,11 @@
 //     does not bound shared memory), computes stage-2 rows only where a
 //     kept bin lands (the row restriction of pallas_omnibus.py:390-396),
 //     runs the N1-point inverse FFTs and adds the frame in, frames in
-//     order.
+//     order.  Launch 2 reads its masked spectra through a Spectra source:
+//     PartialSpectra sums launch 1's partials and masks them; the pool's
+//     spectral OLA (pool_spectral.cu) reads stored masked spectra, and
+//     frames before a stream's first ready hop, which add only from the
+//     source's lowest(s) position on.
 
 #pragma once
 
@@ -470,25 +474,50 @@ wide_forward_kernel(const float* __restrict__ x, long long width, float2* __rest
   }
 }
 
+// The masked spectra of a split bucket's frames from launch 1's partials
+// part [rows, F, N2 / cols, 2K]: the groups summed in a fixed order, then
+// the mask.  load(s, f, j, out) writes C, Ls, Rs of kept bin j of frame
+// f; lowest(s) is the first position frames may add into.
+struct PartialSpectra {
+  const float2* part;
+  BucketArgs a;
+  int F, groups;
+
+  __device__ void load(int s, int f, int j, float2* out) const {
+    const float2* pf = part + ((long long)s * F + f) * groups * 2 * a.K;
+    float2 Z = make_float2(0.f, 0.f), Zm = make_float2(0.f, 0.f);
+    for (int g = 0; g < groups; ++g) {  // fixed order: deterministic
+      const float2 u = pf[g * 2 * a.K + j], v = pf[g * 2 * a.K + a.K + j];
+      Z.x += u.x;
+      Z.y += u.y;
+      Zm.x += v.x;
+      Zm.y += v.y;
+    }
+    unpack_mask(Z, Zm, a, j, out);
+  }
+
+  __device__ long long lowest(int) const { return 0; }
+};
+
 // Launch 2 of a split bucket.  Block (column group, hop block, row s) owns
 // positions p = q * H + r, q0 <= q < q0 + T, with p mod N2 in its columns;
 // per frame that reaches them: C + i Ls, then (every second frame, and
 // after the last) the Rs of two frames, each a transform: per tile of kt
-// kept bins the partials summed and masked into spec, stage 2 backwards
-// on the rows that carry a bin of the tile (added into buf), then the
-// N1-point inverse FFTs and the frame's samples added in.  With one tile
-// the masked spectra of both frames stay in spec for the Rs transform;
-// with several, the Rs transform masks its two frames again.
-template <class Sink>
+// kept bins the masked spectra loaded into spec (src.load), stage 2
+// backwards on the rows that carry a bin of the tile (added into buf),
+// then the N1-point inverse FFTs and the frame's samples added in at
+// positions from src.lowest(s) on.  With one tile the masked spectra of
+// both frames stay in spec for the Rs transform; with several, the Rs
+// transform loads its two frames again.
+template <class Sink, class Spectra>
 __global__ void __launch_bounds__(FFT_THREADS)
-wide_inverse_kernel(const float2* __restrict__ part, Sink sink, BucketArgs a, WideArgs w, int F, int n_hops, int T) {
+wide_inverse_kernel(Spectra src, Sink sink, BucketArgs a, WideArgs w, int F, int n_hops, int T) {
   extern __shared__ float4 smem[];
   const int B = a.B, H = a.H, K = a.K, n1 = w.n1, cols = w.cols, kt_max = w.kt;
   float2* buf = reinterpret_cast<float2*>(smem);  // [cols][n1]
   float2* spec = buf + (size_t)cols * n1;         // [2][kt][3]: two frames' C, Ls, Rs
   const int log_n1 = 31 - __clz(n1);
   const int n2 = B / n1;
-  const int groups = n2 / cols;
   const int Kf = B / H;
   const int b0 = blockIdx.x * cols;
   const int q0 = blockIdx.y * T;
@@ -516,16 +545,7 @@ wide_inverse_kernel(const float2* __restrict__ part, Sink sink, BucketArgs a, Wi
             const int jj = idx - i * kt;
             const int ff = pass == 0 ? f : f - slot + i;
             const int sl = pass == 0 ? slot : i;
-            const float2* pf = part + ((long long)s * F + ff) * groups * 2 * K;
-            float2 Z = make_float2(0.f, 0.f), Zm = make_float2(0.f, 0.f);
-            for (int g = 0; g < groups; ++g) {  // fixed order: deterministic
-              const float2 u = pf[g * 2 * K + j0 + jj], v = pf[g * 2 * K + K + j0 + jj];
-              Z.x += u.x;
-              Z.y += u.y;
-              Zm.x += v.x;
-              Zm.y += v.y;
-            }
-            unpack_mask(Z, Zm, a, j0 + jj, spec + 3 * (sl * kt_max + jj));
+            src.load(s, ff, j0 + jj, spec + 3 * (sl * kt_max + jj));
           }
         }
         __syncthreads();
@@ -565,7 +585,7 @@ wide_inverse_kernel(const float2* __restrict__ part, Sink sink, BucketArgs a, Wi
       // block's positions they cover, summed in frame order.
       const int fa = pass == 0 ? f : f - slot;
       const int nf = pass == 0 ? 1 : slot + 1;
-      const long long ra = max((long long)q0 * H, (long long)fa * H) / n2;
+      const long long ra = max(max((long long)q0 * H, (long long)fa * H), src.lowest(s)) / n2;
       const long long rb = min((long long)q1 * H, (long long)(fa + nf - 1) * H + B) / n2;
       for (long long idx = threadIdx.x; idx < (rb - ra) * cols; idx += blockDim.x) {
         const int c = (int)(idx % cols);
@@ -622,17 +642,24 @@ int launch_wide_forward(const float* x, long long width, float* part, Sink sink,
   return (int)cudaGetLastError();
 }
 
+template <class Sink, class Spectra>
+int launch_wide_inverse_from(Spectra src, Sink sink, BucketArgs a, WideArgs w, int rows, int F, int n_hops, int T,
+                             void* stream) {
+  const size_t smem = (sizeof(float2) * ((size_t)w.cols * w.n1 + (size_t)2 * w.kt * 3) + 15) & ~(size_t)15;
+  const cudaError_t err = cudaFuncSetAttribute(wide_inverse_kernel<Sink, Spectra>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B / w.n1 / w.cols, (n_hops + T - 1) / T, rows);
+  wide_inverse_kernel<Sink, Spectra><<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(src, sink, a, w, F, n_hops,
+                                                                                          T);
+  return (int)cudaGetLastError();
+}
+
 template <class Sink>
 int launch_wide_inverse(const float* part, Sink sink, BucketArgs a, WideArgs w, int rows, int F, int n_hops, int T,
                         void* stream) {
-  const size_t smem = (sizeof(float2) * ((size_t)w.cols * w.n1 + (size_t)2 * w.kt * 3) + 15) & ~(size_t)15;
-  const cudaError_t err =
-      cudaFuncSetAttribute(wide_inverse_kernel<Sink>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.B / w.n1 / w.cols, (n_hops + T - 1) / T, rows);
-  wide_inverse_kernel<Sink><<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float2*>(part), sink, a, w, F, n_hops, T);
-  return (int)cudaGetLastError();
+  const PartialSpectra src{reinterpret_cast<const float2*>(part), a, F, a.B / w.n1 / w.cols};
+  return launch_wide_inverse_from(src, sink, a, w, rows, F, n_hops, T, stream);
 }
 
 }  // namespace

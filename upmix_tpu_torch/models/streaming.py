@@ -17,10 +17,12 @@ the CPU):
     checkpoints in the structure of the JAX package's vmapped XLA engine.
   - `CudaStreamPool`: the serving pool, the counterpart of
     `PallasStreamPool`, with its snapshot structure, `hops` blocks per
-    step and a sustained runner.
+    step, a sustained runner and both OLA dataflows (`ola="spectral"`:
+    K3s in `csrc/pool_spectral.cu`).
 
 The two pools share their state and step (`_StreamPool`) and differ only
-in the snapshot structure they exchange with the JAX package.  Each
+in the snapshot structure they exchange with the JAX package.  Both take
+a mesh and split their streams over its 'data' axis.  Each
 engine's snapshots load into its JAX counterpart and the JAX engine's
 load here: a live session moves between the two packages.  State is
 updated in place: each push replaces the engine's state tensors and
@@ -40,7 +42,14 @@ import torch
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.ops.gains import band_gain_curve
-from upmix_tpu_torch.ops.pool import make_pool_plan, plan_from_stream_buckets, pool_step_lcr
+from upmix_tpu_torch.ops.pool import (
+    check_ola,
+    make_pool_plan,
+    pack_spectral_carry,
+    plan_from_stream_buckets,
+    pool_step_lcr,
+    unpack_spectral_carry,
+)
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
 
 # Readiness latency at the reference's fixed 75% overlap (K = block/hop
@@ -217,9 +226,15 @@ def _check_stream_indices(indices, n_streams: int):
 
 def _blocks(in_l, in_r, device, shape: tuple, what: str) -> torch.Tensor:
     """Two channel arrays of `shape` -> float32 [*shape[:-1], 2, shape[-1]]
-    on `device`; a bad shape raises before anything runs."""
-    xl = torch.as_tensor(in_l, dtype=torch.float32, device=device)
-    xr = torch.as_tensor(in_r, dtype=torch.float32, device=device)
+    on `device` (numpy views of any strides); a bad shape raises before
+    anything runs."""
+
+    def tensor(a):
+        if isinstance(a, np.ndarray):
+            a = np.ascontiguousarray(a)
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    xl, xr = tensor(in_l), tensor(in_r)
     if tuple(xl.shape) != tuple(shape) or tuple(xr.shape) != tuple(shape):
         raise ValueError(
             f"{what} expects two {list(shape)} channel arrays; got {tuple(xl.shape)} / {tuple(xr.shape)}"
@@ -304,17 +319,6 @@ def _tree_map_like(like, snap):
     return got
 
 
-def check_ola(ola: str) -> None:
-    """Raise unless `ola` is the pool's time-OLA dataflow (the one ported)."""
-    if ola == "spectral":
-        raise NotImplementedError(
-            "ola='spectral' (the spectral-carry dataflow of pallas_pool.py:249) is not "
-            "ported yet (ROADMAP.md, Queue 1: the spectral OLA of the pool); ola='time' computes the same function"
-        )
-    if ola != "time":
-        raise ValueError(f"unknown ola mode {ola!r}; one of ('time', 'spectral')")
-
-
 def _assign_rows(state, idx, rows):
     if isinstance(state, dict):
         for k in state:
@@ -323,45 +327,128 @@ def _assign_rows(state, idx, rows):
         state[idx] = rows
 
 
+def _mesh_devices(mesh, need_data: bool) -> list:
+    """The devices of the mesh's 'data' axis, shard order (its other axes
+    at index 0); one device when a batch pool's mesh has no 'data' axis."""
+    from upmix_tpu_torch.parallel.sharded import _device_grid
+
+    if "data" not in mesh.shape:
+        if need_data:
+            raise ValueError(
+                f"the CUDA pool shards streams over a 'data' mesh axis; mesh has axes {tuple(mesh.shape)}"
+            )
+        return [mesh.devices.flat[0]]
+    return [torch.device(d) for d in _device_grid(mesh, "data", None)[:, 0]]
+
+
+@dataclass(frozen=True, eq=False)
+class _Part:
+    """The streams of a pool on one device: `rows` (global stream indices,
+    in the part's row order) or None for every stream in order."""
+
+    device: torch.device
+    rows: np.ndarray | None
+    plan: object
+
+
 class _StreamPool:
     """State and step of the two pools: {"history" [S, 2, K*hw], "t" [S],
-    "ola" {str(block): [S, 3, block]}}, every bucket keyed, updated by one
-    `_batch_step` per push.  Sessions come and go: `reset_streams` zeroes
-    slots (each re-warms), `extract_streams` / `load_streams` move single
-    sessions.  A subclass gives the plan (`_make_plan`) and the snapshot
-    structure it exchanges with the JAX package: `_export` (the state in
-    numpy -> snapshot) and `_import` (a snapshot, or rows of one -> state
-    tensors)."""
+    "ola" {str(block): carry}}, updated by one `_batch_step` per push.
+    The carries are [S, 3, block] for every bucket (time OLA) or [S, 3,
+    Kr - 1, K, 2] for every live bucket (spectral OLA, `ops/pool.py`).
+    Sessions come and go: `reset_streams` zeroes slots (each re-warms),
+    `extract_streams` / `load_streams` move single sessions.  A subclass
+    gives the plan (`_make_plan`) and the snapshot structure it exchanges
+    with the JAX package: `_export` (the state in numpy -> snapshot) and
+    `_import` (a snapshot, or rows of one -> state tensors).
+
+    With a mesh the streams split evenly over its 'data' axis, shard k
+    taking streams [k S/d, (k + 1) S/d); the plan is per shard (S/d
+    streams).  Shards that share a device run as rows of one step on it,
+    so a mesh of one repeated device is the unsharded pool.  Shards on
+    distinct devices keep their state there and step there, with no host
+    synchronisation between them; the outputs come back to the first
+    device in stream order.  `state` is then a tuple of the devices'
+    states; snapshots always have the unsharded structure, so a
+    checkpoint restores across mesh topologies."""
+
+    _ola = "time"
 
     def __init__(self, config: UpmixConfig, hw_block_size: int, n_streams: int, device="cuda",
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)"
-            )
+                 mesh=None, need_data: bool = False):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         self.config = config
         self.hw_block_size = int(hw_block_size)
         self.n_streams = int(n_streams)
-        self.device = torch.device(device)
+        self.mesh = mesh
         self.warmup_blocks = stream_warmup_blocks(config)
-        self.plan = self._make_plan()
+        shards = [torch.device(device)] if mesh is None else _mesh_devices(mesh, need_data)
+        if self.n_streams % len(shards):
+            raise ValueError(
+                f"n_streams {self.n_streams} must divide evenly across the mesh 'data' axis ({len(shards)})"
+            )
+        local = self.n_streams // len(shards)
+        self.device = shards[0]  # where the inputs are taken and the outputs returned
+        by_device = {}
+        for k, dev in enumerate(shards):
+            by_device.setdefault(dev, []).append(k)
+        plans = {dev: self._make_plan(local, dev) for dev in by_device}
+        self.plan = plans[self.device]
+        self._parts = tuple(
+            _Part(dev, None if len(by_device) == 1 else
+                  np.concatenate([np.arange(k * local, (k + 1) * local) for k in ks]), plans[dev])
+            for dev, ks in by_device.items()
+        )
+        # part and row of each stream
+        self._where = np.zeros((self.n_streams, 2), np.int64)
+        for p, part in enumerate(self._parts):
+            rows = np.arange(self.n_streams) if part.rows is None else part.rows
+            self._where[rows] = np.stack([np.full(len(rows), p), np.arange(len(rows))], axis=1)
+        self._index = [None if part.rows is None else torch.as_tensor(part.rows, device=self.device)
+                       for part in self._parts]
         self._ola_blocks = {str(b): b for b in bucket_bands(config.bands)}
         self.state = self._fresh_state()
 
-    def _fresh_state(self, rows: int | None = None):
-        S = self.n_streams if rows is None else rows
-        hw, K, dev = self.hw_block_size, self.warmup_blocks, self.device
+    def _fresh_rows(self, rows: int, device):
+        """A fresh state of `rows` streams on `device`."""
+        hw, K = self.hw_block_size, self.warmup_blocks
+        if self._ola == "spectral":
+            ola = {str(b.block): torch.zeros(b.spectral_carry_shape(rows), device=device) for b in self.plan.buckets}
+        else:
+            ola = {k: torch.zeros((rows, 3, B), device=device) for k, B in self._ola_blocks.items()}
         return {
-            "history": torch.zeros((S, 2, K * hw), device=dev),
-            "t": torch.zeros((S,), dtype=torch.int32, device=dev),
-            "ola": {k: torch.zeros((S, 3, B), device=dev) for k, B in self._ola_blocks.items()},
+            "history": torch.zeros((rows, 2, K * hw), device=device),
+            "t": torch.zeros((rows,), dtype=torch.int32, device=device),
+            "ola": ola,
         }
 
+    def _fresh_state(self):
+        return self._form([self._fresh_rows(self.n_streams if p.rows is None else len(p.rows), p.device)
+                           for p in self._parts])
+
+    def _form(self, states: list):
+        """The per-device states as `state` holds them."""
+        return states[0] if len(self._parts) == 1 else tuple(states)
+
+    def _states(self, state) -> list:
+        return [state] if len(self._parts) == 1 else list(state)
+
     def _step(self, state, x):
-        """x [S, 2, hops*hw] -> (new state, out [S, 3, hops*hw])."""
-        return _batch_step(self.plan, self.hw_block_size, state, x)
+        """x [S, 2, hops*hw] on self.device -> (new state, out [S, 3,
+        hops*hw] on self.device, stream order)."""
+        hw = self.hw_block_size
+        if len(self._parts) == 1:
+            return _batch_step(self._parts[0].plan, hw, state, x)
+        news, outs = [], []
+        for part, index, st in zip(self._parts, self._index, state):
+            new, out = _batch_step(part.plan, hw, st, x.index_select(0, index).to(part.device, non_blocking=True))
+            news.append(new)
+            outs.append(out)
+        full = x.new_empty((self.n_streams, 3, x.shape[-1]))
+        for index, out in zip(self._index, outs):
+            full[index] = out.to(self.device, non_blocking=True)
+        return tuple(news), full
 
     def push_blocks(self, in_l, in_r):
         """One hardware block for every stream: in_l, in_r [S, hw] ->
@@ -370,21 +457,84 @@ class _StreamPool:
         self.state, out = self._step(self.state, x)
         return out[:, 0], out[:, 1], out[:, 2]
 
+    def make_sustained_runner(self, n_blocks: int, hops: int = 1):
+        """(run, fresh): run(state, blocks) with device-resident blocks
+        [n_blocks // hops, 2, S, hops*hw] runs every step with no host
+        synchronisation per block and returns (final_state, cs), cs [n_blocks
+        // hops, S, hops*hw] the C outputs.  Time it with CUDA events for
+        the pool's sustained capacity.  hops > 1 needs a pool with a
+        multi-hop step (CudaStreamPool)."""
+        n_blocks, hops = int(n_blocks), int(hops)
+        if hops < 1 or n_blocks % hops:
+            raise ValueError(f"n_blocks ({n_blocks}) must be a multiple of hops ({hops})")
+        if hops > 1 and not hasattr(self, "push_blocks_multi"):
+            raise ValueError(f"{type(self).__name__} has no multi-hop (temporal batching) step")
+
+        def run(state, blocks):
+            cs = []
+            for step_blocks in blocks:
+                state, out = self._step(state, step_blocks.transpose(0, 1))
+                cs.append(out[:, 0])
+            return state, torch.stack(cs)
+
+        return run, self._fresh_state
+
     def reset(self):
         self.state = self._fresh_state()
 
+    def _by_part(self, indices):
+        """[(part number, local rows, positions in `indices`)] of the parts
+        the streams `indices` live in."""
+        where = self._where[np.asarray(indices, np.int64)]
+        out = []
+        for p in range(len(self._parts)):
+            pos = np.nonzero(where[:, 0] == p)[0]
+            if len(pos):
+                out.append((p, where[pos, 1].tolist(), pos))
+        return out
+
     def reset_streams(self, indices):
         """Zero the given stream slots (ended sessions; the slots re-warm)."""
-        _zero_rows(self.state, _check_stream_indices(indices, self.n_streams))
+        states = self._states(self.state)
+        for p, local, _ in self._by_part(_check_stream_indices(indices, self.n_streams)):
+            _zero_rows(states[p], local)
+
+    def _host_state(self):
+        """The state in numpy with the unsharded structure."""
+        states = [_to_numpy(st) for st in self._states(self.state)]
+        if len(states) == 1:
+            return states[0]
+
+        def merge(*leaves):
+            full = np.empty((self.n_streams, *leaves[0].shape[1:]), leaves[0].dtype)
+            for part, leaf in zip(self._parts, leaves):
+                full[part.rows] = leaf
+            return full
+
+        def walk(*trees):
+            if isinstance(trees[0], dict):
+                return {k: walk(*(t[k] for t in trees)) for k in trees[0]}
+            return merge(*trees)
+
+        return walk(*states)
 
     def snapshot(self):
         """Host (numpy) copy of the state in this pool's snapshot
-        structure, safe to keep across pushes."""
-        return self._export(_to_numpy(self.state))
+        structure, safe to keep across pushes; unsharded whatever the
+        mesh."""
+        return self._export(self._host_state())
 
     def restore(self, snap):
-        """Load a snapshot of this pool or of its JAX counterpart."""
-        self.state = self._import(snap, self.n_streams)
+        """Load a snapshot of this pool or of its JAX counterpart (of any
+        mesh topology)."""
+        full = self._import(snap, self.n_streams)
+        if len(self._parts) == 1:
+            self.state = full
+            return
+        self.state = tuple(
+            _tree_map(lambda a, i=index, d=part.device: a.index_select(0, i).to(d), full)
+            for part, index in zip(self._parts, self._index)
+        )
 
     def extract_streams(self, indices, snap=None):
         """Per-stream rows of a snapshot (or of the live state), in the
@@ -398,41 +548,51 @@ class _StreamPool:
         """Write per-stream rows (from `extract_streams` of either package)
         into the given slots, leaving the other streams alone."""
         idx = _check_stream_indices(indices, self.n_streams)
-        _assign_rows(self.state, idx, self._import(rows, len(idx)))
-
+        got = self._import(rows, len(idx))
+        states = self._states(self.state)
+        for p, local, pos in self._by_part(idx):
+            sel = torch.as_tensor(pos, device=self.device)
+            dev = self._parts[p].device
+            _assign_rows(states[p], local, _tree_map(lambda a: a.index_select(0, sel).to(dev), got))
 
 class BatchStreamingUpmixer(_StreamPool):
     """Many concurrent streams through one batched step per hardware block,
-    on one device, with the state structure of the JAX package's vmapped
-    XLA engine: {"history" [S, 2, K*hw], "t" [S], "ola" {str(block):
-    [S, 3, block]}}; its snapshots and rows are that structure in numpy."""
+    with the state structure of the JAX package's vmapped XLA engine:
+    {"history" [S, 2, K*hw], "t" [S], "ola" {str(block): [S, 3, block]}};
+    its snapshots and rows are that structure in numpy.  It has no OLA
+    mode (the time OLA) and no multi-hop step.  A mesh splits the streams
+    over its 'data' axis (one device when it has none)."""
 
-    def _make_plan(self):
-        return _engine_plan(self.config, self.hw_block_size, self.n_streams, self.device)
+    def _make_plan(self, n_streams: int, device):
+        return _engine_plan(self.config, self.hw_block_size, n_streams, device)
 
     def _export(self, st):
         return st
 
     def _import(self, snap, rows: int):
-        return _tree_map_like(self._fresh_state(rows), snap)
+        return _tree_map_like(self._fresh_rows(rows, self.device), snap)
 
 
 class CudaStreamPool(_StreamPool):
     """The serving pool, the counterpart of the JAX PallasStreamPool: one
     `pool_step_lcr` call per hardware block (or per `hops` blocks) serves
-    every stream; on a CUDA device three kernel launches per bucket, on
-    the CPU the plain version.
+    every stream; on a CUDA device the pool kernels, on the CPU their
+    plain versions.
 
-    `snapshot()` returns the JAX pool's quarters structure in numpy
-    ({"histL", "histR": K-1 arrays [S, hw], "t", "ola": {str(B): (C, Ls,
-    Rs) [S, B]}}, live buckets only); `restore()` takes that or the window
-    layout ([S, K*hw] per channel).  No group and no n_streams % group
-    rule: any S >= 1.
+    `ola` picks the dataflow, as in the JAX package: "time" (K3,
+    [S, 3, B] carries) or "spectral" (K3s, the masked spectra of each
+    bucket's last Kr - 1 frames; the same function to float tolerance,
+    not bit for bit).  `snapshot()` returns the JAX pool's quarters
+    structure in numpy ({"histL", "histR": K-1 arrays [S, hw], "t",
+    "ola": {str(B): ...}}, live buckets only: (C, Ls, Rs) [S, B] for
+    "time", the packed [S, 3 (Kr-1) kp] for "spectral");
+    `restore()` takes that or the window layout ([S, K*hw] per channel),
+    of the same OLA mode (ValueError otherwise, as in the JAX package).
+    No group and no n_streams % group rule: any S >= 1.  A mesh needs a
+    'data' axis and splits the streams over it (`_StreamPool`).
 
-    Not in this port yet (each raises NotImplementedError): `mesh=`
-    (ROADMAP.md, Queue 1: the pool on a mesh), ola="spectral" (the same
-    function by another dataflow; the spectral OLA of the pool),
-    `_shape_only` AOT loading (aot.py).
+    Not in this port yet: `_shape_only` AOT loading (ROADMAP.md, Queue 1:
+    aot.py) raises NotImplementedError.
     """
 
     def __init__(self, config: UpmixConfig, hw_block_size: int, n_streams: int, device="cuda",
@@ -440,11 +600,11 @@ class CudaStreamPool(_StreamPool):
         check_ola(ola)
         if _shape_only:
             raise NotImplementedError("AOT pool artifacts are not ported yet (ROADMAP.md, Queue 1: aot.py)")
-        self.ola = ola
-        super().__init__(config, hw_block_size, n_streams, device, mesh)
+        self.ola = self._ola = ola
+        super().__init__(config, hw_block_size, n_streams, device, mesh, need_data=True)
 
-    def _make_plan(self):
-        plan = make_pool_plan(self.config, self.hw_block_size, self.n_streams, self.device)
+    def _make_plan(self, n_streams: int, device):
+        plan = make_pool_plan(self.config, self.hw_block_size, n_streams, device, ola=self.ola)
         if plan is None:
             raise ValueError(
                 "config not eligible for the pool kernel (a hop that does not divide hw "
@@ -467,41 +627,51 @@ class CudaStreamPool(_StreamPool):
         self.state, out = self._step(self.state, x)
         return out[:, 0], out[:, 1], out[:, 2]
 
-    def make_sustained_runner(self, n_blocks: int, hops: int = 1):
-        """(run, fresh): run(state, blocks) with device-resident blocks
-        [n_blocks // hops, 2, S, hops*hw] runs every step with no host
-        synchronisation per block and returns (final_state, cs), cs [n_blocks
-        // hops, S, hops*hw] the C outputs.  Time it with CUDA events for
-        the pool's sustained capacity."""
-        n_blocks, hops = int(n_blocks), int(hops)
-        if hops < 1 or n_blocks % hops:
-            raise ValueError(f"n_blocks ({n_blocks}) must be a multiple of hops ({hops})")
-
-        def run(state, blocks):
-            cs = []
-            for step_blocks in blocks:
-                state, out = self._step(state, step_blocks.transpose(0, 1))
-                cs.append(out[:, 0])
-            return state, torch.stack(cs)
-
-        return run, self._fresh_state
-
     def _export(self, st):
         hw, nq = self.hw_block_size, self.warmup_blocks
         hist = st["history"]  # the oldest of its nq blocks is dead state
+        if self.ola == "spectral":
+            ola = {str(b.block): pack_spectral_carry(st["ola"][str(b.block)]) for b in self.plan.buckets}
+        else:
+            ola = {str(b.block): tuple(st["ola"][str(b.block)][:, o] for o in range(3)) for b in self.plan.buckets}
         return {
             "histL": tuple(hist[:, 0, q * hw : (q + 1) * hw] for q in range(1, nq)),
             "histR": tuple(hist[:, 1, q * hw : (q + 1) * hw] for q in range(1, nq)),
             "t": st["t"],
-            "ola": {str(b.block): tuple(st["ola"][str(b.block)][:, o] for o in range(3)) for b in self.plan.buckets},
+            "ola": ola,
         }
+
+    def _snapshot_carries(self, snap_ola):
+        """A snapshot's carries as float32 arrays by bucket key, after
+        checking their OLA format against this pool's: one 2-D array a
+        bucket is spectral, three [rows, B] a bucket is time; ValueError
+        for neither, or for the other mode's."""
+        carries = {str(k): np.asarray(v, np.float32) for k, v in snap_ola.items()}
+        ndims = {a.ndim for a in carries.values()}
+        if ndims == {3} and all(a.shape[0] == 3 for a in carries.values()):
+            spectral = False
+        elif ndims <= {2}:
+            spectral = True
+        else:
+            raise ValueError(
+                f"unrecognized OLA carry structure in snapshot: shapes { {k: a.shape for k, a in carries.items()} }"
+            )
+        if spectral != (self.ola == "spectral"):
+            raise ValueError(
+                f"snapshot OLA format ({'spectral' if spectral else 'time'}) does not match this pool's "
+                f"ola={self.ola!r}"
+            )
+        return carries
 
     def _import(self, snap, rows: int):
         hw, nq = self.hw_block_size, self.warmup_blocks
-        state = self._fresh_state(rows)  # dead buckets' carries stay zero
+        state = self._fresh_rows(rows, self.device)  # dead buckets' carries stay zero
+        got = self._snapshot_carries(snap["ola"])
         hists = []
         for key in ("histL", "histR"):
             h = np.asarray(snap[key], np.float32)
+            if nq == 1 and h.size == 0:  # quarters of a one-block window: none
+                h = h.reshape(0, rows, hw)
             if h.ndim == 3:  # quarters: nq-1 arrays [rows, hw]; the dead oldest block left zero
                 if h.shape != (nq - 1, rows, hw):
                     raise ValueError(f"snapshot {key} has shape {h.shape}, expected ({nq - 1}, {rows}, {hw})")
@@ -513,17 +683,20 @@ class CudaStreamPool(_StreamPool):
                 raise ValueError(f"unrecognized {key} history structure (shape {h.shape})")
             hists.append(h)
         state["history"] = torch.tensor(np.stack(hists, axis=1), device=self.device)
-        want = {str(b.block): b.block for b in self.plan.buckets}
-        got = {str(k): np.asarray(v, np.float32) for k, v in snap["ola"].items()}
-        if set(got) != set(want):
-            raise ValueError(f"snapshot buckets {sorted(got)} do not match this pool's {sorted(want)}")
+        live = {str(b.block): b for b in self.plan.buckets}
+        if set(got) != set(live):
+            raise ValueError(f"snapshot buckets {sorted(got)} do not match this pool's {sorted(live)}")
         for k, a in got.items():
-            if a.shape != (3, rows, want[k]):
-                raise ValueError(
-                    f"snapshot carry {k} has shape {a.shape}; this pool takes time-OLA carries "
-                    f"(3 x [{rows}, {want[k]}]), not spectral ones"
-                )
-            state["ola"][k] = torch.tensor(np.ascontiguousarray(a.transpose(1, 0, 2)), device=self.device)
+            b = live[k]
+            if self.ola == "spectral":
+                carry = unpack_spectral_carry(a, b.overlap - 1, b.kept)
+                if carry.shape[0] != rows:
+                    raise ValueError(f"snapshot carry {k} has {carry.shape[0]} rows, expected {rows}")
+            else:
+                if a.shape != (3, rows, b.block):
+                    raise ValueError(f"snapshot carry {k} has shape {a.shape}, expected (3, {rows}, {b.block})")
+                carry = np.ascontiguousarray(a.transpose(1, 0, 2))
+            state["ola"][k] = torch.tensor(carry, device=self.device)
         t = np.asarray(snap["t"], np.int32)
         if t.shape != (rows,):
             raise ValueError(f"snapshot t has shape {t.shape}, expected ({rows},)")
@@ -533,27 +706,29 @@ class CudaStreamPool(_StreamPool):
 
 def make_stream_pool(config: UpmixConfig, hw_block_size: int, n_streams: int, engine: str = "auto",
                      device="cuda", mesh=None, ola: str = "time"):
-    """The serving pool for this config and device.
+    """The serving pool for this config and device, chosen as the JAX
+    package's make_stream_pool chooses (upmix_tpu/models/streaming.py:1037).
 
     engine "cuda" and "torch" stand for the JAX package's "pallas" and
-    "xla": "cuda" is CudaStreamPool, "torch" is BatchStreamingUpmixer.
-    Both run the same step (`pool_step_lcr`: the pool kernel on a CUDA
-    device, its plain version on the CPU) and differ in the snapshot
-    structure they share with the JAX package.  "auto" returns
-    CudaStreamPool on a CUDA device whenever the pool plan accepts the
-    config, else BatchStreamingUpmixer; on the CPU it returns
-    BatchStreamingUpmixer, as the JAX package does on its CPU backend.
-    A mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)."""
+    "xla": "cuda" is CudaStreamPool in the requested OLA mode (sharded
+    over a mesh's 'data' axis when given one), "torch" is
+    BatchStreamingUpmixer, which has no OLA mode and ignores `ola`.  Both
+    run the same step (the pool kernels on a CUDA device, their plain
+    versions on the CPU) and differ in the snapshot structure they share
+    with the JAX package.  "auto" on a CUDA device with no mesh returns
+    CudaStreamPool in the requested mode when the pool plan accepts the
+    config; otherwise (the CPU, as the JAX package on its CPU backend; a
+    mesh; an ineligible config) BatchStreamingUpmixer.  (The JAX "auto"
+    falls back from a spectral plan its TPU layout refuses to a time one;
+    the port's two dataflows take the same configs, so there is none.)"""
     if engine not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown engine {engine!r}; one of ('auto', 'cuda', 'torch')")
-    if mesh is not None:
-        raise NotImplementedError("a stream pool on a mesh is not ported yet (ROADMAP.md, Queue 1: the pool on a mesh)")
-    if engine == "cuda":
-        return CudaStreamPool(config, hw_block_size, n_streams, device=device, ola=ola)
-    if (
+    check_ola(ola)
+    if engine == "cuda" or (
         engine == "auto"
+        and mesh is None
         and torch.device(device).type == "cuda"
         and make_pool_plan(config, int(hw_block_size), int(n_streams), device="cpu") is not None
     ):
-        return CudaStreamPool(config, hw_block_size, n_streams, device=device, ola=ola)
-    return BatchStreamingUpmixer(config, hw_block_size, n_streams, device=device)
+        return CudaStreamPool(config, hw_block_size, n_streams, device=device, mesh=mesh, ola=ola)
+    return BatchStreamingUpmixer(config, hw_block_size, n_streams, device=device, mesh=mesh)

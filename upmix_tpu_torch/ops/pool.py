@@ -2,8 +2,10 @@
 stream at once.
 
 Port of `upmix_tpu/ops/pallas_pool.py` (pool_step_lcr, the TPU kernel of
-the serving pool), time-OLA dataflow.  Per stream s, bucket (block B,
-hop H, P = hw/H frames per block, kept bins lo..lo+K-1) and hop i:
+the serving pool), in both of its OLA dataflows (`PoolPlan.ola`).  The
+time OLA ("time", the kernel body at pallas_pool.py:432-558): per
+stream s, bucket (block B, hop H, P = hw/H frames per block, kept bins
+lo..lo+K-1) and hop i:
 
   - frame p of hop i reads hist[s, ch, i*hw + p*H : i*hw + p*H + B];
   - windowed kept-bin spectrum -> per band gain x center mask, summed
@@ -15,19 +17,43 @@ hop H, P = hw/H frames per block, kept bins lo..lo+K-1) and hop i:
     and leaves that stream's carries as they were;
   - carries chain across the hops of one call.
 
+The spectral OLA ("spectral", `_spectral_bucket`, pallas_pool.py:249-325)
+computes the same function by another dataflow.  A bucket's state is the
+masked spectra (C, Ls, Rs at the kept bins, unnormalised rfft values) of
+its last Kr - 1 frames, Kr = B/H, oldest first: [S, 3, Kr - 1, K, 2]
+float32 (re, im) here.  Per hop the Kr - 1 carried spectra go ahead of
+the P new ones; output hop p is the sum over the Kr frames that overlap
+it of each frame's inverse (irfft of its kept bins, times the synthesis
+window) at its offset into the hop; the new carry is the last Kr - 1
+spectra of that window.  The warmup gate and the chaining across hops
+are the time OLA's.  `pack_spectral_carry` and `unpack_spectral_carry`
+convert the state to and from the JAX package's packed layout ([S, 3 *
+(Kr - 1) * kp], output-major, then slot-major, re | im | zeros to kp =
+2K rounded up to 128 lanes), so snapshots move between the packages.
+Kr = 1 (hop = block) gives an empty carry.
+
 On a CUDA tensor `pool_step_lcr` launches `csrc/pool.cu`'s kernels: the
 frames through FFTs in shared memory (`csrc/fft.cuh`), the mask, the
 gated overlap-add and the carries, one launch per bucket, two for a
 bucket over `fftplan.FFT_MAX` points (the two-stage split; from a
 hardware block of 8192 samples at the streaming configs' 4 x hw cap;
 `launches_per_bucket`).  On a CPU tensor it runs `pool_step_lcr_plain`
-(torch.fft).  There is no fallback between the two.
+(torch.fft).  A spectral plan on a CUDA tensor launches
+`csrc/pool_spectral.cu`'s kernels (K3s): the new frames' forward FFTs and
+mask into [S, 3, F, K] spectra and the new carry, then per stream the
+inverse FFTs of every frame that reaches the output, carried or new, in
+frame order (`spectral_launches_per_bucket`: 2, or 3 for a bucket over
+FFT_MAX points, whose forward is the split's).  On a CPU tensor it runs
+`pool_step_spectral_plain`.  There is no fallback between the kernels and
+the plain versions, nor between the two dataflows.
 
 What the TPU plan needed only for Mosaic has no counterpart: no group of
-streams per grid step (so no n_streams % group rule), no 8 MB bound on the
-baked weights, no bf16 hi/lo pairs, no quarter refs.  The plan declines
-only what the function cannot do: a hop that does not divide hw or its
-block, or mixed block/hop ratios.
+streams per grid step (so no n_streams % group rule), no 8 MB bound on
+the baked weights, no bf16 hi/lo pairs, no quarter refs; for the
+spectral OLA no lane padding of the spectra, no Q hops a product and no
+rearranged inverse weight.  The plan declines only what the function
+cannot do: a hop that does not divide hw or its block, or mixed
+block/hop ratios.
 """
 
 from __future__ import annotations
@@ -42,10 +68,35 @@ from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
-from upmix_tpu_torch.ops.omnibus import WideTables, check_kernel_tables, launch_geometry, make_wide_tables
+from upmix_tpu_torch.ops.omnibus import (
+    FRAME_TILE,
+    WideTables,
+    check_kernel_tables,
+    launch_geometry,
+    make_wide_tables,
+)
 
-# CUDA kernel launches made by pool_step_lcr (launches_per_bucket each).
+# CUDA kernel launches made by pool_step_lcr: LAUNCHES by a time plan
+# (K3, launches_per_bucket each), SPECTRAL_LAUNCHES by a spectral plan
+# (K3s, spectral_launches_per_bucket each).
 LAUNCHES = 0
+SPECTRAL_LAUNCHES = 0
+
+OLA_MODES = ("time", "spectral")
+SPECTRAL_LANES = 128  # the JAX package's packed spectra: 2K rounded up to this
+
+
+def spectral_launches_per_bucket(block: int) -> int:
+    """Launches of one spectral bucket: the forward and mask, then the
+    inverse; a block over FFT_MAX points takes the split's forward, a mask
+    pass and the split's inverse."""
+    return 2 if block <= FFT_MAX else 3
+
+
+def spectral_pass(block: int) -> int:
+    """Frames one thread block of the spectral kernels transforms at a
+    time (FRAME_TILE complex values, at least one frame)."""
+    return max(1, FRAME_TILE // block)
 
 
 @dataclass(frozen=True, eq=False)
@@ -70,6 +121,15 @@ class PoolBucket:
     def kept(self) -> int:
         return self.gains.shape[1]
 
+    @property
+    def overlap(self) -> int:
+        """Kr = B / H: the frames that overlap one hop."""
+        return self.block // self.hop
+
+    def spectral_carry_shape(self, rows: int) -> tuple:
+        """A spectral carry: the masked spectra of the last Kr - 1 frames."""
+        return (rows, 3, self.overlap - 1, self.kept, 2)
+
 
 @dataclass(frozen=True, eq=False)
 class PoolPlan:
@@ -77,6 +137,7 @@ class PoolPlan:
     warmup: int  # K = block / hop, the same for every bucket
     n_streams: int
     buckets: tuple  # PoolBucket, live buckets in config order
+    ola: str = "time"  # the OLA dataflow: "time" or "spectral"
 
     @property
     def window(self) -> int:
@@ -84,11 +145,19 @@ class PoolPlan:
         return self.warmup * self.hw
 
 
-def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, device) -> PoolPlan | None:
+def check_ola(ola: str) -> None:
+    """Raise ValueError unless `ola` is one of the pool's OLA dataflows."""
+    if ola not in OLA_MODES:
+        raise ValueError(f"unknown ola mode {ola!r}; one of {OLA_MODES}")
+
+
+def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, device,
+                             ola: str = "time") -> PoolPlan | None:
     """Device plan from `_StreamBucketPlan` records (numpy arrays) of
     either package; None when every bucket's gains are zero.  The
     two-stage split's tables of a block over FFT_MAX are built for a CUDA
     device only."""
+    check_ola(ola)
     device = torch.device(device)
 
     def dev(a):
@@ -117,14 +186,15 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
         )
     if not buckets:
         return None
-    return PoolPlan(hw=int(hw), warmup=int(warmup), n_streams=int(n_streams), buckets=tuple(buckets))
+    return PoolPlan(hw=int(hw), warmup=int(warmup), n_streams=int(n_streams), buckets=tuple(buckets), ola=ola)
 
 
-def make_pool_plan(config: UpmixConfig, hw: int, n_streams: int, device="cuda") -> PoolPlan | None:
+def make_pool_plan(config: UpmixConfig, hw: int, n_streams: int, device="cuda", ola: str = "time") -> PoolPlan | None:
     """The pool plan, or None for a config the step cannot run: a hop
     that does not divide hw or its block, mixed block/hop ratios, or no
     live bucket.  (With hop | hw every block fits the K * hw history:
-    hw + (K - 1) * hop <= K * hw.)"""
+    hw + (K - 1) * hop <= K * hw.)  Both OLA dataflows take the same
+    configs."""
     from upmix_tpu_torch.models.streaming import _plan_stream_buckets
 
     hw = int(hw)
@@ -136,7 +206,7 @@ def make_pool_plan(config: UpmixConfig, hw: int, n_streams: int, device="cuda") 
         ratios.add(block // hop)
     if len(ratios) != 1:
         return None
-    return plan_from_stream_buckets(_plan_stream_buckets(config, hw), hw, ratios.pop(), n_streams, device)
+    return plan_from_stream_buckets(_plan_stream_buckets(config, hw), hw, ratios.pop(), n_streams, device, ola)
 
 
 def _check_inputs(hist, t, carries, plan: PoolPlan, hops: int) -> None:
@@ -151,21 +221,24 @@ def _check_inputs(hist, t, carries, plan: PoolPlan, hops: int) -> None:
     if len(carries) != len(plan.buckets):
         raise ValueError(f"expected {len(plan.buckets)} bucket carries, got {len(carries)}")
     for b, c in zip(plan.buckets, carries):
-        if tuple(c.shape) != (S, 3, b.block):
-            raise ValueError(f"expected carry [{S}, 3, {b.block}], got {tuple(c.shape)}")
+        want = b.spectral_carry_shape(S) if plan.ola == "spectral" else (S, 3, b.block)
+        if tuple(c.shape) != want:
+            raise ValueError(f"expected {plan.ola} carry {list(want)}, got {tuple(c.shape)}")
 
 
 def pool_step_lcr(hist: torch.Tensor, t: torch.Tensor, carries, plan: PoolPlan, hops: int = 1):
     """hist [S, 2, (warmup - 1 + hops) * hw] float32, oldest -> newest
     (the last `hops` blocks are this call's input); t int32 [S], blocks
-    seen including the first hop; carries: per bucket [S, 3, B].
-    Returns (out [S, 3, hops * hw] = (C, Ls, Rs), new carries).  A CPU
-    tensor runs the plain version; a CUDA tensor runs the kernels."""
+    seen including the first hop; carries: per bucket [S, 3, B] for a
+    time plan, [S, 3, Kr - 1, K, 2] for a spectral one.  Returns (out [S,
+    3, hops * hw] = (C, Ls, Rs), new carries).  A CPU tensor runs the
+    plain version of the plan's dataflow; a CUDA tensor runs its kernels."""
+    spectral = plan.ola == "spectral"
     if hist.device.type == "cpu":
-        return pool_step_lcr_plain(hist, t, carries, plan, hops)
+        return (pool_step_spectral_plain if spectral else pool_step_lcr_plain)(hist, t, carries, plan, hops)
     if hist.device.type != "cuda":
         raise ValueError(f"pool_step_lcr runs on cpu or cuda, not {hist.device}")
-    return _pool_cuda(hist, t, carries, plan, int(hops))
+    return (_spectral_cuda if spectral else _pool_cuda)(hist, t, carries, plan, int(hops))
 
 
 def _launched(rc: int, what: str) -> None:
@@ -175,10 +248,14 @@ def _launched(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
-def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
-    from upmix_tpu_torch.ops import _build
+def _launched_spectral(rc: int, what: str) -> None:
+    global SPECTRAL_LAUNCHES
+    SPECTRAL_LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
-    _check_inputs(hist, t, carries, plan, hops)
+
+def _check_cuda_inputs(hist, carries, plan: PoolPlan) -> None:
     dev = hist.device
     if hist.dtype != torch.float32 or not hist.is_contiguous():
         raise ValueError("the pool kernel takes a contiguous float32 history")
@@ -186,6 +263,14 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
         raise ValueError("the pool kernel takes contiguous float32 carries on the history's device")
     for b in plan.buckets:
         check_kernel_tables(b, dev)
+
+
+def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    from upmix_tpu_torch.ops import _build
+
+    _check_inputs(hist, t, carries, plan, hops)
+    _check_cuda_inputs(hist, carries, plan)
+    dev = hist.device
     lib = _build.load()
     S, _, width = hist.shape
     hw, nq = plan.hw, plan.warmup
@@ -266,3 +351,138 @@ def pool_step_lcr_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: Pool
             carry = torch.where(ready[:, i], tnf.pad(acc[..., hw:], (0, H)), carry)
         new.append(carry)
     return out, tuple(new)
+
+
+def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    from upmix_tpu_torch.ops import _build
+
+    _check_inputs(hist, t, carries, plan, hops)
+    _check_cuda_inputs(hist, carries, plan)
+    dev = hist.device
+    lib = _build.load()
+    S, _, width = hist.shape
+    hw, nq = plan.hw, plan.warmup
+    t32 = t.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    new = []
+    for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
+        B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
+        F = hops * b.passes
+        spec = torch.empty((S, 3, F, K, 2), dtype=torch.float32, device=dev)
+        carry_out = torch.empty_like(carry)
+        state = (carry.data_ptr(), spec.data_ptr(), carry_out.data_ptr())
+        if w is None:
+            G = spectral_pass(B)
+            _launched_spectral(
+                lib.pool_spectral_forward(
+                    hist.data_ptr(), t32.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
+                    b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, G, width, stream,
+                ),
+                "pool_spectral_forward",
+            )
+            _launched_spectral(
+                lib.pool_spectral_inverse(
+                    carry.data_ptr(), spec.data_ptr(), t32.data_ptr(), out.data_ptr(), b.synthesis_window.data_ptr(),
+                    b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq, G, int(i > 0), stream,
+                ),
+                "pool_spectral_inverse",
+            )
+        else:
+            part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
+            _launched_spectral(
+                lib.pool_wide_forward(
+                    hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+                    b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
+                    width, stream,
+                ),
+                "pool_wide_forward",
+            )
+            _launched_spectral(
+                lib.pool_spectral_mask(
+                    part.data_ptr(), t32.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
+                    hw, hops, nq, stream,
+                ),
+                "pool_spectral_mask",
+            )
+            _launched_spectral(
+                lib.pool_spectral_wide_inverse(
+                    carry.data_ptr(), spec.data_ptr(), t32.data_ptr(), out.data_ptr(),
+                    b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(), w.rows.data_ptr(),
+                    w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K,
+                    b.lo, w.n1, w.cols, hw, hops, nq, int(i > 0), stream,
+                ),
+                "pool_spectral_wide_inverse",
+            )
+        new.append(carry_out)
+    return out, tuple(new)
+
+
+def pool_step_spectral_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: PoolPlan, hops: int = 1):
+    """The plain PyTorch version of the spectral dataflow, same contract
+    as `pool_step_lcr` with spectral carries: per bucket frame, window,
+    torch.fft.rfft, gain x mask x band sum on the kept bins; then hop by
+    hop the window of Kr - 1 carried and P new spectra, irfft of each
+    (zero outside the kept bins), synthesis window, overlap-add, the hop's
+    hw samples, and the new carry, with the warmup gate.  Computes in
+    hist's dtype (float64 gives a reference for the float32 kernels) on
+    hist's device."""
+    hops = int(hops)
+    _check_inputs(hist, t, carries, plan, hops)
+    S = hist.shape[0]
+    hw, dt = plan.hw, hist.dtype
+    out = hist.new_zeros((S, 3, hops * hw))
+    steps = torch.arange(hops, device=hist.device)
+    ready = (t.to(hist.device)[:, None] + steps[None, :] >= plan.warmup)[:, :, None, None, None]
+    new = []
+    for b, carry in zip(plan.buckets, carries):
+        B, H, P, K, lo, Kr = b.block, b.hop, b.passes, b.kept, b.lo, b.overlap
+        F = hops * P
+        frames = frame_signal(hist[..., : (F - 1) * H + B], B, H, F)  # [S, 2, F, B]
+        spec = torch.fft.rfft(frames * b.analysis_window.to(dt))[..., lo : lo + K]
+        sl, sr = spec[:, 0], spec[:, 1]
+        c_re, c_im, l_re, l_im, r_re, r_im = mask_sum(
+            sl.real, sl.imag, sr.real, sr.imag, b.gains.to(dt)
+        )
+        masked = torch.complex(
+            torch.stack([c_re, l_re, r_re], dim=1), torch.stack([c_im, l_im, r_im], dim=1)
+        )  # [S, 3, F, K]
+        cur = torch.view_as_complex(carry.to(dt).contiguous())  # [S, 3, Kr - 1, K]
+        for i in range(hops):
+            win = torch.cat([cur, masked[:, :, i * P : (i + 1) * P]], dim=2)  # [S, 3, Kr - 1 + P, K]
+            full = win.new_zeros((S, 3, Kr - 1 + P, B // 2 + 1))
+            full[..., lo : lo + K] = win
+            rec = torch.fft.irfft(full, n=B) * b.synthesis_window.to(dt)
+            acc = overlap_add(rec, H)  # from frame i * P - (Kr - 1)
+            emit = acc[..., (Kr - 1) * H : (Kr - 1) * H + hw]
+            out[..., i * hw : (i + 1) * hw] += torch.where(ready[:, i, :, 0], emit, 0.0)
+            cur = torch.where(ready[:, i], win[:, :, P:], cur)
+        new.append(torch.view_as_real(cur).contiguous())
+    return out, tuple(new)
+
+
+def spectral_lanes(kept: int) -> int:
+    """kp: one packed spectrum's lanes in the JAX package's layout."""
+    return -(-2 * kept // SPECTRAL_LANES) * SPECTRAL_LANES
+
+
+def pack_spectral_carry(carry) -> np.ndarray:
+    """A spectral carry [S, 3, Kr - 1, K, 2] -> the JAX package's packed
+    [S, 3 * (Kr - 1) * kp] float32 (pallas_pool.py:307-318)."""
+    c = np.asarray(carry, np.float32)
+    S, _, slots, K, _ = c.shape
+    packed = np.zeros((S, 3, slots, spectral_lanes(K)), np.float32)
+    packed[..., :K] = c[..., 0]
+    packed[..., K : 2 * K] = c[..., 1]
+    return packed.reshape(S, 3 * slots * spectral_lanes(K))
+
+
+def unpack_spectral_carry(packed, slots: int, kept: int) -> np.ndarray:
+    """The JAX package's packed [S, 3 * slots * kp] -> [S, 3, slots, K, 2]
+    float32 (its lane padding dropped)."""
+    a = np.asarray(packed, np.float32)
+    kp = spectral_lanes(kept)
+    if a.ndim != 2 or a.shape[1] != 3 * slots * kp:
+        raise ValueError(f"packed spectral carry has shape {a.shape}, expected [S, {3 * slots * kp}]")
+    a = a.reshape(a.shape[0], 3, slots, kp)
+    return np.ascontiguousarray(np.stack([a[..., :kept], a[..., kept : 2 * kept]], axis=-1))

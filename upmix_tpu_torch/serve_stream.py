@@ -1037,10 +1037,11 @@ def run_stream_server(
     Defaults mirror the streaming config of the reference Bela setup
     (bela/upmix.cpp:525-528); lockstep defaults to False: a network server
     ticks on the wall clock like an audio callback.  engine ("auto",
-    "cuda", "torch"), device and mesh go to `make_stream_pool`: "auto" is
-    the CUDA pool on the card (the pool kernel), on the CPU only when the
-    caller asks for it (device="cpu").  ola="spectral" and a mesh raise at
-    construction with the pool's own "not ported" message.  `group`, the
+    "cuda", "torch"), device, mesh and ola go to `make_stream_pool`: "auto"
+    is the CUDA pool on the card (the pool kernel of `ola`'s dataflow),
+    the batch pool on the CPU (device="cpu", which the caller asks for)
+    or with a mesh; a mesh splits the slots over its 'data' axis and the
+    checkpoints keep the unsharded structure.  `group`, the
     JAX pool's streams per TPU grid step, which the JAX package's CLI
     passes, is accepted and ignored: the card's pool has no group.
 
@@ -1049,10 +1050,9 @@ def run_stream_server(
     the CLI saves back to it on shutdown.
     """
     from upmix_tpu_torch.config import UpmixConfig
-    from upmix_tpu_torch.models.streaming import check_ola, make_stream_pool
+    from upmix_tpu_torch.models.streaming import make_stream_pool
 
     del group  # a TPU grid-step size: the card's pool has none
-    check_ola(ola)
     config = UpmixConfig.streaming(
         list(band_edges), sr=float(sr), hw_block_size=int(hw_block_size), window=window, xover_mode=xover_mode,
         threshold_factor=threshold_factor, synthesis=synthesis, bin_rounding=bin_rounding,
