@@ -157,16 +157,27 @@ between 5 and 6, 22-25 after 8, then 14-18):
      block counts and nonzero carried spectra, per bucket at 2048 streams
      and whole (>= 80 dB, exact zeros where the plain version has them),
      two calls bit-identical, and its output against K3's from a fresh
-     state (>= 80 dB: the two dataflows compute one function);
+     state (>= 80 dB: the two dataflows compute one function); its edge
+     product (the gather and the tensor-core product of the frames a
+     call's output cuts) alone against its plain version at the same
+     shapes, every bucket's edge frames forced onto it, in both rungs
+     (bf16x3, tf32x3): >= 80 dB per bucket for the rung the plans use,
+     exact zeros, two calls bit for bit;
  23. the spectral pool end to end: make_stream_pool(cfg, 2048, 2048,
-     ola="spectral") must be the CUDA pool and launch K3s (and not K3);
-     12 blocks, warmup exact zeros, the rest >= 60 dB against float64; a
-     snapshot (the JAX package's packed layout) restored into a fresh pool
-     continues bit for bit; reset_streams; then ms per block of the K3s
-     and K3 pools at 16 and 2048 streams, hops 1 and 4, in one run; K3s
-     alone beside K3, its plain version, its bound and design line (its
-     own FFTs and bytes), per bucket beside a cuFFT yardstick of its
-     transforms; the profiler's idle share;
+     ola="spectral") must be the CUDA pool and launch K3s (and not K3),
+     its edge product once a block; the plan's edge and whole frames per
+     bucket; 12 blocks, warmup exact zeros, the rest >= 60 dB against
+     float64; a snapshot (the JAX package's packed layout) restored into
+     a fresh pool continues bit for bit; reset_streams; then ms per block
+     of the K3s and K3 pools at 16 and 2048 streams, hops 1 and 4, in one
+     run; K3s alone beside K3 at the same four shapes, its three steps'
+     times and shares (forward FFTs, edge product in each rung with its
+     TFLOP/s, whole-frame inverse FFTs) at hops 1 and 4; per bucket the
+     product route against the FFT route and the plan as built against
+     every bucket on either, at hw 2048 and 8192; its plain version, its
+     bound and design line (its own FFTs, products and bytes), per bucket
+     its edge/whole split, product and FFT times beside a cuFFT yardstick
+     of its transforms; the profiler's idle share;
  24. the pool on a data = 2 mesh of the one card ([cuda:0] * 2) at 2048
      streams in both OLA modes: K3 or K3s launched, outputs and
      snapshots bit for bit the unsharded pool's; a stream-server session
@@ -242,6 +253,9 @@ BATCH_FILES, BATCH_SIZE, BATCH_SAMPLES = 3, 2, 2**20
 # tensor cores and HBM3.
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The H100's dense bf16 tensor-core peak (the data sheet), for the edge
+# product's share of K3s's design line.
+BF16_FLOPS = 989e12
 # A kernel's bound may be at most 105% of its time (timing noise).
 BOUND_SLACK = 1.05
 
@@ -1248,15 +1262,25 @@ def spectral_phases(smi: str, dev) -> dict:
     from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
     from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import (
+        EDGE_RUNG,
+        EDGE_RUNGS,
+        edge_rung_plan,
         make_pool_plan,
         pool_step_lcr,
         pool_step_spectral_plain,
-        spectral_launches_per_bucket,
+        spectral_edge,
+        spectral_edge_plain,
+        spectral_forward,
+        spectral_launches,
         spectral_pass,
+        spectral_whole,
     )
 
-    # 22. K3s parity against its float64 plain version, and against K3
+    # 22. K3s parity against its float64 plain version, and against K3;
+    # its edge product alone, each bucket's edge frames forced onto it, in
+    # both rungs.
     worst, max_abs_err = float("inf"), 0.0
+    rung_worst = {r: float("inf") for r in EDGE_RUNGS}
     for hw in SPECTRAL_HWS:
         cfg_h = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=hw)
         for S in FLOOR_STREAMS:
@@ -1270,6 +1294,27 @@ def spectral_phases(smi: str, dev) -> dict:
                 t = torch.as_tensor(rng.integers(1, K + 4, S), dtype=torch.int32, device=dev)
                 carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)) * 0.1, dtype=torch.float32,
                                            device=dev) for b in plan.buckets]
+                specs, _ = spectral_forward(hist, t, carries, plan, hops)
+                for rung in EDGE_RUNGS:
+                    forced = edge_rung_plan(plan, rung, every_bucket=True)
+                    line = []
+                    for i, b in enumerate(forced.buckets):
+                        sub = dataclasses.replace(forced, buckets=(b,))
+                        got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+                        again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+                        ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
+                        torch.cuda.synchronize()
+                        zeros_agree = bool((got[ref == 0] == 0).all())
+                        v = snr_db(ref, got) if bool((ref != 0).any()) else float("inf")
+                        rung_worst[rung] = min(rung_worst[rung], v)
+                        line.append(f"B={b.block} {v:.1f} dB")
+                        if not zeros_agree or not torch.equal(got, again):
+                            fail(f"the edge product ({rung}, B={b.block}) is not exact zeros where its plain version "
+                                 f"is, or two calls differ")
+                        del got, again, ref
+                    print(f"K3s edge product {rung} hw={hw} S={S} hops={hops} (every bucket's edge frames on it): "
+                          + ", ".join(line) + "; zeros and two calls bit for bit", flush=True)
+                del specs
                 if S == POOL_STREAMS:
                     for b, c in zip(plan.buckets, carries):
                         sub = dataclasses.replace(plan, buckets=(b,))
@@ -1316,6 +1361,11 @@ def spectral_phases(smi: str, dev) -> dict:
                 torch.cuda.empty_cache()
     if not (worst >= KERNEL_BAR_DB):
         fail(f"K3s parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
+    print("K3s edge product, worst over buckets, S, hops and hw: "
+          + ", ".join(f"{r} {v:.1f} dB" for r, v in rung_worst.items()) + f" (bar >= {KERNEL_BAR_DB} dB for "
+          f"{EDGE_RUNG}, the rung the plans are split for)", flush=True)
+    if not (rung_worst[EDGE_RUNG] >= KERNEL_BAR_DB):
+        fail(f"the edge product ({EDGE_RUNG}) at {rung_worst[EDGE_RUNG]:.1f} dB < {KERNEL_BAR_DB} dB")
 
     # 23. the spectral pool end to end through the user's entry point
     cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
@@ -1326,15 +1376,20 @@ def spectral_phases(smi: str, dev) -> dict:
         fail(f"make_stream_pool(ola='spectral') gave {type(sp).__name__} (ola {getattr(sp, 'ola', None)})")
     plan = sp.plan
     K = plan.warmup
-    per_block = sum(spectral_launches_per_bucket(b.block) for b in plan.buckets)
-    pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = 0
+    per_block = spectral_launches(plan, 1)
+    routes = ", ".join(f"B={b.block}: {len(b.spectral_frames(1)[0])} edge frames on the product, "
+                       f"{len(b.spectral_frames(1)[1])} whole on the FFTs" for b in plan.buckets)
+    print(f"spectral pool plan (hops 1): {routes}; {per_block} launches a block", flush=True)
+    pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = pool.EDGE_LAUNCHES = 0
     outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
     torch.cuda.synchronize()
-    k3s_launches = pool.SPECTRAL_LAUNCHES
+    k3s_launches, edge_launches = pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
     print(f"spectral pool e2e: CudaStreamPool(ola='spectral'), {POOL_BLOCKS} blocks x {S} streams, K3s launches "
-          f"{k3s_launches} (want {POOL_BLOCKS * per_block}), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
-    if k3s_launches != POOL_BLOCKS * per_block or pool.LAUNCHES:
-        fail(f"the spectral pool launched K3s {k3s_launches} times and K3 {pool.LAUNCHES} times")
+          f"{k3s_launches} (want {POOL_BLOCKS * per_block}), of them the edge product {edge_launches} (want "
+          f"{POOL_BLOCKS}), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
+    if k3s_launches != POOL_BLOCKS * per_block or edge_launches != POOL_BLOCKS or pool.LAUNCHES:
+        fail(f"the spectral pool launched K3s {k3s_launches} times (the edge product {edge_launches}) and K3 "
+             f"{pool.LAUNCHES} times")
     hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)
     carries64 = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=dev) for b in plan.buckets]
     e2e = float("inf")
@@ -1387,22 +1442,37 @@ def spectral_phases(smi: str, dev) -> dict:
         state, _ = run(fresh_state(), slabs)
         return time_ms(lambda: run(state, slabs), loops=5, iters=1) / POOL_BLOCKS, (run, state, slabs)
 
-    for n_streams, hops in ((16, 1), (S, 1), (S, 4)):
+    for n_streams, hops in ((16, 1), (16, 4), (S, 1), (S, 4)):
         ms_s, _ = sustained(n_streams, hops, "spectral")
         ms_t, _ = sustained(n_streams, hops, "time")
         torch.cuda.empty_cache()
         print(f"spectral pool timing [{smi}]: S={n_streams} hops={hops} ({POOL_BLOCKS} blocks a call): K3s pool "
               f"{ms_s:.3f} ms per block, K3 pool {ms_t:.3f} ms (K3s/K3 {ms_s / ms_t:.2f}); the {deadline_ms:.2f} ms "
               f"deadline met {ms_s <= deadline_ms}", flush=True)
+    # K3s alone, every stream ready, beside K3 in the same run: ms a block.
     rng = np.random.default_rng(24)
-    hist = torch.as_tensor(rng.standard_normal((S, 2, K * hw)), dtype=torch.float32, device=dev)
-    t = torch.full((S,), K + 1, dtype=torch.int32, device=dev)
-    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)) * 0.1, dtype=torch.float32, device=dev)
-               for b in plan.buckets]
     tplan = make_pool_plan(cfg, hw, S, device=dev)
+
+    def step_inputs(n_streams, hops, p):
+        h = torch.as_tensor(rng.standard_normal((n_streams, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=dev)
+        c = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(n_streams)) * 0.1, dtype=torch.float32,
+                             device=dev) for b in p.buckets]
+        return h, torch.full((n_streams,), K + 1, dtype=torch.int32, device=dev), c
+
+    for n_streams, hops in ((S, 1), (S, 4), (16, 1), (16, 4)):
+        p_s = plan if n_streams == S else make_pool_plan(cfg, hw, n_streams, device=dev, ola="spectral")
+        p_t = tplan if n_streams == S else make_pool_plan(cfg, hw, n_streams, device=dev)
+        h, tt, c = step_inputs(n_streams, hops, p_s)
+        tc = [torch.zeros((n_streams, 3, b.block), device=dev) for b in p_t.buckets]
+        ms_s = time_ms(lambda: pool_step_lcr(h, tt, c, p_s, hops)) / hops
+        ms_t = time_ms(lambda: pool_step_lcr(h, tt, tc, p_t, hops)) / hops
+        print(f"timing [{smi}]: K3s alone S={n_streams} hops={hops} (all ready) {ms_s:.3f} ms a block, K3 {ms_t:.3f} "
+              f"(K3s/K3 {ms_s / ms_t:.2f}); {spectral_launches(p_s, hops)} launches a call", flush=True)
+        if (n_streams, hops) == (S, 1):
+            k3s_ms, k3_ms = ms_s, ms_t
+        del h, c, tc
+    hist, t, carries = step_inputs(S, 1, plan)
     tcarries = [torch.zeros((S, 3, b.block), device=dev) for b in tplan.buckets]
-    k3s_ms = time_ms(lambda: pool_step_lcr(hist, t, carries, plan))
-    k3_ms = time_ms(lambda: pool_step_lcr(hist, t, tcarries, tplan))
     k3s_plain_ms = time_ms(lambda: pool_step_spectral_plain(hist, t, carries, plan))
     # The function's least work is K3's: the FFTs of every frame; its bytes
     # the history read, the spectral carries read and written, the outputs
@@ -1417,33 +1487,107 @@ def spectral_phases(smi: str, dev) -> dict:
           f"{k3s_flop:.3e} FLOP by FFT, {k3s_bytes / 1e9:.3f} GB with {carry_floats} carried floats a stream), "
           f"K3s at {k3s_bound / k3s_ms:.1%} of it", flush=True)
 
+    def edge_flop(p, n_streams, hops):
+        """The edge product's logical FLOP: 2 x 2K for each row (s, o) and
+        sample an edge frame reaches (three times that on the tensor cores
+        in split precision)."""
+        N = hops * hw
+        return sum(3 * n_streams * 2 * 2 * b.kept * sum(min(N, v * b.hop + b.block) - max(0, v * b.hop)
+                                                        for v in b.spectral_frames(hops)[0]) for b in p.buckets)
+
+    # The three steps' shares, at hops 1 and 4, and the product in each rung.
+    for hops in (1, 4):
+        h, tt, c = step_inputs(S, hops, plan)
+        specs, _ = spectral_forward(h, tt, c, plan, hops)
+        f_ms = time_ms(lambda: spectral_forward(h, tt, c, plan, hops))
+        w_ms = time_ms(lambda: spectral_whole(c, specs, tt, plan, hops))
+        flop = edge_flop(plan, S, hops)
+        rungs = []
+        for rung in EDGE_RUNGS:
+            rp = edge_rung_plan(plan, rung)
+            e_ms = time_ms(lambda: spectral_edge(c, specs, tt, rp, hops))
+            rungs.append(f"{rung} {e_ms:.3f} ms ({flop / e_ms / 1e9:.1f} TFLOP/s logical, "
+                         f"{3 * flop / e_ms / 1e9:.1f} on the tensor cores)")
+            if rung == EDGE_RUNG:
+                edge_ms = e_ms
+        print(f"timing [{smi}]: K3s steps S={S} hops={hops}: forward FFTs {f_ms:.3f} ms, edge product (gather + "
+              f"product, {flop:.3e} FLOP) " + "; ".join(rungs) + f", whole-frame inverse FFTs {w_ms:.3f} ms; shares "
+              f"of their sum: forward {f_ms / (f_ms + edge_ms + w_ms):.0%}, product "
+              f"{edge_ms / (f_ms + edge_ms + w_ms):.0%}, whole {w_ms / (f_ms + edge_ms + w_ms):.0%}", flush=True)
+        del h, c, specs
+
+    # The routes: per bucket the product route (its edge frames forced onto
+    # it) against the FFT route; the plan as built against every bucket on
+    # the product and every bucket on the FFTs.
+    for r_hw, r_s in ((hw, S), (4 * hw, S // 4)):
+        r_cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=r_hw)
+        r_plan = make_pool_plan(r_cfg, r_hw, r_s, device=dev, ola="spectral")
+        r_all = edge_rung_plan(r_plan, EDGE_RUNG, every_bucket=True)
+        r_none = dataclasses.replace(r_plan, buckets=tuple(dataclasses.replace(b, edge_product=False)
+                                                           for b in r_plan.buckets))
+        h = torch.as_tensor(rng.standard_normal((r_s, 2, K * r_hw)), dtype=torch.float32, device=dev)
+        tt = torch.full((r_s,), K + 1, dtype=torch.int32, device=dev)
+        c = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(r_s)) * 0.1, dtype=torch.float32,
+                             device=dev) for b in r_plan.buckets]
+        parts = []
+        for i, b in enumerate(r_plan.buckets):
+            on = dataclasses.replace(r_all, buckets=(r_all.buckets[i],))
+            off = dataclasses.replace(r_none, buckets=(r_none.buckets[i],))
+            parts.append(f"B={b.block} ({'product' if b.edge_product else 'FFTs'} planned) product route "
+                         f"{time_ms(lambda: pool_step_lcr(h, tt, [c[i]], on)):.3f} ms, FFT route "
+                         f"{time_ms(lambda: pool_step_lcr(h, tt, [c[i]], off)):.3f}")
+        print(f"routes [{smi}] hw={r_hw} S={r_s} hops=1: " + "; ".join(parts) + f"; the plan as built "
+              f"{time_ms(lambda: pool_step_lcr(h, tt, c, r_plan)):.3f} ms, every bucket on the product "
+              f"{time_ms(lambda: pool_step_lcr(h, tt, c, r_all)):.3f}, every bucket on the FFTs "
+              f"{time_ms(lambda: pool_step_lcr(h, tt, c, r_none)):.3f}", flush=True)
+        del h, c, r_plan, r_all, r_none
+        torch.cuda.empty_cache()
+
     def design(b):
-        """(FLOP, bytes) of K3s's own work on bucket b at its launch
-        geometry: G frames a pass forward (zero frames included) and, per
-        stream, the P + Kr - 1 frames that reach the output inverted (C +
-        i Ls one transform, the Rs of two frames another); 5 N log2 N a
-        complex FFT; frames read, the new spectra written and read, the
+        """(FFT FLOP, tensor-core FLOP, bytes) of K3s's own work on bucket
+        b at hops 1 and its launch geometry: G frames a pass forward (zero
+        frames included); the edge product's three split products for
+        every row and sample its frames reach; per stream the whole
+        frames inverted (C + i Ls one transform, the Rs of two frames
+        another); 5 N log2 N a complex FFT; frames read, the new spectra
+        written and read, the gathered operand written and read, the
         carries, the output read and written."""
         G, F, Kr = spectral_pass(b.block), b.passes, b.overlap
+        edge, whole = b.spectral_frames(1)
         fwd = -(-F // G) * G
-        inv = sum(nf + -(-nf // 2) for nf in [min(G, F + Kr - 1 - i) for i in range(0, F + Kr - 1, G)])
-        flop = S * (fwd + inv) * 5 * b.block * np.log2(b.block)
+        nw = len(whole)
+        inv = sum(nf + -(-nf // 2) for nf in [min(G, nw - i) for i in range(0, nw, G)])
+        fft = S * (fwd + inv) * 5 * b.block * np.log2(b.block)
+        mma = 3 * edge_flop(dataclasses.replace(plan, buckets=(b,)), S, 1)
+        kp = -(-2 * b.kept // 32) * 32
         nbytes = 4 * S * (fwd * 2 * b.block + 2 * 3 * F * b.kept * 2 + 2 * 3 * (Kr - 1) * b.kept * 2 + 2 * 3 * hw)
-        return flop, nbytes
+        nbytes += 2 * 2 * 2 * 3 * S * len(edge) * kp  # the gathered bf16 hi and lo, written and read
+        return fft, mma, nbytes
 
     d = [design(b) for b in plan.buckets]
-    d_flop, d_bytes = sum(x for x, _ in d), sum(y for _, y in d)
-    d_bound, d_by = bound(d_flop, d_bytes)
-    print(f"design [{smi}]: K3s FFTs in shared memory {d_flop:.3e} FLOP ({d_flop / k3s_flop:.2f}x the function's), "
-          f"{d_bytes / 1e9:.3f} GB -> {d_bound:.3f} ms ({d_by}); K3s at {d_bound / k3s_ms:.1%} of it "
-          f"({d_flop / k3s_ms / 1e9:.2f} TFLOP/s)", flush=True)
+    d_fft, d_mma, d_bytes = (sum(x[i] for x in d) for i in range(3))
+    d_ms = max(d_fft / FP32_FLOPS + d_mma / BF16_FLOPS, d_bytes / HBM_BYTES_PER_S) * 1e3
+    print(f"design [{smi}]: K3s FFTs in shared memory {d_fft:.3e} FLOP, edge product {d_mma:.3e} FLOP on the tensor "
+          f"cores ({(d_fft + d_mma / 3) / k3s_flop:.2f}x the function's FLOP counting the product's logical ones), "
+          f"{d_bytes / 1e9:.3f} GB -> {d_ms:.3f} ms; K3s at {d_ms / k3s_ms:.1%} of it", flush=True)
     parts, k3s_lib_ms = [], 0.0
-    for b, c, (b_flop, _) in zip(plan.buckets, carries, d):
+    for b, c in zip(plan.buckets, carries):
         sub = dataclasses.replace(plan, buckets=(b,))
         tsub = dataclasses.replace(tplan, buckets=(tplan.buckets[plan.buckets.index(b)],))
         b_ms = time_ms(lambda: pool_step_lcr(hist, t, [c], sub))
         b_k3 = time_ms(lambda: pool_step_lcr(hist, t, [tcarries[plan.buckets.index(b)]], tsub))
         b_plain = time_ms(lambda: pool_step_spectral_plain(hist, t, [c], sub))
+        specs, _ = spectral_forward(hist, t, [c], sub, 1)
+        f_ms = time_ms(lambda: spectral_forward(hist, t, [c], sub, 1))
+        edge, whole = b.spectral_frames(1)
+        if edge:
+            e_ms = time_ms(lambda: spectral_edge([c], specs, t, sub, 1))
+            e_flop = edge_flop(sub, S, 1)
+            product = f"product {e_ms:.3f} ms ({e_flop / e_ms / 1e9:.1f} TFLOP/s logical)"
+        else:
+            product = "no product"
+        w_ms = time_ms(lambda: spectral_whole([c], specs, t, sub, 1)) if whole else 0.0
+        del specs
         # The cuFFT yardstick of its transforms: rfft of the new frames,
         # irfft of the three outputs of every frame that reaches the output.
         rows, _ = cufft_inputs(hist, b, b.passes)
@@ -1454,9 +1598,10 @@ def spectral_phases(smi: str, dev) -> dict:
         c_ms = cufft_ms(rows, spec, b.block)
         del rows, spec
         k3s_lib_ms += c_ms
-        parts.append(f"B={b.block} {b_ms:.3f} ms ({b_flop / b_ms / 1e9:.2f} TFLOP/s of its own FFTs; K3 {b_k3:.3f}) "
-                     f"vs plain {b_plain:.3f} ms, cuFFT yardstick {c_ms:.3f} ms")
-    print(f"timing [{smi}]: K3s per bucket: " + "; ".join(parts)
+        parts.append(f"B={b.block} {len(edge)} edge / {len(whole)} whole frames: {b_ms:.3f} ms (K3 {b_k3:.3f}); "
+                     f"{product}, FFTs {f_ms + w_ms:.3f} ms (forward {f_ms:.3f}, whole {w_ms:.3f}); plain "
+                     f"{b_plain:.3f} ms, cuFFT yardstick {c_ms:.3f} ms")
+    print(f"timing [{smi}]: K3s per bucket (hops 1): " + "; ".join(parts)
           + f"; cuFFT yardstick over the buckets {k3s_lib_ms:.3f} ms", flush=True)
     for n_streams in (16, S):
         _, (run, state, slabs) = sustained(n_streams, 1, "spectral")

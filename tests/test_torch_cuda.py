@@ -10,7 +10,8 @@ Small configs cover the kernels' edges that the bench config does not:
 blocks from 128 to 2^21 points (odd and even powers of two, the
 two-stage split, its N2 grown past 2^20 points), overlaps 0.5 to 0.875,
 K2 at every frame-pass size, several segments per launch, K3s (the pool's
-spectral OLA) at every pool case and 1, 5 and 2048 streams,
+spectral OLA) at every pool case and 1, 5 and 2048 streams, its edge
+product in both rungs on every bucket at hw 2048 and 8192,
 one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
 32768 bucket split); the bench config covers each of its block sizes,
@@ -327,7 +328,7 @@ def test_spectral_kernel_matches_plain_float64(cuda, case, S, hops):
     out, new = pool_step_lcr(hist, t, carries, plan, hops)
     again, _ = pool_step_lcr(hist, t, carries, plan, hops)
     torch.cuda.synchronize()
-    per_call = sum(pool.spectral_launches_per_bucket(b.block) for b in plan.buckets)
+    per_call = pool.spectral_launches(plan, hops)
     assert (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 2 * per_call)
     assert torch.equal(out, again)
     ref, ref_new = pool_step_spectral_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
@@ -372,7 +373,7 @@ def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
         torch.cuda.synchronize()
     finally:
         pool.pool_step_spectral_plain = real
-    per_call = sum(pool.spectral_launches_per_bucket(b.block) for b in plan.buckets)
+    per_call = pool.spectral_launches(plan, 1)
     assert not calls and (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 8 * per_call)
     hist = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=cuda)
     carries = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=cuda) for b in plan.buckets]
@@ -396,6 +397,89 @@ def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
         assert torch.equal(got[:, others], want[:, others])
 
 
+@pytest.mark.parametrize("rung", ["bf16x3", "tf32x3"])
+@pytest.mark.parametrize("hw", [2048, 8192])
+@pytest.mark.parametrize("S,hops", [(1, 1), (5, 4), (2048, 1), (2048, 4)])
+def test_edge_product_matches_plain_float64(cuda, S, hops, hw, rung):
+    # K3s's edge product (gather + tensor-core product) against its plain
+    # version in float64, per bucket (each bucket's edge frames forced onto
+    # the product) and for the plan as built, >= 80 dB, exact zeros where
+    # the plain version has them (streams below their first ready hop,
+    # stream 0 among them), two calls bit for bit; its launches counted.
+    import dataclasses
+
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, spectral_edge, spectral_edge_plain, spectral_forward
+
+    if hw > 2048 and S == 2048:
+        S = 256  # the same launch geometry per row tile, a tenth of the plain version's memory
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=hw)
+    built = make_pool_plan(cfg, hw, S, device=cuda, ola="spectral")
+    plan = pool.edge_rung_plan(built, rung, every_bucket=True)
+    K = plan.warmup
+    rng = np.random.default_rng(S + hops + hw)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=cuda)
+    t = torch.as_tensor(rng.integers(1, K + 4, S), dtype=torch.int32, device=cuda)
+    t[0] = 1
+    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)), dtype=torch.float32, device=cuda)
+               for b in plan.buckets]
+    specs, _ = spectral_forward(hist, t, carries, plan, hops)
+    for i, b in enumerate(plan.buckets):
+        sub = dataclasses.replace(plan, buckets=(b,))
+        before = (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES)
+        got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+        again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+        torch.cuda.synchronize()
+        assert (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0] + 2, before[1] + 4)
+        assert torch.equal(got, again)
+        ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
+        assert bool((got[ref == 0] == 0).all())
+        assert not got[0, :, : int(min(K - 1, hops)) * hw].any()
+        if bool((ref != 0).any()):
+            assert _snr(ref, got) >= 80.0, (b.block, rung)
+    if any(b.edge_product for b in built.buckets):
+        rplan = pool.edge_rung_plan(built, rung)
+        got = spectral_edge(carries, specs, t, rplan, hops)
+        ref = spectral_edge_plain([c.double() for c in carries], [x.double() for x in specs], t, rplan, hops)
+        assert bool((got[ref == 0] == 0).all())
+        if bool((ref != 0).any()):
+            assert _snr(ref, got) >= 80.0
+
+
+def test_edge_product_never_hands_work_to_a_plain_version(cuda):
+    # A CUDA plan whose bucket takes the product but has no weight raises;
+    # the spectral step on the card never calls the plain versions.
+    import dataclasses
+
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    plan = make_pool_plan(cfg, 2048, 4, device=cuda, ola="spectral")
+    assert [b.edge_product for b in plan.buckets] == [True, True, False, False]
+    assert all((b.edge_weight is not None) == b.edge_product for b in plan.buckets)
+    hist = torch.zeros((4, 2, 4 * 2048), device=cuda)
+    t = torch.full((4,), 9, dtype=torch.int32, device=cuda)
+    carries = [torch.zeros(b.spectral_carry_shape(4), device=cuda) for b in plan.buckets]
+    broken = dataclasses.replace(plan, buckets=(dataclasses.replace(plan.buckets[0], edge_weight=None),
+                                                *plan.buckets[1:]))
+    with pytest.raises(ValueError, match="split weight"):
+        pool_step_lcr(hist, t, carries, broken)
+    calls = []
+    names = ("spectral_edge_plain", "spectral_whole_plain", "spectral_forward_plain", "pool_step_spectral_plain")
+    real = {n: getattr(pool, n) for n in names}
+    for n in names:
+        setattr(pool, n, lambda *a, _n=n, **k: calls.append(_n) or real[_n](*a, **k))
+    try:
+        before = pool.EDGE_LAUNCHES
+        pool_step_lcr(hist, t, carries, plan, 1)
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(pool, n, real[n])
+    assert not calls and pool.EDGE_LAUNCHES == before + 1
+
+
 @pytest.mark.parametrize("ola", ["time", "spectral"])
 def test_mesh_pool_on_the_card(cuda, ola):
     # data = 2 over the one card, repeated: the shards run as rows of one
@@ -412,12 +496,15 @@ def test_mesh_pool_on_the_card(cuda, ola):
     plain = CudaStreamPool(cfg, hw, S, device=cuda, ola=ola)
     assert shard.plan.n_streams == S // 2
     count = (lambda: pool.SPECTRAL_LAUNCHES) if ola == "spectral" else (lambda: pool.LAUNCHES)
-    per = pool.spectral_launches_per_bucket if ola == "spectral" else pool.launches_per_bucket
+    if ola == "spectral":
+        per_call = pool.spectral_launches(shard.plan, 1)
+    else:
+        per_call = sum(pool.launches_per_bucket(x.block) for x in shard.plan.buckets)
     blocks = torch.randn((6, 2, S, hw), device=cuda, generator=torch.Generator(cuda).manual_seed(6))
     for b in blocks:
         before = count()
         got = torch.stack(shard.push_blocks(b[0], b[1]))
-        assert count() - before == sum(per(x.block) for x in shard.plan.buckets)
+        assert count() - before == per_call
         assert torch.equal(got, torch.stack(plain.push_blocks(b[0], b[1])))
 
 

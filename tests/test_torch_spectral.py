@@ -29,11 +29,14 @@ from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
 from upmix_tpu_torch.ops import pool
 from upmix_tpu_torch.ops.pool import (
+    EDGE_DEPTH,
+    make_edge_weight,
     make_pool_plan,
     pack_spectral_carry,
     pool_step_lcr,
     pool_step_spectral_plain,
     spectral_lanes,
+    takes_edge_product,
     unpack_spectral_carry,
 )
 from upmix_tpu_torch.serve_stream import StreamServer, stream_client
@@ -394,3 +397,169 @@ def test_spectral_pool_serves_clients():
     for g, r in zip(got, ref):
         assert np.asarray(g).shape == r.shape
         assert snr_db(r, np.asarray(g)) > 80.0
+
+
+# K3s's redesign: the frames a call's output cuts (edge frames) go through
+# a product against the inverse weight, the rest through inverse FFTs.
+# The product's weight against the JAX body's rearranged weight, the
+# three steps' plain versions against the plain step, the routing table.
+
+SERVE_EDGES, SERVE_SR = [0.0, 500.0, 2000.0, 8000.0], 48000.0
+
+
+def _serve_plan(hw, S):
+    cfg = UpmixConfig.streaming(SERVE_EDGES, sr=SERVE_SR, hw_block_size=hw)
+    return make_pool_plan(cfg, hw, S, device="cpu", ola="spectral")
+
+
+@pytest.mark.parametrize("hw", [2048, 8192])
+def test_edge_weight_is_the_jax_window_weight(hw):
+    # The JAX body's weight wq [(Q + Kr - 1) kp, Q H] holds w_inv[k, (r + Kr
+    # - 1 - j) H + tau] at slot j, hop r (pallas_pool.py:193-229), split
+    # into bf16 hi + lo; the port's [B, Kp] holds the same w_inv with each
+    # sample's (re, im) pairs interleaved.  Equal within the bf16 pair's
+    # rounding (2^-17 of the largest weight; 1e-5 here).
+    from upmix_tpu.ops.dftmm import make_direct_plan as jax_direct_plan
+    from upmix_tpu.ops.pallas_pool import _spectral_bucket_fields
+
+    for b in _serve_plan(hw, 1).buckets:
+        aw, sw = b.analysis_window.numpy(), b.synthesis_window.numpy()
+        K, H, Kr = b.kept, b.hop, b.overlap
+        w = make_edge_weight(b.block, b.lo, K, aw, sw)
+        assert w.shape == (b.block, -(-2 * K // EDGE_DEPTH) * EDGE_DEPTH) and w.dtype == np.float32
+        assert not w[:, 2 * K :].any()
+        f = _spectral_bucket_fields(jax_direct_plan(b.block, b.lo, b.lo + K - 1, aw, sw), b.block, H, hw, 2**62,
+                                    n_bins=K)
+        wq = np.asarray(f["wq_hi"], np.float32) + np.asarray(f["wq_lo"], np.float32)
+        kp, Q = f["kp"], f["Q"]
+        assert wq.shape == ((Q + Kr - 1) * kp, Q * H)
+        atol = 1e-5 * float(np.abs(w).max())
+        for j in range(Q + Kr - 1):
+            for r in range(Q):
+                got = wq[j * kp : (j + 1) * kp, r * H : (r + 1) * H]
+                s = r + Kr - 1 - j
+                if not 0 <= s < Kr:
+                    assert not got.any()
+                    continue
+                mine = w[s * H : (s + 1) * H]
+                np.testing.assert_allclose(got[:K], mine[:, 0 : 2 * K : 2].T, rtol=0, atol=atol)
+                np.testing.assert_allclose(got[K : 2 * K], mine[:, 1 : 2 * K : 2].T, rtol=0, atol=atol)
+                assert not got[2 * K :].any()
+
+
+def _edge_by_weight(carries, specs, t, plan, hops):
+    """The edge product as the kernel computes it, in float64: each edge
+    frame's (re, im) pairs against the weight's rows n - vH."""
+    S, N = t.shape[0], hops * plan.hw
+    out = torch.zeros((S, 3, N), dtype=torch.float64)
+    for b, c, x in zip(plan.buckets, carries, specs):
+        edge, _ = b.spectral_frames(hops)
+        if not edge:
+            continue
+        w = torch.as_tensor(make_edge_weight(b.block, b.lo, b.kept, b.analysis_window.numpy(),
+                                             b.synthesis_window.numpy()), dtype=torch.float64)
+        frames = torch.view_as_real(pool._virtual_frames(c, x, t, b, plan.warmup, hops)).flatten(-2)
+        n = b.overlap - 1
+        for v in edge:
+            lo, hi = max(0, v * b.hop), min(N, v * b.hop + b.block)
+            out[..., lo:hi] += frames[:, :, v + n] @ w[lo - v * b.hop : hi - v * b.hop, : 2 * b.kept].T
+    first = (plan.warmup - t.long()).clamp(0, hops) * plan.hw
+    return torch.where((torch.arange(N)[None, :] >= first[:, None])[:, None], out, 0.0)
+
+
+STEP_CASES = {
+    # (edges, config kwargs, hw, hops, t): t mixes streams part-way
+    # through warmup (several first-ready hops at hops 4) with ready ones;
+    # the stream at index 1 carries NaN and is not ready in the whole call
+    # (where Kr = 1 its carry is empty and its second hop ready).
+    "serve_hops1": ((SERVE_EDGES, dict(sr=SERVE_SR), 2048), 1, [1, 2, 3, 4, 5, 9]),
+    "serve_hops4": ((SERVE_EDGES, dict(sr=SERVE_SR), 2048), 4, [1, 0, 2, 3, 4, 7]),
+    "small_hops3": ((EDGES, dict(sr=SR), HW), 3, [1, 0, 2, 3, 4, 7]),
+    "kr1": (([0.0, 1000.0], dict(sr=SR, overlap=0.0, max_block_size=128, synthesis="analysis",
+                                  bin_rounding="cpp")), 2, [1, 0, 1, 2, 3, 4]),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_edge_and_whole_plain_compose_to_the_plain_step(case):
+    # spectral_forward_plain, then spectral_edge_plain + spectral_whole_plain
+    # in float64, equal pool_step_spectral_plain to 1e-10 (outputs and
+    # carries), NaN where it has NaN; the edge product by the weight equals
+    # the edge frames by irfft within the weight's float32 rounding.
+    (edges, kw, *rest), hops, t = STEP_CASES[case]
+    hw = rest[0] if rest else 128
+    if "overlap" in kw:
+        cfg = UpmixConfig.make(edges, **kw)
+    else:
+        cfg = UpmixConfig.streaming(edges, hw_block_size=hw, **kw)
+    S = len(t)
+    plan = make_pool_plan(cfg, hw, S, device="cpu", ola="spectral")
+    assert (plan.warmup == 1) == (case == "kr1")
+    rng = np.random.default_rng(hops + S)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (plan.warmup - 1 + hops) * hw)))
+    t = torch.as_tensor(t, dtype=torch.int32)
+    carries = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64).copy_(
+        torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)))) for b in plan.buckets]
+    for c in carries:
+        c[1] = float("nan")  # stream 1 is not ready in this call
+    ref, ref_new = pool_step_spectral_plain(hist, t, carries, plan, hops)
+    specs, new = pool.spectral_forward_plain(hist, t, carries, plan, hops)
+    edge = pool.spectral_edge_plain(carries, specs, t, plan, hops)
+    out = edge + pool.spectral_whole_plain(carries, specs, t, plan, hops)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(ref).all())
+    assert float((out - ref).abs().max()) <= 1e-10 * max(1.0, float(ref.abs().max()))
+    first = (plan.warmup - t.long()).clamp(0, hops) * hw
+    for s in range(S):  # the hops before a stream's first ready one are exact zeros
+        assert not out[s, :, : int(first[s])].any()
+    assert int(first[1]) == hops * hw or plan.warmup == 1  # stream 1 not ready, but where Kr = 1
+    for r, n, c in zip(ref_new, new, carries):
+        assert r.shape == n.shape and torch.equal(r.isnan(), n.isnan())
+        if r.numel():
+            assert float((r - n).nan_to_num().abs().max()) <= 1e-10 * max(1.0, float(r.nan_to_num().abs().max()))
+            assert bool(n[1].isnan().all())  # stream 1's carry held
+    if any(b.spectral_frames(hops)[0] for b in plan.buckets):
+        clean = [c.nan_to_num() for c in carries]
+        by_weight = _edge_by_weight(clean, specs, t, plan, hops)
+        assert snr_db(pool.spectral_edge_plain(clean, specs, t, plan, hops).numpy(), by_weight.numpy()) > 120.0
+    else:
+        assert not edge.any()
+
+
+def test_edge_routing_table_of_the_serving_config():
+    # Virtual frame v spans [vH, vH + B) of a call's output [0, hops hw):
+    # edge frames reach past an end of it, whole frames lie inside.  The
+    # product takes a bucket whose frames at hops 1 are all edge frames (P
+    # <= Kr - 1: the 8192 and 4096 buckets at hw 2048); the 1024 and 256
+    # buckets keep every frame on the inverse FFTs.
+    def rng(a, b):
+        return tuple(range(a, b))
+
+    want = {
+        1: {8192: (rng(-3, 1), ()), 4096: (rng(-3, 2), ()), 1024: ((), rng(-3, 8)), 256: ((), rng(-3, 32))},
+        4: {8192: ((-3, -2, -1, 1, 2, 3), (0,)), 4096: ((-3, -2, -1, 5, 6, 7), rng(0, 5)),
+            1024: ((), rng(-3, 32)), 256: ((), rng(-3, 128))},
+    }
+    plan = _serve_plan(2048, 4)
+    assert [b.edge_product for b in plan.buckets] == [True, True, False, False]
+    assert all(b.edge_weight is None for b in plan.buckets)  # a CPU plan keeps no weight
+    for hops, table in want.items():
+        assert {b.block: b.spectral_frames(hops) for b in plan.buckets} == table
+    # The geometry alone: edge frames of the 1024 bucket at hops 1.
+    assert pool.edge_frames(1024, 256, 8) == (-3, -2, -1, 5, 6, 7)
+    # 4 forwards, the gather and the product for the two buckets, the
+    # whole frames' inverses
+    assert pool.spectral_launches(plan, 1) == 4 + 2 + 2
+    assert pool.spectral_launches(plan, 4) == 4 + 2 + 4
+    # At hw 8192 the 32768 bucket (over FFT_MAX, P = 1) takes the product;
+    # its forward is two launches.
+    wide = _serve_plan(8192, 1)
+    assert [b.block for b in wide.buckets if b.edge_product] == [32768]
+    assert pool.spectral_launches(wide, 1) == 5 + 2 + 3
+    # A bucket keeping every bin stays on the FFTs (its product would cost
+    # hundreds of times its inverses), as does Kr = 1 (no edge frame).
+    assert not takes_edge_product(16384, 4096, 8193, 4096)
+    assert takes_edge_product(8192, 2048, 107, 2048) and not takes_edge_product(256, 256, 97, 256)
+    one = make_pool_plan(UpmixConfig.streaming([0.0], sr=8000.0, hw_block_size=4096), 4096, 2, device="cpu",
+                         ola="spectral")
+    assert not one.buckets[0].edge_product
+    assert one.buckets[0].spectral_frames(1) == ((), rng(-3, 1))

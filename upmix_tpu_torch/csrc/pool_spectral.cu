@@ -20,27 +20,65 @@
 //     [n - v H] times the synthesis window; the new carry is the last Kr
 //     - 1 virtual frames (the carry as it was when no hop is ready).
 //
-// Design: two launches over fft.cuh's FFTs in shared memory.
+// Design (ops/pool.py states each step's plain version):
 //   1. spectral_forward_kernel, block (group of G frames, stream): window,
 //      packed-stereo FFT and mask (fft.cuh's unpack_mask) of the new
 //      frames into spec [S, 3, F, K] float2, and the new carry: its new
 //      frames from the same values, its older ones copied from the carry.
 //      Over FFT_MAX points the split's wide_forward_kernel (pool.cu's
 //      pool_wide_forward) writes partials and spectral_mask_kernel sums
-//      and masks them into spec and the carry: three launches.
-//   2. spectral_inverse_kernel, one block per stream (as pool.cu's K3):
-//      per G frames, carried then new, in frame order, the Hermitian-packed
-//      inverse FFT of C + i Ls and of the Rs of two frames, then fft.cuh's
-//      FrameOla adds each output sample's frames in frame order.  Every
-//      output element is owned by one block and buckets add in a fixed
-//      order, so the result is deterministic.  Over FFT_MAX points,
+//      and masks them into spec and the carry.
+//   2. The edge product, for the buckets the plan sends to it
+//      (ops/pool.py::takes_edge_product: those whose every frame of a
+//      one-block call is an edge frame, the 8192 and 4096 buckets at hw
+//      2048).  An "edge frame" v, whose span [vH, vH + B) the output [0,
+//      hops * hw) cuts (the Kr - 1 carried frames reaching in from the
+//      left, the last Kr - 1 new ones), adds only a sliver of the output
+//      from K kept bins, so it is no inverse FFT but a product: out[(s,
+//      o), n] = sum over edge frames v and k < 2K of spec_v[(s, o), k] w[n
+//      - vH, k], w the inverse weight (synthesis window and 1/B, 2/B
+//      folded in; ops/pool.py::make_edge_weight) read at each frame's
+//      sample offset, never expanded.  In split precision, bf16x3 or
+//      tf32x3 as K4's rungs (int8_dot.cu): hi + lo of each operand, three
+//      products into float32 sums.  Two launches for up to
+//      EDGE_MAX_BUCKETS buckets:
+//      a. spectral_edge_gather_kernel: each row's edge frames (carried or
+//         new, zeros outside its window) split into hi + lo, [2, 3 S,
+//         n_edge, Kp] (the weight is split once, in the plan);
+//      b. spectral_edge_kernel: block (128 samples, 128 rows (s, o)) runs
+//         the buckets' edge frames that reach its samples, 32 values of
+//         one frame a stage, copied by cp.async into a two-stage ring
+//         (the next stage lands while this one multiplies), on the tensor
+//         cores: mma.sync fed by ldmatrix (bf16) or by 32-bit loads
+//         (tf32), 8 warps of 32 rows x 64 samples, two blocks an SM.
+//      Rows of streams below their first ready hop are written as zeros
+//      by selection, so a NaN in a not-ready carry stays in its row.
+//   3. spectral_inverse_kernel, one block per stream (as pool.cu's K3):
+//      the rest, "whole frames" (inside the output), and every frame of a
+//      bucket the product does not take, G at a time in frame order: the
+//      Hermitian-packed inverse FFT of C + i Ls and of the Rs of two
+//      frames, then fft.cuh's FrameOla adds each output sample's frames in
+//      frame order, onto the product's output.  Over FFT_MAX points,
 //      fft.cuh's wide_inverse_kernel with a SpectralState as its source.
-// What it costs against K3: the carried frames' inverses are done again
-// in every call (Kr - 1 of them a stream and bucket), and the new frames'
-// spectra go through device memory between the launches.  The bytes of
-// the carries fall from 3 B to 6 (Kr - 1) K floats a stream and bucket.
+// Every output element is owned by one block of each launch and added to
+// in a fixed order (the product's buckets, frames and stages in order, no
+// split of the depth, then the whole frames bucket by bucket), so the
+// result is deterministic and does not depend on the other rows of the
+// launch.
+// What bounds it on the H100: the product's operations are 3 x 2 x 2K a
+// sample and frame (5.8e10 FLOP a block at S = 2048, hw 2048, hops 1,
+// where the inverse FFTs it replaces were 1.0e10), but on the tensor
+// cores: it is bound by issuing them (mma.sync, three per product) and
+// by its shared-memory fragment loads; the FFT kernels by their shared-
+// memory passes.  The new spectra and the gathered operand go through
+// device memory between the launches.
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+
+#include <climits>
+#include <cstdint>
 
 #include "fft.cuh"
 
@@ -70,14 +108,15 @@ struct SpectralState {
   __device__ long long lowest(int s) const { return (long long)first_new(s) * H; }
 };
 
-// out [S, 3, hops * hw]: written (zeros first), or added into.
+// out [S, 3, hops * hw]: written (zeros first), or added into, by the
+// frames from v_lo on (the whole frames: 0, or every frame: 1 - Kr).
 struct SpectralSink {
   float* out;
   SpectralState st;
   long long row;
-  int accumulate;
+  int accumulate, v_lo;
 
-  __device__ int first_frame(int s) const { return st.first_new(s) - (st.Kr - 1); }
+  __device__ int first_frame(int s) const { return max(v_lo, st.first_new(s) - (st.Kr - 1)); }
 
   __device__ void init(int s, long long n) const {
     if (accumulate) return;
@@ -118,7 +157,7 @@ __device__ __forceinline__ void store_frame(float2* spec, float2* carry_out, con
   }
 }
 
-// Launch 1.  Block (frame group, stream s): frames f = blockIdx.x * G + g of
+// Step 1.  Block (frame group, stream s): frames f = blockIdx.x * G + g of
 // the history x [S, 2, width]; those of ready hops are windowed, packed,
 // transformed and masked.
 __global__ void __launch_bounds__(FFT_THREADS)
@@ -162,7 +201,7 @@ spectral_forward_kernel(const float* __restrict__ x, long long width, SpectralSt
 
 constexpr int MASK_THREADS = 256;
 
-// Launch 2 of a split bucket's forward: thread (f * K + j, stream s) sums
+// Step 1 of a split bucket, its second launch: thread (f * K + j, stream s) sums
 // the partials part [S, F, groups, 2K] of kept bin j of frame f in a fixed
 // order and masks them (the sums and mask of fft.cuh's PartialSpectra).
 __global__ void __launch_bounds__(MASK_THREADS)
@@ -180,12 +219,12 @@ spectral_mask_kernel(const float2* __restrict__ part, SpectralState st, float2* 
   store_frame(spec, carry_out, st, s, f, j, m);
 }
 
-// The last launch.  Block (hop block, stream s) owns output hops [q0, q0 +
-// T) of the n_hops = F; the frames that reach them, G at a time in frame
-// order: C + i Ls in one transform a frame, the Rs of frames 2t and 2t + 1
-// in transform t.
+// Step 3.  Block (hop block, stream s) owns output hops [q0, q0 +
+// T) of the n_hops = F; the frames in [sink.v_lo, v_hi) that reach them, G
+// at a time in frame order: C + i Ls in one transform a frame, the Rs of
+// frames 2t and 2t + 1 in transform t.
 __global__ void __launch_bounds__(FFT_THREADS)
-spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n_hops, int T, int G) {
+spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n_hops, int T, int G, int v_hi) {
   extern __shared__ float4 smem[];
   float2* buf = reinterpret_cast<float2*>(smem);  // [G * B]
   const int s = blockIdx.y;
@@ -196,7 +235,7 @@ spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n
   for (long long p = p0 + threadIdx.x; p < p1; p += blockDim.x) sink.init(s, p);
   __syncthreads();
   const int f_begin = max(q0 - (B / a.H - 1), sink.first_frame(s));
-  const int f_end = min(q1, st.F);
+  const int f_end = min(q1, v_hi);
   const FrameOla<SpectralSink> ola{buf, sink, a, s, f_begin, f_end, max(p0, st.lowest(s)), p1};
   for (int fb = f_begin; fb < f_end; fb += G) {
     const int nf = min(G, f_end - fb);
@@ -224,6 +263,433 @@ spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n
       ola(pass == 0 ? 0 : 2, fb, nf);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Step 2: the edge product on the tensor cores (the gather, then the product).
+
+constexpr int EDGE_BM = 128;  // rows (s, o) a block
+constexpr int EDGE_BN = 128;  // output samples a block
+constexpr int EDGE_BK = 32;   // depth a stage: 16 kept bins of one frame, (re, im) pairs
+constexpr int EDGE_THREADS = 256;  // 8 warps: 4 down the rows x 2 across the samples, 32 x 64 each
+constexpr int EDGE_STAGES = 2;  // the cp.async ring: two stages, two blocks an SM
+constexpr int EDGE_MAX_BUCKETS = 8;
+constexpr int EDGE_MT = 2;  // 16-row tiles a warp
+constexpr int EDGE_NT = 8;  // 8-sample tiles a warp
+constexpr int GATHER_THREADS = 256;
+enum { RUNG_BF16X3 = 0, RUNG_TF32X3 = 1 };
+
+// Index checks of the product's loads, for a build with -DEDGE_CHECKS
+// (a fault traps where it happens).
+#ifdef EDGE_CHECKS
+#define EDGE_CHECK(c) \
+  do {                \
+    if (!(c)) __trap(); \
+  } while (0)
+#else
+#define EDGE_CHECK(c) ((void)0)
+#endif
+
+// The rung's operand element (bf16, or a tf32 bit pattern in 32 bits) and
+// shared-memory row stride in elements: padded so that a warp's fragment
+// loads of eight rows hit distinct banks, and a whole number of 16 bytes.
+template <int RUNG>
+struct EdgeRung;
+template <>
+struct EdgeRung<RUNG_BF16X3> {
+  using T = __nv_bfloat16;
+  static constexpr int LD = EDGE_BK + 8;
+};
+template <>
+struct EdgeRung<RUNG_TF32X3> {
+  using T = uint32_t;
+  static constexpr int LD = EDGE_BK + 4;
+};
+
+// One stage: [hi, lo] x [A: BM rows | W: BN samples] x LD.
+template <int RUNG>
+__host__ __device__ constexpr int edge_stage_elems() {
+  return 2 * (EDGE_BM + EDGE_BN) * EdgeRung<RUNG>::LD;
+}
+
+template <int RUNG>
+__host__ __device__ constexpr size_t edge_smem_bytes() {
+  return sizeof(typename EdgeRung<RUNG>::T) * EDGE_STAGES * edge_stage_elems<RUNG>();
+}
+
+// One bucket the product takes.  Its edge frames e = 0 .. n_edge - 1 are v
+// = e + 1 - Kr for e < Kr - 1 (reaching in from the left), then v = right
+// + e - (Kr - 1), right = max(0, F - Kr + 1).  a: the gathered split
+// operand [hi, lo][rows][n_edge][Kp] (step 2a writes it); w: the split
+// weight [hi, lo][B][Kp] (sample n's Kp values contiguous, rows 2K .. Kp -
+// 1 zeros; ops/pool.py::split_edge_weight).
+struct EdgeBucket {
+  const void* w;
+  void* a;
+  const float2* carry;  // [S, 3, Kr - 1, K]
+  const float2* spec;   // [S, 3, F, K]
+  int B, H, K, Kp, F, Kr, P, n_edge;
+
+  __device__ int right() const { return max(0, F - Kr + 1); }
+  __device__ int frame(int e) const { return e < Kr - 1 ? e + 1 - Kr : right() + e - (Kr - 1); }
+  __device__ int edge_index(int v) const { return v < 0 ? v + Kr - 1 : Kr - 1 + v - right(); }
+};
+
+struct EdgeArgs {
+  EdgeBucket b[EDGE_MAX_BUCKETS];
+  int nb;
+  const int* t;
+  float* out;  // [rows, N]: written, or added into (accumulate)
+  int rows, N, hw, hops, warmup, accumulate;
+};
+
+__device__ __forceinline__ int first_ready_hop(const EdgeArgs& a, int row) {
+  return min(max(a.warmup - a.t[row / 3], 0), a.hops);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// hi + lo of two values at hi[0..1] and lo[0..1].
+template <int RUNG>
+__device__ __forceinline__ void split_store(float x0, float x1, typename EdgeRung<RUNG>::T* hi,
+                                            typename EdgeRung<RUNG>::T* lo) {
+  if constexpr (RUNG == RUNG_BF16X3) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+    *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  } else {
+    const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
+    *reinterpret_cast<uint2*>(hi) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(lo) = make_uint2(to_tf32(x0 - __uint_as_float(h0)), to_tf32(x1 - __uint_as_float(h1)));
+  }
+}
+
+// Step 2a.  Thread (row, edge frame e, bin pair j) of bucket blockIdx.y:
+// the frame's masked (re, im) of kept bin j, split into hi + lo, at values
+// 2j, 2j + 1 of a; zeros for a frame outside the row's window and for j
+// >= K (a select: nothing else is read).
+template <int RUNG>
+__global__ void __launch_bounds__(GATHER_THREADS)
+spectral_edge_gather_kernel(EdgeArgs a) {
+  using T = typename EdgeRung<RUNG>::T;
+  EdgeBucket e;
+#pragma unroll
+  for (int i = 0; i < EDGE_MAX_BUCKETS; ++i)
+    if (i == (int)blockIdx.y) e = a.b[i];
+  const int half = e.Kp / 2;
+  const long long idx = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (idx >= (long long)a.rows * e.n_edge * half) return;
+  const int j = (int)(idx % half);
+  const int ei = (int)(idx / half % e.n_edge);
+  const int row = (int)(idx / half / e.n_edge);
+  const int v = e.frame(ei);
+  const int f0 = first_ready_hop(a, row) * e.P, nc = e.Kr - 1;
+  float2 val = make_float2(0.f, 0.f);
+  if (j < e.K) {
+    if (v >= f0) {
+      EDGE_CHECK(v < e.F);
+      val = e.spec[((long long)row * e.F + v) * e.K + j];
+    } else if (v >= f0 - nc) {
+      EDGE_CHECK(v - f0 + nc >= 0);
+      val = e.carry[((long long)row * nc + v - f0 + nc) * e.K + j];
+    }
+  }
+  T* base = static_cast<T*>(e.a);
+  const long long at = ((long long)row * e.n_edge + ei) * e.Kp + 2 * j;
+  split_store<RUNG>(val.x, val.y, base + at, base + (long long)a.rows * e.n_edge * e.Kp + at);
+}
+
+// The first edge frame v' >= v of bucket e that reaches samples [n0, n0 +
+// EDGE_BN), or INT_MAX: v' in [1 - Kr, -1] or [right, F - 1], with v' H <
+// n0 + EDGE_BN and v' H + B > n0.
+__device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((b - 1 - a) / b); }
+
+__device__ int next_edge_frame(const EdgeBucket& e, int n0, int v) {
+  const int lo = max(1 - e.Kr, floor_div(n0 - e.B, e.H) + 1);
+  const int hi = min(e.F - 1, floor_div(n0 + EDGE_BN - 1, e.H));
+  v = max(v, lo);
+  if (v >= 0 && v < e.right()) v = e.right();
+  return v <= hi ? v : INT_MAX;
+}
+
+// A stage of the product: bucket bi, edge frame v, values [32 c, 32 c + 32).
+struct EdgeStep {
+  int bi, v, c;
+};
+
+// From (bi, v): the first bucket and edge frame at or after it that reach
+// the block's samples.
+__device__ bool edge_seek(const EdgeBucket* eb, int nb, int n0, EdgeStep& st) {
+  for (; st.bi < nb; ++st.bi, st.v = INT_MIN / 2) {
+    st.v = next_edge_frame(eb[st.bi], n0, st.v);
+    if (st.v != INT_MAX) return true;
+  }
+  return false;
+}
+
+__device__ bool edge_next(const EdgeBucket* eb, int nb, int n0, EdgeStep& st) {
+  if (++st.c < eb[st.bi].Kp / EDGE_BK) return true;
+  st.c = 0;
+  ++st.v;
+  return edge_seek(eb, nb, n0, st);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from src into shared dst, or zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A stage's copies into shared memory: rows m0 .. m0 + BM of a (zeros past
+// the last row) and samples n0 .. n0 + BN of the weight at n - vH (zeros
+// outside the frame and past the output), 32 values each, hi and lo.
+template <int RUNG>
+__device__ __forceinline__ void edge_issue(const EdgeBucket& e, const EdgeStep& st, int m0, int n0,
+                                           const EdgeArgs& a, typename EdgeRung<RUNG>::T* stage) {
+  using T = typename EdgeRung<RUNG>::T;
+  constexpr int LD = EdgeRung<RUNG>::LD;
+  constexpr int CH = EDGE_BK * (int)sizeof(T) / 16;  // 16-byte pieces of a row's 32 values
+  constexpr int PER = 2 * EDGE_BM * CH / EDGE_THREADS;
+  const T* ab = static_cast<const T*>(e.a);
+  const T* wb = static_cast<const T*>(e.w);
+  const long long a_half = (long long)a.rows * e.n_edge * e.Kp, w_half = (long long)e.B * e.Kp;
+  const int ei = e.edge_index(st.v);
+  T* A = stage;
+  T* W = stage + 2 * EDGE_BM * LD;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + i * EDGE_THREADS;  // (hi/lo, row, piece)
+    const int q = idx % CH;
+    const int r = idx / CH % EDGE_BM;
+    const int h = idx / (CH * EDGE_BM);
+    const int row = m0 + r;
+    const bool ok = row < a.rows;
+    const T* src = ab + h * a_half + ((long long)(ok ? row : 0) * e.n_edge + ei) * e.Kp + st.c * EDGE_BK + q * (16 / sizeof(T));
+    cp_async16(A + (h * EDGE_BM + r) * LD + q * (16 / sizeof(T)), src, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + i * EDGE_THREADS;  // (hi/lo, sample, piece)
+    const int q = idx % CH;
+    const int nn = idx / CH % EDGE_BN;
+    const int h = idx / (CH * EDGE_BN);
+    const int n = n0 + nn;
+    const int m = n - st.v * e.H;
+    const bool ok = n < a.N && m >= 0 && m < e.B;
+    EDGE_CHECK(st.c * EDGE_BK + EDGE_BK <= e.Kp);
+    const T* src = wb + h * w_half + (long long)(ok ? m : 0) * e.Kp + st.c * EDGE_BK + q * (16 / sizeof(T));
+    cp_async16(W + (h * EDGE_BN + nn) * LD + q * (16 / sizeof(T)), src, ok);
+  }
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory (PTX ISA,
+// ldmatrix): lane l gives the address of row l % 8 of matrix l / 8 and
+// receives, of each, row l / 4 at values 2 (l % 4), + 1.
+template <typename T>
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], const T* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+template <int RUNG>
+__device__ __forceinline__ void edge_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (RUNG == RUNG_BF16X3) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+        "{%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+        "{%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// The warp's 32 rows x 64 samples of one stage: per k-step (16 values in
+// bf16, 8 in tf32) lo x hi, then hi x lo, then hi x hi into the float32
+// sums, each pass over the warp's 16 tiles, so that consecutive products
+// go to different sums (PTX ISA, mma.m16n8k16 / m16n8k8 fragments: A rows
+// g, g + 8 at values 2t (t), + 8 (+ 4); B sample g at the same values).
+template <int RUNG>
+__device__ __forceinline__ void edge_compute(const typename EdgeRung<RUNG>::T* stage,
+                                             float (&acc)[EDGE_MT][EDGE_NT][4]) {
+  using T = typename EdgeRung<RUNG>::T;
+  constexpr int LD = EdgeRung<RUNG>::LD;
+  constexpr int KS = RUNG == RUNG_BF16X3 ? 16 : 8;  // values a k-step
+  constexpr int V = RUNG == RUNG_BF16X3 ? 2 : 1;    // values a register
+  const T* A = stage;
+  const T* W = stage + 2 * EDGE_BM * LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int ks = 0; ks < EDGE_BK / KS; ++ks) {
+    const int k0 = ks * KS + V * t;
+    uint32_t fa[2][EDGE_MT][4], fb[2][EDGE_NT][2];  // [hi, lo]
+    if constexpr (RUNG == RUNG_BF16X3) {
+      // ldmatrix.x4: lane l addresses row l % 8 of 8 x 8 matrix l / 8; A's
+      // four are rows +0 / +8 at values +0 / +8 (a0..a3), W's the samples
+      // of two 8-wide tiles at values +0 / +8 (b0, b1 of each).
+      const int mi = lane >> 3, ri = lane & 7;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int mt = 0; mt < EDGE_MT; ++mt) {
+          const int row = h * EDGE_BM + wm * 32 + mt * 16 + (mi & 1) * 8 + ri;
+          ldmatrix4(fa[h][mt], A + row * LD + ks * KS + (mi >> 1) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < EDGE_NT / 2; ++np) {
+          const int nn = h * EDGE_BN + wn * 64 + np * 16 + (mi >> 1) * 8 + ri;
+          uint32_t r[4];
+          ldmatrix4(r, W + nn * LD + ks * KS + (mi & 1) * 8);
+          fb[h][2 * np][0] = r[0];
+          fb[h][2 * np][1] = r[1];
+          fb[h][2 * np + 1][0] = r[2];
+          fb[h][2 * np + 1][1] = r[3];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int mt = 0; mt < EDGE_MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = h * EDGE_BM + wm * 32 + mt * 16 + g + 8 * (r & 1);
+            fa[h][mt][r] = *reinterpret_cast<const uint32_t*>(A + row * LD + k0 + (KS / 2) * (r >> 1));
+          }
+#pragma unroll
+        for (int nt = 0; nt < EDGE_NT; ++nt) {
+          const int nn = h * EDGE_BN + wn * 64 + nt * 8 + g;
+          fb[h][nt][0] = *reinterpret_cast<const uint32_t*>(W + nn * LD + k0);
+          fb[h][nt][1] = *reinterpret_cast<const uint32_t*>(W + nn * LD + k0 + KS / 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const int ha = pass == 0 ? 1 : 0, hb = pass == 1 ? 1 : 0;  // lo x hi, hi x lo, hi x hi
+#pragma unroll
+      for (int nt = 0; nt < EDGE_NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < EDGE_MT; ++mt) edge_mma<RUNG>(acc[mt][nt], fa[ha][mt], fb[hb][nt][0], fb[hb][nt][1]);
+    }
+  }
+}
+
+
+// Step 2b.  Block (samples [n0, n0 + BN), rows [m0, m0 + BM)): the
+// buckets' edge frames that reach its samples, a stage at a time through
+// a ring of EDGE_STAGES copies in flight; then each sum written (or
+// added) at or above its stream's first ready position, zeros below.
+template <int RUNG>
+__global__ void __launch_bounds__(EDGE_THREADS, 2)
+spectral_edge_kernel(EdgeArgs a) {
+  using T = typename EdgeRung<RUNG>::T;
+  constexpr int STAGE = edge_stage_elems<RUNG>();
+  extern __shared__ float4 smem[];
+  T* stages = reinterpret_cast<T*>(smem);
+  __shared__ EdgeBucket eb[EDGE_MAX_BUCKETS];
+#pragma unroll
+  for (int i = 0; i < EDGE_MAX_BUCKETS; ++i)
+    if (threadIdx.x == i && i < a.nb) eb[i] = a.b[i];
+  __syncthreads();
+  const int n0 = blockIdx.x * EDGE_BN, m0 = blockIdx.y * EDGE_BM;
+  float acc[EDGE_MT][EDGE_NT][4];
+#pragma unroll
+  for (int mt = 0; mt < EDGE_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < EDGE_NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+  EdgeStep ld{0, INT_MIN / 2, 0};
+  bool more = edge_seek(eb, a.nb, n0, ld);
+  int issued = 0;
+#pragma unroll
+  for (int s = 0; s < EDGE_STAGES - 1; ++s) {
+    if (more) {
+      edge_issue<RUNG>(eb[ld.bi], ld, m0, n0, a, stages + s * STAGE);
+      ++issued;
+      more = edge_next(eb, a.nb, n0, ld);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < issued; ++i) {
+    cp_async_wait<EDGE_STAGES - 2>();
+    __syncthreads();
+    if (more) {
+      edge_issue<RUNG>(eb[ld.bi], ld, m0, n0, a, stages + (issued % EDGE_STAGES) * STAGE);
+      ++issued;
+      more = edge_next(eb, a.nb, n0, ld);
+    }
+    cp_async_commit();
+    edge_compute<RUNG>(stages + (i % EDGE_STAGES) * STAGE, acc);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int mt = 0; mt < EDGE_MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 32 + mt * 16 + g + 8 * h;
+      if (row >= a.rows) continue;
+      const int first = first_ready_hop(a, row) * a.hw;
+      float* out = a.out + (long long)row * a.N;
+#pragma unroll
+      for (int nt = 0; nt < EDGE_NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = n0 + wn * 64 + nt * 8 + 2 * t + c;
+          if (n >= a.N) continue;
+          const float v = acc[mt][nt][2 * h + c];
+          if (a.accumulate) {
+            if (n >= first) out[n] += v;
+          } else {
+            out[n] = n >= first ? v : 0.f;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int RUNG>
+int launch_edge_gather(const EdgeArgs& a, void* stream) {
+  long long most = 0;
+  for (int i = 0; i < a.nb; ++i) most = max(most, (long long)a.rows * a.b[i].n_edge * (a.b[i].Kp / 2));
+  const dim3 grid((unsigned)((most + GATHER_THREADS - 1) / GATHER_THREADS), a.nb, 1);
+  spectral_edge_gather_kernel<RUNG><<<grid, GATHER_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int RUNG>
+int launch_edge(const EdgeArgs& a, void* stream) {
+  constexpr size_t smem = edge_smem_bytes<RUNG>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(spectral_edge_kernel<RUNG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.N + EDGE_BN - 1) / EDGE_BN, (a.rows + EDGE_BM - 1) / EDGE_BM, 1);
+  spectral_edge_kernel<RUNG><<<grid, EDGE_THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 SpectralState spectral_state(const float* carry, const float* spec, const int* t, int F, int K, int B, int H, int hw,
@@ -269,37 +735,82 @@ int pool_spectral_mask(const float* part, const int* t, const float* carry, floa
   return (int)cudaGetLastError();
 }
 
-// out: [S, 3, hops * hw], written (accumulate = 0) or added into; one
-// block per stream.
+// The edge product of nb <= EDGE_MAX_BUCKETS buckets, in two launches:
+// pool_spectral_edge_gather (stage 0), then pool_spectral_edge (stage 1),
+// with the same arguments.  w: their split weights [2, B, Kp]; abuf: the
+// gathered operands [2, 3 S, n_edge, Kp] (both in the rung's element);
+// carry, spec: their states (as pool_spectral_forward's); geo[5 i ..] = B,
+// H, K, Kp, n_edge of bucket i; out [S, 3, hops * hw] written (accumulate
+// = 0) or added into; rung 0 bf16x3, 1 tf32x3.
+static int edge_launch(int stage, const void* const* w, void* const* abuf, const float* const* carry,
+                       const float* const* spec, const int* geo, int nb, const int* t, float* out, int S, int hw,
+                       int hops, int warmup, int accumulate, int rung, void* stream) {
+  if (nb < 1 || nb > EDGE_MAX_BUCKETS || (rung != RUNG_BF16X3 && rung != RUNG_TF32X3)) return (int)cudaErrorInvalidValue;
+  EdgeArgs a{};
+  for (int i = 0; i < nb; ++i) {
+    const int B = geo[5 * i], H = geo[5 * i + 1], K = geo[5 * i + 2], Kp = geo[5 * i + 3], n_edge = geo[5 * i + 4];
+    if (H <= 0 || B % H || hw % H || Kp % EDGE_BK || Kp < 2 * K || n_edge < 1) return (int)cudaErrorInvalidValue;
+    a.b[i] = EdgeBucket{w[i], abuf[i], reinterpret_cast<const float2*>(carry[i]),
+                        reinterpret_cast<const float2*>(spec[i]), B, H, K, Kp, hops * (hw / H), B / H, hw / H, n_edge};
+  }
+  a.nb = nb;
+  a.t = t;
+  a.out = out;
+  a.rows = 3 * S;
+  a.N = hops * hw;
+  a.hw = hw;
+  a.hops = hops;
+  a.warmup = warmup;
+  a.accumulate = accumulate;
+  if (stage == 0) return rung == RUNG_BF16X3 ? launch_edge_gather<RUNG_BF16X3>(a, stream)
+                                             : launch_edge_gather<RUNG_TF32X3>(a, stream);
+  return rung == RUNG_BF16X3 ? launch_edge<RUNG_BF16X3>(a, stream) : launch_edge<RUNG_TF32X3>(a, stream);
+}
+
+int pool_spectral_edge_gather(const void* const* w, void* const* abuf, const float* const* carry,
+                              const float* const* spec, const int* geo, int nb, const int* t, float* out, int S,
+                              int hw, int hops, int warmup, int accumulate, int rung, void* stream) {
+  return edge_launch(0, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, rung, stream);
+}
+
+int pool_spectral_edge(const void* const* w, void* const* abuf, const float* const* carry, const float* const* spec,
+                       const int* geo, int nb, const int* t, float* out, int S, int hw, int hops, int warmup,
+                       int accumulate, int rung, void* stream) {
+  return edge_launch(1, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, rung, stream);
+}
+
+// out: [S, 3, hops * hw], written (accumulate = 0) or added into by the
+// frames [v_lo, v_hi); one block per stream.
 int pool_spectral_inverse(const float* carry, const float* spec, const int* t, float* out, const float* sw,
                           const float* tw, int S, int B, int H, int K, int lo, int hw, int hops, int warmup, int G,
-                          int accumulate, void* stream) {
+                          int v_lo, int v_hi, int accumulate, void* stream) {
   const int F = hops * (hw / H);
   const SpectralState st = spectral_state(carry, spec, t, F, K, B, H, hw, hops, warmup);
-  const SpectralSink sink{out, st, (long long)hops * hw, accumulate};
+  const SpectralSink sink{out, st, (long long)hops * hw, accumulate, v_lo};
   const BucketArgs a = bucket_args(nullptr, sw, nullptr, tw, B, H, K, lo, 0);
   const size_t smem = sizeof(float2) * (size_t)G * B;
   const cudaError_t err =
       cudaFuncSetAttribute(spectral_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(1, S, 1);
-  spectral_inverse_kernel<<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(st, sink, a, F, F, G);
+  spectral_inverse_kernel<<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(st, sink, a, F, F, G, v_hi);
   return (int)cudaGetLastError();
 }
 
 // The same for a split bucket (B > FFT_MAX): fft.cuh's wide_inverse_kernel
-// on the stored spectra, one hop block per stream.
+// on the stored spectra, one hop block per stream (its frame count
+// argument bounds the frames it adds: v_hi).
 int pool_spectral_wide_inverse(const float* carry, const float* spec, const int* t, float* out, const float* sw,
                                const float* tw1, const float* stage2, const int* rows, const int* row_ptr,
                                const int* entries, const int* tile_ptr, int n_tiles, int kt, int S, int B, int H,
-                               int K, int lo, int n1, int cols, int hw, int hops, int warmup, int accumulate,
-                               void* stream) {
+                               int K, int lo, int n1, int cols, int hw, int hops, int warmup, int v_lo, int v_hi,
+                               int accumulate, void* stream) {
   const int F = hops * (hw / H);
   const SpectralState st = spectral_state(carry, spec, t, F, K, B, H, hw, hops, warmup);
-  const SpectralSink sink{out, st, (long long)hops * hw, accumulate};
+  const SpectralSink sink{out, st, (long long)hops * hw, accumulate, v_lo};
   const WideArgs w{reinterpret_cast<const float2*>(tw1), reinterpret_cast<const float2*>(stage2),
                    rows, row_ptr, entries, tile_ptr, n1, cols, n_tiles, kt};
-  return launch_wide_inverse_from(st, sink, bucket_args(nullptr, sw, nullptr, tw1, B, H, K, lo, 0), w, S, F, F, F,
+  return launch_wide_inverse_from(st, sink, bucket_args(nullptr, sw, nullptr, tw1, B, H, K, lo, 0), w, S, v_hi, F, F,
                                   stream);
 }
 

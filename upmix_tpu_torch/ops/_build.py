@@ -26,7 +26,7 @@ HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -100,8 +100,10 @@ def load() -> ctypes.CDLL:
     lib.pool_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     lib.pool_spectral_forward.argtypes = [p] * 8 + [i] * 10 + [ll, p]
     lib.pool_spectral_mask.argtypes = [p] * 6 + [i] * 10 + [p]
-    lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 10 + [p]
-    lib.pool_spectral_wide_inverse.argtypes = [p] * 11 + [i] * 13 + [p]
+    lib.pool_spectral_edge_gather.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+    lib.pool_spectral_edge.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+    lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 12 + [p]
+    lib.pool_spectral_wide_inverse.argtypes = [p] * 11 + [i] * 15 + [p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
     lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.dot_chain_clusters.argtypes = [i, i, i]
@@ -110,7 +112,8 @@ def load() -> ctypes.CDLL:
     lib.empty_launch.argtypes = [i, i, p]
     for fn in (lib.omni_bucket, lib.omni_wide_forward, lib.omni_wide_inverse, lib.pool_bucket,
                lib.pool_wide_forward, lib.pool_wide_inverse, lib.pool_spectral_forward, lib.pool_spectral_mask,
-               lib.pool_spectral_inverse, lib.pool_spectral_wide_inverse, lib.pool_floor,
+               lib.pool_spectral_edge_gather, lib.pool_spectral_edge, lib.pool_spectral_inverse,
+               lib.pool_spectral_wide_inverse, lib.pool_floor,
                lib.dot_chain, lib.dot_chain_clusters, lib.dot_chain_resident, lib.overhead_probe, lib.empty_launch):
         fn.restype = ctypes.c_int
     _lib = lib

@@ -39,32 +39,56 @@ bucket over `fftplan.FFT_MAX` points (the two-stage split; from a
 hardware block of 8192 samples at the streaming configs' 4 x hw cap;
 `launches_per_bucket`).  On a CPU tensor it runs `pool_step_lcr_plain`
 (torch.fft).  A spectral plan on a CUDA tensor launches
-`csrc/pool_spectral.cu`'s kernels (K3s): the new frames' forward FFTs and
-mask into [S, 3, F, K] spectra and the new carry, then per stream the
-inverse FFTs of every frame that reaches the output, carried or new, in
-frame order (`spectral_launches_per_bucket`: 2, or 3 for a bucket over
-FFT_MAX points, whose forward is the split's).  On a CPU tensor it runs
-`pool_step_spectral_plain`.  There is no fallback between the kernels and
-the plain versions, nor between the two dataflows.
+`csrc/pool_spectral.cu`'s kernels (K3s), in three steps:
+
+  1. `spectral_forward`: per bucket the new frames' forward FFTs and
+     mask into [S, 3, F, K] spectra and the new carry (the split's
+     forward and a mask pass for a bucket over FFT_MAX points);
+  2. `spectral_edge`: the frames whose span [vH, vH + B) the call's
+     output [0, hops * hw) cuts ("edge frames", `PoolBucket.
+     spectral_frames`) reach only a sliver of it, so they go through a
+     product on the tensor cores: out[(s, o), n] = sum over edge frames v
+     and the 2K (re, im) values k of spec_v[(s, o), k] w[n - vH, k], w the
+     inverse weight with the synthesis window and the 1/B, 2/B scales
+     folded in (`make_edge_weight`, from `dftmm.make_direct_plan`: the
+     weight the JAX body rearranges into its `wq`), in split precision
+     (`split_edge_weight`, EDGE_RUNG); a gather launch splits the frames'
+     spectra, then one product launch takes every such bucket;
+  3. `spectral_whole`: the rest ("whole frames", inside the window) by
+     the inverse FFTs, per stream in frame order, added after the product.
+
+Which buckets' edge frames the product takes is decided when the plan
+is built (`takes_edge_product`): those whose every frame of a one-block
+call is an edge frame, so the product spares them their inverse-FFT
+launch; a bucket it does not take sends every frame to the FFTs.
+`spectral_launches` counts the launches of a call.  On a CPU tensor a
+spectral plan runs `pool_step_spectral_plain`; the three steps' plain
+versions (`spectral_forward_plain`, `spectral_edge_plain`,
+`spectral_whole_plain`) compose to it.  There is no fallback between the
+kernels and the plain versions, nor between the two dataflows.
 
 What the TPU plan needed only for Mosaic has no counterpart: no group of
 streams per grid step (so no n_streams % group rule), no 8 MB bound on
-the baked weights, no bf16 hi/lo pairs, no quarter refs; for the
-spectral OLA no lane padding of the spectra, no Q hops a product and no
-rearranged inverse weight.  The plan declines only what the function
+the baked weights, no quarter refs; for the spectral OLA no lane padding
+of the spectra, no Q hops a product and no rearranged inverse weight:
+the edge product reads its weight's rows at each frame's offset.  Its
+bf16 (or tf32) hi/lo split is the H100's choice of precision for the
+tensor cores, as the TPU's was for its matrix unit.  The plan declines only what the function
 cannot do: a hop that does not divide hw or its block, or mixed
 block/hop ratios.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import ctypes
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
+from upmix_tpu_torch.ops.dftmm import make_direct_plan
 from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
@@ -78,19 +102,28 @@ from upmix_tpu_torch.ops.omnibus import (
 
 # CUDA kernel launches made by pool_step_lcr: LAUNCHES by a time plan
 # (K3, launches_per_bucket each), SPECTRAL_LAUNCHES by a spectral plan
-# (K3s, spectral_launches_per_bucket each).
+# (K3s, spectral_launches a call), of which EDGE_LAUNCHES are the edge
+# product's.
 LAUNCHES = 0
 SPECTRAL_LAUNCHES = 0
+EDGE_LAUNCHES = 0
 
 OLA_MODES = ("time", "spectral")
 SPECTRAL_LANES = 128  # the JAX package's packed spectra: 2K rounded up to this
 
-
-def spectral_launches_per_bucket(block: int) -> int:
-    """Launches of one spectral bucket: the forward and mask, then the
-    inverse; a block over FFT_MAX points takes the split's forward, a mask
-    pass and the split's inverse."""
-    return 2 if block <= FFT_MAX else 3
+# The edge product (csrc/pool_spectral.cu, spectral_edge_kernel): its
+# split-precision rungs, the one a plan's weights are split for (the
+# faster of those that hold 80 dB against float64 in every bucket on the
+# card; PERF.md), the buckets one launch takes, and the depth its weight
+# is padded to (one stage of the kernel: 16 kept bins, re and im).
+EDGE_RUNGS = ("bf16x3", "tf32x3")
+EDGE_RUNG = "bf16x3"
+EDGE_MAX_BUCKETS = 8
+EDGE_DEPTH = 32
+# The product's tensor-core rate over the inverse FFTs' rate that
+# `takes_edge_product` assumes (its three products at about 250 TFLOP/s,
+# the FFTs at 3-7 TFLOP/s on an H100; PERF.md).
+EDGE_RATE_RATIO = 48
 
 
 def spectral_pass(block: int) -> int:
@@ -99,13 +132,103 @@ def spectral_pass(block: int) -> int:
     return max(1, FRAME_TILE // block)
 
 
+def edge_frames(block: int, hop: int, frames: int) -> tuple:
+    """The virtual frames v of a call of `frames` new frames (frame v spans
+    [v hop, v hop + block) of the output, which is [0, frames * hop)) whose
+    span the output window cuts: the Kr - 1 carried frames that reach in
+    from the left, v < 0, and the last Kr - 1, v > frames - Kr."""
+    Kr = block // hop
+    return tuple(v for v in range(1 - Kr, frames) if v < 0 or v > frames - Kr)
+
+
+def takes_edge_product(block: int, hop: int, kept: int, hw: int) -> bool:
+    """Whether a spectral plan sends this bucket's edge frames to the
+    tensor-core product, decided from its geometry: frames overlap (Kr >
+    1); every frame of a call of one hardware block is an edge frame (P <=
+    Kr - 1), so that the product spares the bucket its inverse-FFT launch
+    (where whole frames remain, that launch runs anyway and the card
+    measured the product slower: PERF.md); and the product's work (3
+    outputs x 3 split products x 2 FLOP x 2K values for each sample an
+    edge frame reaches) at EDGE_RATE_RATIO times the FFTs' rate costs no
+    more than those frames' inverse FFTs (1.5 complex transforms of B
+    points a frame, 5 B log2 B FLOP each), which keeps a bucket that
+    keeps most of its bins (a wide K) on the FFTs."""
+    Kr, P = block // hop, hw // hop
+    if Kr < 2 or P > Kr - 1:
+        return False
+    edge = edge_frames(block, hop, P)
+    reach = sum(min(hw, v * hop + block) - max(0, v * hop) for v in edge)
+    product = 36.0 * kept * reach
+    return bool(product <= EDGE_RATE_RATIO * len(edge) * 7.5 * block * np.log2(block))
+
+
+def make_edge_weight(block: int, lo: int, kept: int, analysis_window, synthesis_window) -> np.ndarray:
+    """The edge product's weight [B, Kp] float32: w[n, 2j + c] = w_inv[c K
+    + j, n] of `dftmm.make_direct_plan` (c = 0 the real, 1 the imaginary
+    part of kept bin lo + j; the synthesis window and the 1/B, 2/B scales
+    folded in), so a frame's (re, im) pairs as the spectra store them meet
+    their rows, each sample's column contiguous; rows 2K .. Kp - 1 are
+    zeros, Kp = 2K rounded up to EDGE_DEPTH."""
+    w_inv = make_direct_plan(block, lo, lo + kept - 1, analysis_window, synthesis_window).w_inv
+    out = np.zeros((block, -(-2 * kept // EDGE_DEPTH) * EDGE_DEPTH), np.float32)
+    out[:, 0 : 2 * kept : 2] = w_inv[:kept].T
+    out[:, 1 : 2 * kept : 2] = w_inv[kept:].T
+    return out
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 -> tf32 bit patterns (int32), rounded to nearest with ties
+    away from zero, as the card's cvt.rna.tf32.f32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.int32)
+
+
+def split_edge_weight(w: np.ndarray, rung: str = EDGE_RUNG) -> torch.Tensor:
+    """The edge weight split for the product's `rung`: [2, B, Kp], hi then
+    lo (hi + lo = w to within the lo's rounding), bf16 for "bf16x3" and
+    tf32 bit patterns (int32) for "tf32x3"; the product splits its other
+    operand the same way on the card."""
+    if rung not in EDGE_RUNGS:
+        raise ValueError(f"unknown edge rung {rung!r}; one of {EDGE_RUNGS}")
+    w = np.ascontiguousarray(w, np.float32)
+    if rung == "bf16x3":
+        wt = torch.from_numpy(w)
+        hi = wt.to(torch.bfloat16)
+        return torch.stack([hi, (wt - hi.float()).to(torch.bfloat16)])
+    hi = _tf32(w)
+    return torch.from_numpy(np.stack([hi, _tf32(w - hi.view(np.float32))]))
+
+
+def edge_rung(bucket) -> str:
+    """The rung a bucket's split edge weight is for."""
+    return "bf16x3" if bucket.edge_weight.dtype == torch.bfloat16 else "tf32x3"
+
+
+def edge_rung_plan(plan, rung: str, every_bucket: bool = False):
+    """The plan with its edge weights split for `rung`, and with
+    `every_bucket` every bucket whose frames overlap (Kr > 1) sent to the
+    product: for holding the rungs, and the product on any geometry,
+    against their plain versions and timing them."""
+    buckets = []
+    for b in plan.buckets:
+        if b.edge_product or (every_bucket and b.overlap > 1):
+            w = make_edge_weight(b.block, b.lo, b.kept, b.analysis_window.cpu().numpy(),
+                                 b.synthesis_window.cpu().numpy())
+            b = replace(b, edge_product=True,
+                        edge_weight=split_edge_weight(w, rung).to(b.analysis_window.device))
+        buckets.append(b)
+    return replace(plan, buckets=tuple(buckets))
+
+
 @dataclass(frozen=True, eq=False)
 class PoolBucket:
     """One live bucket on its device: geometry, windows, kept-bin gains
     and the FFT kernels' tables.  A plan built for the CPU's plain
     version leaves out the tables of a block over FFT_MAX (`twiddles` and
     `wide` None), as `omnibus.make_bucket` does: the plain version runs
-    any block."""
+    any block.  A spectral plan's bucket whose edge frames the product
+    takes (`edge_product`) carries the product's weight on a CUDA device
+    (`edge_weight`, `make_edge_weight`); the plain versions need none."""
 
     block: int
     hop: int
@@ -116,6 +239,8 @@ class PoolBucket:
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
     twiddles: torch.Tensor | None  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when split)
     wide: WideTables | None  # the two-stage split, for B > FFT_MAX
+    edge_product: bool = False  # spectral: the edge frames go to the product, else every frame to the FFTs
+    edge_weight: torch.Tensor | None = None  # [2, B, Kp] split (split_edge_weight), a CUDA plan's
 
     @property
     def kept(self) -> int:
@@ -129,6 +254,16 @@ class PoolBucket:
     def spectral_carry_shape(self, rows: int) -> tuple:
         """A spectral carry: the masked spectra of the last Kr - 1 frames."""
         return (rows, 3, self.overlap - 1, self.kept, 2)
+
+    def spectral_frames(self, hops: int) -> tuple:
+        """(edge, whole): the virtual frames of a spectral call of `hops`
+        hardware blocks that the edge product takes, and those the inverse
+        FFTs take (frames -(Kr - 1) .. hops * P - 1; `edge_frames`)."""
+        frames = tuple(range(1 - self.overlap, hops * self.passes))
+        if not self.edge_product:
+            return (), frames
+        edge = edge_frames(self.block, self.hop, hops * self.passes)
+        return edge, tuple(v for v in frames if v not in edge)
 
 
 @dataclass(frozen=True, eq=False)
@@ -169,6 +304,11 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
         if not len(nz):
             continue  # a dead bucket contributes nothing
         lo, hi = int(nz[0]), int(nz[-1])
+        edge = ola == "spectral" and takes_edge_product(p.block_size, p.hop_size, hi - lo + 1, hw)
+        weight = None
+        if edge and device.type == "cuda":
+            weight = split_edge_weight(make_edge_weight(p.block_size, lo, hi - lo + 1, p.analysis_window,
+                                                        p.synthesis_window)).to(device)
         wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device) if device.type == "cuda" else None
         n_fft = p.block_size if p.block_size <= FFT_MAX else (wide.n1 if wide is not None else 0)
         buckets.append(
@@ -182,6 +322,8 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
                 gains=dev(p.gains[:, lo : hi + 1]),
                 twiddles=dev(pass_twiddles(n_fft)) if n_fft else None,
                 wide=wide,
+                edge_product=edge,
+                edge_weight=weight,
             )
         )
     if not buckets:
@@ -353,46 +495,82 @@ def pool_step_lcr_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: Pool
     return out, tuple(new)
 
 
+def spectral_launches(plan: PoolPlan, hops: int) -> int:
+    """Kernel launches of one spectral call (K3s): per bucket its forward
+    (two over FFT_MAX points: the split's forward and a mask pass), the
+    edge product's gather and product for every EDGE_MAX_BUCKETS buckets
+    it takes, and per bucket with whole frames their inverse FFTs."""
+    routes = [b.spectral_frames(hops) for b in plan.buckets]
+    edge = sum(1 for e, _ in routes if e)
+    return (sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * -(-edge // EDGE_MAX_BUCKETS)
+            + sum(1 for _, w in routes if w))
+
+
 def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    _check_inputs(hist, t, carries, plan, hops)
+    _check_cuda_inputs(hist, carries, plan)
+    t32 = t.to(device=hist.device, dtype=torch.int32).contiguous()
+    specs, new = spectral_forward(hist, t32, carries, plan, hops)
+    out = None
+    if any(b.spectral_frames(hops)[0] for b in plan.buckets):
+        out = spectral_edge(carries, specs, t32, plan, hops)
+    return spectral_whole(carries, specs, t32, plan, hops, out), new
+
+
+def _check_spectral_state(carries, specs, t, plan: PoolPlan, hops: int) -> None:
+    if len(carries) != len(plan.buckets) or len(specs) != len(plan.buckets):
+        raise ValueError(f"expected {len(plan.buckets)} bucket carries and spectra")
+    S = t.shape[0]
+    for b, c, x in zip(plan.buckets, carries, specs):
+        want = (S, 3, hops * b.passes, b.kept, 2)
+        if tuple(c.shape) != b.spectral_carry_shape(S) or tuple(x.shape) != want:
+            raise ValueError(f"expected carry {list(b.spectral_carry_shape(S))} and spectra {list(want)}, "
+                             f"got {tuple(c.shape)} and {tuple(x.shape)}")
+    if t.device.type == "cuda":
+        dev = t.device
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("the spectral kernels take t as contiguous int32")
+        if any(x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev for x in (*carries, *specs)):
+            raise ValueError("the spectral kernels take contiguous float32 carries and spectra on t's device")
+
+
+def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
+    """Step 1 of K3s: (spectra, new carries), per bucket the masked spectra
+    [S, 3, F, K, 2] of this call's frames (those of not-ready hops left
+    unwritten on the card) and the new carry.  t int32 on hist's device.
+    A CPU tensor runs `spectral_forward_plain`."""
+    if hist.device.type == "cpu":
+        return spectral_forward_plain(hist, t, carries, plan, hops)
     from upmix_tpu_torch.ops import _build
 
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
-    dev = hist.device
+    if t.dtype != torch.int32 or not t.is_contiguous() or t.device != hist.device:
+        raise ValueError("the spectral kernels take t as contiguous int32 on the history's device")
     lib = _build.load()
     S, _, width = hist.shape
-    hw, nq = plan.hw, plan.warmup
-    t32 = t.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
+    dev, hw, nq = hist.device, plan.hw, plan.warmup
     stream = torch.cuda.current_stream(dev).cuda_stream
-    new = []
-    for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
+    specs, new = [], []
+    for b, carry in zip(plan.buckets, carries):
         B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
         F = hops * b.passes
         spec = torch.empty((S, 3, F, K, 2), dtype=torch.float32, device=dev)
         carry_out = torch.empty_like(carry)
         state = (carry.data_ptr(), spec.data_ptr(), carry_out.data_ptr())
         if w is None:
-            G = spectral_pass(B)
             _launched_spectral(
                 lib.pool_spectral_forward(
-                    hist.data_ptr(), t32.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
-                    b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, G, width, stream,
+                    hist.data_ptr(), t.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
+                    b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, spectral_pass(B), width, stream,
                 ),
                 "pool_spectral_forward",
-            )
-            _launched_spectral(
-                lib.pool_spectral_inverse(
-                    carry.data_ptr(), spec.data_ptr(), t32.data_ptr(), out.data_ptr(), b.synthesis_window.data_ptr(),
-                    b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq, G, int(i > 0), stream,
-                ),
-                "pool_spectral_inverse",
             )
         else:
             part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
             _launched_spectral(
                 lib.pool_wide_forward(
-                    hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+                    hist.data_ptr(), t.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
                     b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
                     width, stream,
                 ),
@@ -400,22 +578,210 @@ def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
             )
             _launched_spectral(
                 lib.pool_spectral_mask(
-                    part.data_ptr(), t32.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
+                    part.data_ptr(), t.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
                     hw, hops, nq, stream,
                 ),
                 "pool_spectral_mask",
             )
+        specs.append(spec)
+        new.append(carry_out)
+    return tuple(specs), tuple(new)
+
+
+def spectral_edge(carries, specs, t, plan: PoolPlan, hops: int = 1):
+    """Step 2 of K3s: out [S, 3, hops * hw], the edge frames of every
+    bucket the product takes, summed (zeros below each stream's first
+    ready hop, by selection).  On the card, for every EDGE_MAX_BUCKETS
+    such buckets, two launches: a gather of their edge frames' spectra,
+    split as the weights are (the rung of the plan's split weights,
+    `edge_rung`), then `spectral_edge_kernel`; a CPU tensor runs
+    `spectral_edge_plain`."""
+    if t.device.type == "cpu":
+        return spectral_edge_plain(carries, specs, t, plan, hops)
+    from upmix_tpu_torch.ops import _build
+
+    _check_spectral_state(carries, specs, t, plan, hops)
+    takes = [i for i, b in enumerate(plan.buckets) if b.spectral_frames(hops)[0]]
+    if not takes:
+        raise ValueError("no bucket of this plan sends frames to the edge product")
+    S, hw = t.shape[0], plan.hw
+    for i in takes:
+        b = plan.buckets[i]
+        w = b.edge_weight
+        if (w is None or w.device != t.device or w.dtype not in (torch.bfloat16, torch.int32) or not w.is_contiguous()
+                or tuple(w.shape) != (2, b.block, -(-2 * b.kept // EDGE_DEPTH) * EDGE_DEPTH)):
+            raise ValueError("the edge product takes its split weight [2, B, Kp] on t's device "
+                             "(make_pool_plan builds it for a CUDA device)")
+    rungs = {edge_rung(plan.buckets[i]) for i in takes}
+    if len(rungs) != 1:
+        raise ValueError(f"the plan's edge weights are split for several rungs: {sorted(rungs)}")
+    rung = rungs.pop()
+    lib = _build.load()
+    out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=t.device)
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    for g in range(0, len(takes), EDGE_MAX_BUCKETS):
+        group = [plan.buckets[i] for i in takes[g : g + EDGE_MAX_BUCKETS]]
+        n = len(group)
+        edge = [len(b.spectral_frames(hops)[0]) for b in group]
+        gathered = [torch.empty((2, 3 * S, e, b.edge_weight.shape[2]), dtype=b.edge_weight.dtype, device=t.device)
+                    for b, e in zip(group, edge)]
+        ptrs = [(ctypes.c_void_p * n)(*[x.data_ptr() for x in xs]) for xs in (
+            [b.edge_weight for b in group], gathered, [carries[i] for i in takes[g : g + n]],
+            [specs[i] for i in takes[g : g + n]])]
+        geo = (ctypes.c_int * (5 * n))(*[v for b, e in zip(group, edge)
+                                         for v in (b.block, b.hop, b.kept, b.edge_weight.shape[2], e)])
+        args = (*ptrs, geo, n, t.data_ptr(), out.data_ptr(), S, hw, hops, plan.warmup, int(g > 0),
+                EDGE_RUNGS.index(rung), stream)
+        _launched_spectral(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
+        _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
+    return out
+
+
+def spectral_whole(carries, specs, t, plan: PoolPlan, hops: int = 1, out=None):
+    """Step 3 of K3s: the whole frames of every bucket (every frame of a
+    bucket the product does not take) by inverse FFTs, added into `out`
+    (the edge product's), or into zeros when it is None; returns out.  On
+    the card one launch per bucket with whole frames, one block per
+    stream adding its frames in frame order; a CPU tensor runs
+    `spectral_whole_plain`."""
+    if t.device.type == "cpu":
+        whole = spectral_whole_plain(carries, specs, t, plan, hops)
+        return whole if out is None else out + whole
+    from upmix_tpu_torch.ops import _build
+
+    _check_spectral_state(carries, specs, t, plan, hops)
+    for b in plan.buckets:
+        check_kernel_tables(b, t.device)
+    lib = _build.load()
+    S, hw, nq = t.shape[0], plan.hw, plan.warmup
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=t.device)
+    elif tuple(out.shape) != (S, 3, hops * hw) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"expected out [S, 3, {hops * hw}] contiguous float32, got {tuple(out.shape)}")
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    for b, carry, spec in zip(plan.buckets, carries, specs):
+        _, whole = b.spectral_frames(hops)
+        if not whole:
+            continue
+        B, H, K, w = b.block, b.hop, b.kept, b.wide
+        state = (carry.data_ptr(), spec.data_ptr(), t.data_ptr(), out.data_ptr())
+        span = (whole[0], whole[-1] + 1)
+        if w is None:
+            _launched_spectral(
+                lib.pool_spectral_inverse(
+                    *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq,
+                    spectral_pass(B), *span, int(accumulate), stream,
+                ),
+                "pool_spectral_inverse",
+            )
+        else:
             _launched_spectral(
                 lib.pool_spectral_wide_inverse(
-                    carry.data_ptr(), spec.data_ptr(), t32.data_ptr(), out.data_ptr(),
-                    b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(), w.rows.data_ptr(),
-                    w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K,
-                    b.lo, w.n1, w.cols, hw, hops, nq, int(i > 0), stream,
+                    *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(),
+                    w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles,
+                    w.kt, S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq, *span, int(accumulate), stream,
                 ),
                 "pool_spectral_wide_inverse",
             )
-        new.append(carry_out)
-    return out, tuple(new)
+        accumulate = True
+    return out
+
+
+def _launched_edge(rc: int, what: str) -> None:
+    global EDGE_LAUNCHES
+    EDGE_LAUNCHES += 1
+    _launched_spectral(rc, what)
+
+
+def _masked_spectra(hist, b: PoolBucket, hops: int) -> torch.Tensor:
+    """[S, 3, F, K] complex: the masked spectra (C, Ls, Rs at the kept
+    bins, unnormalised) of bucket b's frames of hist, in hist's dtype."""
+    dt = hist.dtype
+    F = hops * b.passes
+    frames = frame_signal(hist[..., : (F - 1) * b.hop + b.block], b.block, b.hop, F)  # [S, 2, F, B]
+    spec = torch.fft.rfft(frames * b.analysis_window.to(dt))[..., b.lo : b.lo + b.kept]
+    sl, sr = spec[:, 0], spec[:, 1]
+    c_re, c_im, l_re, l_im, r_re, r_im = mask_sum(sl.real, sl.imag, sr.real, sr.imag, b.gains.to(dt))
+    return torch.complex(torch.stack([c_re, l_re, r_re], dim=1), torch.stack([c_im, l_im, r_im], dim=1))
+
+
+def _virtual_frames(carry, spec, t, b: PoolBucket, warmup: int, hops: int) -> torch.Tensor:
+    """[S, 3, Kr - 1 + F, K] complex: each stream's virtual frames v = -(Kr
+    - 1) .. F - 1 (csrc/pool_spectral.cu::SpectralState): new frame v from
+    the stream's first ready frame f0 on, the carried slots just below f0,
+    zeros (by selection) below those."""
+    n, F = b.overlap - 1, hops * b.passes
+    src = torch.cat([torch.view_as_complex(carry.contiguous()), torch.view_as_complex(spec.contiguous())], dim=2)
+    f0 = ((warmup - t.to(spec.device).long()).clamp(0, hops) * b.passes)[:, None]  # [S, 1]
+    v = torch.arange(-n, F, device=spec.device)[None, :]
+    idx = torch.where(v >= f0, n + v, v - f0 + n)
+    valid = v >= f0 - n
+    S, K = spec.shape[0], b.kept
+    got = torch.gather(src, 2, idx.clamp(0, n + F - 1)[:, None, :, None].expand(S, 3, n + F, K))
+    return torch.where(valid[:, None, :, None], got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+
+def _below_first_ready(out, t, plan: PoolPlan, hops: int) -> torch.Tensor:
+    """out with every position below its stream's first ready hop set to
+    zero by selection (a NaN there does not reach the output)."""
+    first = (plan.warmup - t.to(out.device).long()).clamp(0, hops) * plan.hw
+    keep = torch.arange(out.shape[-1], device=out.device)[None, :] >= first[:, None]
+    return torch.where(keep[:, None, :], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def spectral_forward_plain(hist, t, carries, plan: PoolPlan, hops: int = 1):
+    """The plain version of `spectral_forward`, in hist's dtype: every
+    frame's masked spectra [S, 3, F, K, 2] and the new carries, the last
+    Kr - 1 virtual frames."""
+    hops = int(hops)
+    _check_inputs(hist, t, carries, plan, hops)
+    specs, new = [], []
+    for b, carry in zip(plan.buckets, carries):
+        spec = torch.view_as_real(_masked_spectra(hist, b, hops)).contiguous()
+        frames = _virtual_frames(carry.to(hist.dtype), spec, t, b, plan.warmup, hops)
+        specs.append(spec)
+        new.append(torch.view_as_real(frames[:, :, hops * b.passes :]).contiguous())
+    return tuple(specs), tuple(new)
+
+
+def _spectral_frames_plain(carries, specs, t, plan: PoolPlan, hops: int, which: int):
+    """The output [S, 3, hops * hw] of every bucket's edge frames (which =
+    0) or whole frames (1), each irfft of its kept bins times the synthesis
+    window added at vH where it reaches the output, in the spectra's dtype;
+    zeros below each stream's first ready hop."""
+    hops = int(hops)
+    S, N = t.shape[0], hops * plan.hw
+    dt = specs[0].dtype
+    out = torch.zeros((S, 3, N), dtype=dt, device=specs[0].device)
+    for b, carry, spec in zip(plan.buckets, carries, specs):
+        frames = b.spectral_frames(hops)[which]
+        if not frames:
+            continue
+        n, H, B = b.overlap - 1, b.hop, b.block
+        picked = _virtual_frames(carry.to(dt), spec, t, b, plan.warmup, hops)[:, :, [v + n for v in frames]]
+        full = picked.new_zeros((S, 3, len(frames), B // 2 + 1))
+        full[..., b.lo : b.lo + b.kept] = picked
+        rec = torch.fft.irfft(full, n=B) * b.synthesis_window.to(dt)
+        for i, v in enumerate(frames):
+            lo, hi = max(0, v * H), min(N, v * H + B)
+            out[..., lo:hi] += rec[:, :, i, lo - v * H : hi - v * H]
+    return _below_first_ready(out, t, plan, hops)
+
+
+def spectral_edge_plain(carries, specs, t, plan: PoolPlan, hops: int = 1):
+    """The plain version of `spectral_edge`: the edge frames of every
+    bucket the product takes, each by irfft (the function the product
+    computes with the weight's rows at n - vH), added where it reaches the
+    output; zeros below each stream's first ready hop."""
+    return _spectral_frames_plain(carries, specs, t, plan, hops, 0)
+
+
+def spectral_whole_plain(carries, specs, t, plan: PoolPlan, hops: int = 1):
+    """The plain version of `spectral_whole` (into zeros): every bucket's
+    whole frames by irfft, added at vH; zeros below each stream's first
+    ready hop."""
+    return _spectral_frames_plain(carries, specs, t, plan, hops, 1)
 
 
 def pool_step_spectral_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: PoolPlan, hops: int = 1):
