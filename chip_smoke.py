@@ -160,9 +160,8 @@ between 5 and 6, 22-25 after 8, then 14-18):
      state (>= 80 dB: the two dataflows compute one function); its edge
      product (the gather and the tensor-core product of the frames a
      call's output cuts) alone against its plain version at the same
-     shapes, every bucket's edge frames forced onto it, in both rungs
-     (bf16x3, tf32x3): >= 80 dB per bucket for the rung the plans use,
-     exact zeros, two calls bit for bit;
+     shapes, every bucket's edge frames forced onto it (`edge_everywhere`):
+     >= 80 dB per bucket, exact zeros, two calls bit for bit;
  23. the spectral pool end to end: make_stream_pool(cfg, 2048, 2048,
      ola="spectral") must be the CUDA pool and launch K3s (and not K3),
      its edge product once a block; the plan's edge and whole frames per
@@ -170,11 +169,14 @@ between 5 and 6, 22-25 after 8, then 14-18):
      float64; a snapshot (the JAX package's packed layout) restored into
      a fresh pool continues bit for bit; reset_streams; then ms per block
      of the K3s and K3 pools at 16 and 2048 streams, hops 1 and 4, in one
-     run; K3s alone beside K3 at the same four shapes, its three steps'
-     times and shares (forward FFTs, edge product in each rung with its
-     TFLOP/s, whole-frame inverse FFTs) at hops 1 and 4; per bucket the
-     product route against the FFT route and the plan as built against
-     every bucket on either, at hw 2048 and 8192; its plain version, its
+     run; K3s alone beside K3 at the same four shapes, with each call's
+     host time; its three steps' times and shares (forward FFTs, edge
+     product with its TFLOP/s, whole-frame inverse FFTs) at hops 1 and
+     4; per bucket the product route against the FFT route, the two
+     inverse steps alone with the product's and the FFTs' rate ratio
+     (`pool.takes_edge_product`), and the plan as built against every
+     bucket on either, at hw 2048 (2048, 128 and 16 streams), at 8192
+     and for one band keeping every bin of 16384; its plain version, its
      bound and design line (its own FFTs, products and bytes), per bucket
      its edge/whole split, product and FFT times beside a cuFFT yardstick
      of its transforms; the profiler's idle share;
@@ -1254,6 +1256,42 @@ def pool_phases(smi: str, dev) -> list:
     ]
 
 
+def edge_everywhere(plan):
+    """The spectral plan with every bucket whose frames overlap (Kr > 1)
+    sending its edge frames to the product, its split weight built: the
+    product on any geometry, for holding it against its plain version and
+    timing it against the FFT route."""
+    import dataclasses
+
+    from upmix_tpu_torch.ops.pool import make_edge_weight, split_edge_weight
+
+    buckets = []
+    for b in plan.buckets:
+        if b.overlap > 1 and not b.edge_product:
+            w = make_edge_weight(b.block, b.lo, b.kept, b.analysis_window.cpu().numpy(),
+                                 b.synthesis_window.cpu().numpy())
+            b = dataclasses.replace(b, edge_product=True,
+                                    edge_weight=split_edge_weight(w).to(b.analysis_window.device))
+        buckets.append(b)
+    return dataclasses.replace(plan, buckets=tuple(buckets))
+
+
+def host_ms(fn, calls: int = 20, loops: int = 5) -> float:
+    """Min over `loops` of the host's ms per call of fn, issued `calls`
+    times in a row with no synchronisation (the card drains the queue
+    between loops): what a call costs the host where the card keeps up."""
+    fn()
+    best = float("inf")
+    for _ in range(loops):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return best
+
+
 def spectral_phases(smi: str, dev) -> dict:
     """Phases 22-23 on the pool's spectral OLA (K3s); returns its result entry."""
     import dataclasses
@@ -1262,9 +1300,6 @@ def spectral_phases(smi: str, dev) -> dict:
     from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
     from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import (
-        EDGE_RUNG,
-        EDGE_RUNGS,
-        edge_rung_plan,
         make_pool_plan,
         pool_step_lcr,
         pool_step_spectral_plain,
@@ -1277,10 +1312,9 @@ def spectral_phases(smi: str, dev) -> dict:
     )
 
     # 22. K3s parity against its float64 plain version, and against K3;
-    # its edge product alone, each bucket's edge frames forced onto it, in
-    # both rungs.
+    # its edge product alone, each bucket's edge frames forced onto it.
     worst, max_abs_err = float("inf"), 0.0
-    rung_worst = {r: float("inf") for r in EDGE_RUNGS}
+    edge_worst = float("inf")
     for hw in SPECTRAL_HWS:
         cfg_h = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=hw)
         for S in FLOOR_STREAMS:
@@ -1295,26 +1329,25 @@ def spectral_phases(smi: str, dev) -> dict:
                 carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)) * 0.1, dtype=torch.float32,
                                            device=dev) for b in plan.buckets]
                 specs, _ = spectral_forward(hist, t, carries, plan, hops)
-                for rung in EDGE_RUNGS:
-                    forced = edge_rung_plan(plan, rung, every_bucket=True)
-                    line = []
-                    for i, b in enumerate(forced.buckets):
-                        sub = dataclasses.replace(forced, buckets=(b,))
-                        got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
-                        again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
-                        ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
-                        torch.cuda.synchronize()
-                        zeros_agree = bool((got[ref == 0] == 0).all())
-                        v = snr_db(ref, got) if bool((ref != 0).any()) else float("inf")
-                        rung_worst[rung] = min(rung_worst[rung], v)
-                        line.append(f"B={b.block} {v:.1f} dB")
-                        if not zeros_agree or not torch.equal(got, again):
-                            fail(f"the edge product ({rung}, B={b.block}) is not exact zeros where its plain version "
-                                 f"is, or two calls differ")
-                        del got, again, ref
-                    print(f"K3s edge product {rung} hw={hw} S={S} hops={hops} (every bucket's edge frames on it): "
-                          + ", ".join(line) + "; zeros and two calls bit for bit", flush=True)
-                del specs
+                forced = edge_everywhere(plan)
+                line = []
+                for i, b in enumerate(forced.buckets):
+                    sub = dataclasses.replace(forced, buckets=(b,))
+                    got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+                    again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
+                    ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
+                    torch.cuda.synchronize()
+                    zeros_agree = bool((got[ref == 0] == 0).all())
+                    v = snr_db(ref, got) if bool((ref != 0).any()) else float("inf")
+                    edge_worst = min(edge_worst, v)
+                    line.append(f"B={b.block} {v:.1f} dB")
+                    if not zeros_agree or not torch.equal(got, again):
+                        fail(f"the edge product (B={b.block}) is not exact zeros where its plain version is, or two "
+                             f"calls differ")
+                    del got, again, ref
+                print(f"K3s edge product hw={hw} S={S} hops={hops} (every bucket's edge frames on it): "
+                      + ", ".join(line) + "; zeros and two calls bit for bit", flush=True)
+                del specs, forced
                 if S == POOL_STREAMS:
                     for b, c in zip(plan.buckets, carries):
                         sub = dataclasses.replace(plan, buckets=(b,))
@@ -1361,11 +1394,10 @@ def spectral_phases(smi: str, dev) -> dict:
                 torch.cuda.empty_cache()
     if not (worst >= KERNEL_BAR_DB):
         fail(f"K3s parity {worst:.1f} dB < {KERNEL_BAR_DB} dB")
-    print("K3s edge product, worst over buckets, S, hops and hw: "
-          + ", ".join(f"{r} {v:.1f} dB" for r, v in rung_worst.items()) + f" (bar >= {KERNEL_BAR_DB} dB for "
-          f"{EDGE_RUNG}, the rung the plans are split for)", flush=True)
-    if not (rung_worst[EDGE_RUNG] >= KERNEL_BAR_DB):
-        fail(f"the edge product ({EDGE_RUNG}) at {rung_worst[EDGE_RUNG]:.1f} dB < {KERNEL_BAR_DB} dB")
+    print(f"K3s edge product (bf16x3), worst over buckets, S, hops and hw: {edge_worst:.1f} dB (bar >= "
+          f"{KERNEL_BAR_DB} dB)", flush=True)
+    if not (edge_worst >= KERNEL_BAR_DB):
+        fail(f"the edge product at {edge_worst:.1f} dB < {KERNEL_BAR_DB} dB")
 
     # 23. the spectral pool end to end through the user's entry point
     cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
@@ -1466,8 +1498,11 @@ def spectral_phases(smi: str, dev) -> dict:
         tc = [torch.zeros((n_streams, 3, b.block), device=dev) for b in p_t.buckets]
         ms_s = time_ms(lambda: pool_step_lcr(h, tt, c, p_s, hops)) / hops
         ms_t = time_ms(lambda: pool_step_lcr(h, tt, tc, p_t, hops)) / hops
+        host_s = host_ms(lambda: pool_step_lcr(h, tt, c, p_s, hops))
+        host_t = host_ms(lambda: pool_step_lcr(h, tt, tc, p_t, hops))
         print(f"timing [{smi}]: K3s alone S={n_streams} hops={hops} (all ready) {ms_s:.3f} ms a block, K3 {ms_t:.3f} "
-              f"(K3s/K3 {ms_s / ms_t:.2f}); {spectral_launches(p_s, hops)} launches a call", flush=True)
+              f"(K3s/K3 {ms_s / ms_t:.2f}); {spectral_launches(p_s, hops)} launches a call; host time a call: K3s "
+              f"{host_s:.3f} ms, K3 {host_t:.3f} ms", flush=True)
         if (n_streams, hops) == (S, 1):
             k3s_ms, k3_ms = ms_s, ms_t
         del h, c, tc
@@ -1495,47 +1530,64 @@ def spectral_phases(smi: str, dev) -> dict:
         return sum(3 * n_streams * 2 * 2 * b.kept * sum(min(N, v * b.hop + b.block) - max(0, v * b.hop)
                                                         for v in b.spectral_frames(hops)[0]) for b in p.buckets)
 
-    # The three steps' shares, at hops 1 and 4, and the product in each rung.
+    # The three steps' shares, at hops 1 and 4.
     for hops in (1, 4):
         h, tt, c = step_inputs(S, hops, plan)
         specs, _ = spectral_forward(h, tt, c, plan, hops)
         f_ms = time_ms(lambda: spectral_forward(h, tt, c, plan, hops))
         w_ms = time_ms(lambda: spectral_whole(c, specs, tt, plan, hops))
+        e_ms = time_ms(lambda: spectral_edge(c, specs, tt, plan, hops))
         flop = edge_flop(plan, S, hops)
-        rungs = []
-        for rung in EDGE_RUNGS:
-            rp = edge_rung_plan(plan, rung)
-            e_ms = time_ms(lambda: spectral_edge(c, specs, tt, rp, hops))
-            rungs.append(f"{rung} {e_ms:.3f} ms ({flop / e_ms / 1e9:.1f} TFLOP/s logical, "
-                         f"{3 * flop / e_ms / 1e9:.1f} on the tensor cores)")
-            if rung == EDGE_RUNG:
-                edge_ms = e_ms
+        total = f_ms + e_ms + w_ms
         print(f"timing [{smi}]: K3s steps S={S} hops={hops}: forward FFTs {f_ms:.3f} ms, edge product (gather + "
-              f"product, {flop:.3e} FLOP) " + "; ".join(rungs) + f", whole-frame inverse FFTs {w_ms:.3f} ms; shares "
-              f"of their sum: forward {f_ms / (f_ms + edge_ms + w_ms):.0%}, product "
-              f"{edge_ms / (f_ms + edge_ms + w_ms):.0%}, whole {w_ms / (f_ms + edge_ms + w_ms):.0%}", flush=True)
+              f"product, {flop:.3e} FLOP, bf16x3) {e_ms:.3f} ms ({flop / e_ms / 1e9:.1f} TFLOP/s logical, "
+              f"{3 * flop / e_ms / 1e9:.1f} on the tensor cores), whole-frame inverse FFTs {w_ms:.3f} ms; shares of "
+              f"their sum: forward {f_ms / total:.0%}, product {e_ms / total:.0%}, whole {w_ms / total:.0%}",
+              flush=True)
         del h, c, specs
 
     # The routes: per bucket the product route (its edge frames forced onto
-    # it) against the FFT route; the plan as built against every bucket on
-    # the product and every bucket on the FFTs.
-    for r_hw, r_s in ((hw, S), (4 * hw, S // 4)):
-        r_cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=r_hw)
+    # it) against the FFT route, and the two inverse steps alone: the
+    # product against the FFTs' inverse of every frame, with the rate
+    # ratio they show, (the product's tensor-core FLOP / its ms) / (the
+    # FFTs' FLOP / their ms), counted as `pool.takes_edge_product` counts
+    # them, where every frame is an edge frame; the plan as built against
+    # every bucket on the product and every bucket on the FFTs.  At hw
+    # 2048 with 2048, 128 and 16 streams, at 8192, and for one band
+    # keeping every bin of its 16384-point frames.
+    every_bin = UpmixConfig.streaming([0.0], sr=8000.0, hw_block_size=4096)
+    for r_cfg, r_hw, r_s in ((cfg, hw, S), (cfg, hw, 128), (cfg, hw, 16),
+                             (UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=4 * hw), 4 * hw, S // 4),
+                             (every_bin, 4096, S // 4)):
         r_plan = make_pool_plan(r_cfg, r_hw, r_s, device=dev, ola="spectral")
-        r_all = edge_rung_plan(r_plan, EDGE_RUNG, every_bucket=True)
+        r_all = edge_everywhere(r_plan)
         r_none = dataclasses.replace(r_plan, buckets=tuple(dataclasses.replace(b, edge_product=False)
                                                            for b in r_plan.buckets))
-        h = torch.as_tensor(rng.standard_normal((r_s, 2, K * r_hw)), dtype=torch.float32, device=dev)
-        tt = torch.full((r_s,), K + 1, dtype=torch.int32, device=dev)
+        rK = r_plan.warmup
+        h = torch.as_tensor(rng.standard_normal((r_s, 2, rK * r_hw)), dtype=torch.float32, device=dev)
+        tt = torch.full((r_s,), rK + 1, dtype=torch.int32, device=dev)
         c = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(r_s)) * 0.1, dtype=torch.float32,
                              device=dev) for b in r_plan.buckets]
         parts = []
         for i, b in enumerate(r_plan.buckets):
             on = dataclasses.replace(r_all, buckets=(r_all.buckets[i],))
             off = dataclasses.replace(r_none, buckets=(r_none.buckets[i],))
-            parts.append(f"B={b.block} ({'product' if b.edge_product else 'FFTs'} planned) product route "
-                         f"{time_ms(lambda: pool_step_lcr(h, tt, [c[i]], on)):.3f} ms, FFT route "
-                         f"{time_ms(lambda: pool_step_lcr(h, tt, [c[i]], off)):.3f}")
+            on_ms = time_ms(lambda: pool_step_lcr(h, tt, [c[i]], on))
+            off_ms = time_ms(lambda: pool_step_lcr(h, tt, [c[i]], off))
+            part = (f"B={b.block} K={b.kept} ({'product' if b.edge_product else 'FFTs'} planned) product route "
+                    f"{on_ms:.3f} ms, FFT route {off_ms:.3f}")
+            edge, whole = on.buckets[0].spectral_frames(1)
+            if not whole:
+                specs, _ = spectral_forward(h, tt, [c[i]], on, 1)
+                e_ms = time_ms(lambda: spectral_edge([c[i]], specs, tt, on, 1))
+                w_ms = time_ms(lambda: spectral_whole([c[i]], specs, tt, off, 1))
+                reach = sum(min(r_hw, v * b.hop + b.block) - max(0, v * b.hop) for v in edge)
+                mma = 36.0 * b.kept * reach * r_s
+                fft = len(edge) * 7.5 * b.block * np.log2(b.block) * r_s
+                part += (f"; product step {e_ms:.3f} ms against the FFTs' inverse {w_ms:.3f} (FLOP ratio "
+                         f"{mma / fft:.1f}, rate ratio {(mma / e_ms) / (fft / w_ms):.1f})")
+                del specs
+            parts.append(part)
         print(f"routes [{smi}] hw={r_hw} S={r_s} hops=1: " + "; ".join(parts) + f"; the plan as built "
               f"{time_ms(lambda: pool_step_lcr(h, tt, c, r_plan)):.3f} ms, every bucket on the product "
               f"{time_ms(lambda: pool_step_lcr(h, tt, c, r_all)):.3f}, every bucket on the FFTs "

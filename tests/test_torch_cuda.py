@@ -11,8 +11,8 @@ blocks from 128 to 2^21 points (odd and even powers of two, the
 two-stage split, its N2 grown past 2^20 points), overlaps 0.5 to 0.875,
 K2 at every frame-pass size, several segments per launch, K3s (the pool's
 spectral OLA) at every pool case and 1, 5 and 2048 streams, its edge
-product in both rungs on every bucket at hw 2048 and 8192,
-one band that keeps every bin (a 16384-point frame whose Rs goes alone;
+product on every bucket at hw 2048 and 8192 and its inputs on one
+device, one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
 32768 bucket split); the bench config covers each of its block sizes,
 256 to 65536.  Launch counts are read from the wrappers'
@@ -397,15 +397,29 @@ def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
         assert torch.equal(got[:, others], want[:, others])
 
 
-@pytest.mark.parametrize("rung", ["bf16x3", "tf32x3"])
+def _edge_everywhere(plan):
+    """The spectral plan with every bucket whose frames overlap sending its
+    edge frames to the product, with its split weight."""
+    import dataclasses
+
+    from upmix_tpu_torch.ops.pool import make_edge_weight, split_edge_weight
+
+    def forced(b):
+        w = make_edge_weight(b.block, b.lo, b.kept, b.analysis_window.cpu().numpy(), b.synthesis_window.cpu().numpy())
+        return dataclasses.replace(b, edge_product=True, edge_weight=split_edge_weight(w).to(b.analysis_window.device))
+
+    return dataclasses.replace(plan, buckets=tuple(forced(b) if b.overlap > 1 else b for b in plan.buckets))
+
+
 @pytest.mark.parametrize("hw", [2048, 8192])
 @pytest.mark.parametrize("S,hops", [(1, 1), (5, 4), (2048, 1), (2048, 4)])
-def test_edge_product_matches_plain_float64(cuda, S, hops, hw, rung):
-    # K3s's edge product (gather + tensor-core product) against its plain
-    # version in float64, per bucket (each bucket's edge frames forced onto
-    # the product) and for the plan as built, >= 80 dB, exact zeros where
-    # the plain version has them (streams below their first ready hop,
-    # stream 0 among them), two calls bit for bit; its launches counted.
+def test_edge_product_matches_plain_float64(cuda, S, hops, hw):
+    # K3s's edge product (gather + tensor-core product, bf16x3) against its
+    # plain version in float64, per bucket (each bucket's edge frames
+    # forced onto the product) and for the plan as built, >= 80 dB, exact
+    # zeros where the plain version has them (streams below their first
+    # ready hop, stream 0 among them), two calls bit for bit; its launches
+    # counted.
     import dataclasses
 
     from upmix_tpu_torch.ops import pool
@@ -415,7 +429,7 @@ def test_edge_product_matches_plain_float64(cuda, S, hops, hw, rung):
         S = 256  # the same launch geometry per row tile, a tenth of the plain version's memory
     cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=hw)
     built = make_pool_plan(cfg, hw, S, device=cuda, ola="spectral")
-    plan = pool.edge_rung_plan(built, rung, every_bucket=True)
+    plan = _edge_everywhere(built)
     K = plan.warmup
     rng = np.random.default_rng(S + hops + hw)
     hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * hw)), dtype=torch.float32, device=cuda)
@@ -436,11 +450,10 @@ def test_edge_product_matches_plain_float64(cuda, S, hops, hw, rung):
         assert bool((got[ref == 0] == 0).all())
         assert not got[0, :, : int(min(K - 1, hops)) * hw].any()
         if bool((ref != 0).any()):
-            assert _snr(ref, got) >= 80.0, (b.block, rung)
+            assert _snr(ref, got) >= 80.0, b.block
     if any(b.edge_product for b in built.buckets):
-        rplan = pool.edge_rung_plan(built, rung)
-        got = spectral_edge(carries, specs, t, rplan, hops)
-        ref = spectral_edge_plain([c.double() for c in carries], [x.double() for x in specs], t, rplan, hops)
+        got = spectral_edge(carries, specs, t, built, hops)
+        ref = spectral_edge_plain([c.double() for c in carries], [x.double() for x in specs], t, built, hops)
         assert bool((got[ref == 0] == 0).all())
         if bool((ref != 0).any()):
             assert _snr(ref, got) >= 80.0
@@ -478,6 +491,34 @@ def test_edge_product_never_hands_work_to_a_plain_version(cuda):
         for n in names:
             setattr(pool, n, real[n])
     assert not calls and pool.EDGE_LAUNCHES == before + 1
+
+
+def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
+    # The edge and whole steps run where the spectra lie; t, a carry or out
+    # on the host beside spectra on the card raise (no plain version runs
+    # on the card's tensors, no kernel launches).
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import make_pool_plan, spectral_edge, spectral_forward, spectral_whole
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    S = 4
+    plan = make_pool_plan(cfg, 2048, S, device=cuda, ola="spectral")
+    hist = torch.zeros((S, 2, 4 * 2048), device=cuda)
+    t = torch.full((S,), 9, dtype=torch.int32, device=cuda)
+    carries = [torch.zeros(b.spectral_carry_shape(S), device=cuda) for b in plan.buckets]
+    specs, _ = spectral_forward(hist, t, carries, plan)
+    out = spectral_edge(carries, specs, t, plan)
+    torch.cuda.synchronize()
+    before = pool.SPECTRAL_LAUNCHES
+    with pytest.raises(ValueError, match="one device"):
+        spectral_edge(carries, specs, t.cpu(), plan)
+    with pytest.raises(ValueError, match="one device"):
+        spectral_whole(carries, specs, t.cpu(), plan)
+    with pytest.raises(ValueError, match="one device"):
+        spectral_whole(carries, specs, t, plan, out=out.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        spectral_edge([carries[0].cpu(), *carries[1:]], specs, t, plan)
+    assert pool.SPECTRAL_LAUNCHES == before
 
 
 @pytest.mark.parametrize("ola", ["time", "spectral"])

@@ -563,3 +563,29 @@ def test_edge_routing_table_of_the_serving_config():
                          ola="spectral")
     assert not one.buckets[0].edge_product
     assert one.buckets[0].spectral_frames(1) == ((), rng(-3, 1))
+
+
+def test_spectral_steps_run_where_the_spectra_lie():
+    # spectral_edge and spectral_whole run the plain versions for spectra on
+    # the CPU (equal to them exactly), and refuse t, a carry or out on
+    # another device, or spectra where no kernel runs.
+    plan = _serve_plan(2048, 3)
+    rng = np.random.default_rng(11)
+    hist = torch.as_tensor(rng.standard_normal((3, 2, 4 * 2048)), dtype=torch.float32)
+    t = torch.tensor([1, 4, 9], dtype=torch.int32)
+    carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(3)), dtype=torch.float32)
+               for b in plan.buckets]
+    specs, _ = pool.spectral_forward(hist, t, carries, plan)
+    edge = pool.spectral_edge(carries, specs, t, plan)
+    torch.testing.assert_close(edge, pool.spectral_edge_plain(carries, specs, t, plan), rtol=0, atol=0)
+    torch.testing.assert_close(pool.spectral_whole(carries, specs, t, plan, out=edge),
+                               edge + pool.spectral_whole_plain(carries, specs, t, plan), rtol=0, atol=0)
+    meta = [x.to("meta") for x in (t, edge, carries[0])]
+    with pytest.raises(ValueError, match="one device"):
+        pool.spectral_edge(carries, specs, meta[0], plan)
+    with pytest.raises(ValueError, match="one device"):
+        pool.spectral_whole(carries, specs, t, plan, out=meta[1])
+    with pytest.raises(ValueError, match="one device"):
+        pool.spectral_whole([meta[2], *carries[1:]], specs, t, plan)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pool.spectral_edge([c.to("meta") for c in carries], [x.to("meta") for x in specs], meta[0], plan)

@@ -38,8 +38,8 @@
 //      o), n] = sum over edge frames v and k < 2K of spec_v[(s, o), k] w[n
 //      - vH, k], w the inverse weight (synthesis window and 1/B, 2/B
 //      folded in; ops/pool.py::make_edge_weight) read at each frame's
-//      sample offset, never expanded.  In split precision, bf16x3 or
-//      tf32x3 as K4's rungs (int8_dot.cu): hi + lo of each operand, three
+//      sample offset, never expanded.  In split precision, bf16x3 as K4's
+//      rung of that name (int8_dot.cu): hi + lo of each operand, three
 //      products into float32 sums.  Two launches for up to
 //      EDGE_MAX_BUCKETS buckets:
 //      a. spectral_edge_gather_kernel: each row's edge frames (carried or
@@ -49,8 +49,8 @@
 //         the buckets' edge frames that reach its samples, 32 values of
 //         one frame a stage, copied by cp.async into a two-stage ring
 //         (the next stage lands while this one multiplies), on the tensor
-//         cores: mma.sync fed by ldmatrix (bf16) or by 32-bit loads
-//         (tf32), 8 warps of 32 rows x 64 samples, two blocks an SM.
+//         cores: mma.sync fed by ldmatrix, 8 warps of 32 rows x 64
+//         samples, two blocks an SM.
 //      Rows of streams below their first ready hop are written as zeros
 //      by selection, so a NaN in a not-ready carry stays in its row.
 //   3. spectral_inverse_kernel, one block per stream (as pool.cu's K3):
@@ -277,7 +277,6 @@ constexpr int EDGE_MAX_BUCKETS = 8;
 constexpr int EDGE_MT = 2;  // 16-row tiles a warp
 constexpr int EDGE_NT = 8;  // 8-sample tiles a warp
 constexpr int GATHER_THREADS = 256;
-enum { RUNG_BF16X3 = 0, RUNG_TF32X3 = 1 };
 
 // Index checks of the product's loads, for a build with -DEDGE_CHECKS
 // (a fault traps where it happens).
@@ -290,32 +289,15 @@ enum { RUNG_BF16X3 = 0, RUNG_TF32X3 = 1 };
 #define EDGE_CHECK(c) ((void)0)
 #endif
 
-// The rung's operand element (bf16, or a tf32 bit pattern in 32 bits) and
-// shared-memory row stride in elements: padded so that a warp's fragment
-// loads of eight rows hit distinct banks, and a whole number of 16 bytes.
-template <int RUNG>
-struct EdgeRung;
-template <>
-struct EdgeRung<RUNG_BF16X3> {
-  using T = __nv_bfloat16;
-  static constexpr int LD = EDGE_BK + 8;
-};
-template <>
-struct EdgeRung<RUNG_TF32X3> {
-  using T = uint32_t;
-  static constexpr int LD = EDGE_BK + 4;
-};
+// The operands' element, and their shared-memory row stride in elements:
+// padded so that a warp's fragment loads of eight rows hit distinct banks,
+// and a whole number of 16 bytes.
+using EdgeT = __nv_bfloat16;
+constexpr int EDGE_LD = EDGE_BK + 8;
 
-// One stage: [hi, lo] x [A: BM rows | W: BN samples] x LD.
-template <int RUNG>
-__host__ __device__ constexpr int edge_stage_elems() {
-  return 2 * (EDGE_BM + EDGE_BN) * EdgeRung<RUNG>::LD;
-}
-
-template <int RUNG>
-__host__ __device__ constexpr size_t edge_smem_bytes() {
-  return sizeof(typename EdgeRung<RUNG>::T) * EDGE_STAGES * edge_stage_elems<RUNG>();
-}
+// One stage: [hi, lo] x [A: BM rows | W: BN samples] x EDGE_LD.
+constexpr int EDGE_STAGE = 2 * (EDGE_BM + EDGE_BN) * EDGE_LD;
+constexpr size_t EDGE_SMEM = sizeof(EdgeT) * EDGE_STAGES * EDGE_STAGE;
 
 // One bucket the product takes.  Its edge frames e = 0 .. n_edge - 1 are v
 // = e + 1 - Kr for e < Kr - 1 (reaching in from the left), then v = right
@@ -347,36 +329,20 @@ __device__ __forceinline__ int first_ready_hop(const EdgeArgs& a, int row) {
   return min(max(a.warmup - a.t[row / 3], 0), a.hops);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
 // hi + lo of two values at hi[0..1] and lo[0..1].
-template <int RUNG>
-__device__ __forceinline__ void split_store(float x0, float x1, typename EdgeRung<RUNG>::T* hi,
-                                            typename EdgeRung<RUNG>::T* lo) {
-  if constexpr (RUNG == RUNG_BF16X3) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    *reinterpret_cast<__nv_bfloat162*>(hi) = h;
-    *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  } else {
-    const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
-    *reinterpret_cast<uint2*>(hi) = make_uint2(h0, h1);
-    *reinterpret_cast<uint2*>(lo) = make_uint2(to_tf32(x0 - __uint_as_float(h0)), to_tf32(x1 - __uint_as_float(h1)));
-  }
+__device__ __forceinline__ void split_store(float x0, float x1, EdgeT* hi, EdgeT* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
 }
 
 // Step 2a.  Thread (row, edge frame e, bin pair j) of bucket blockIdx.y:
 // the frame's masked (re, im) of kept bin j, split into hi + lo, at values
 // 2j, 2j + 1 of a; zeros for a frame outside the row's window and for j
 // >= K (a select: nothing else is read).
-template <int RUNG>
 __global__ void __launch_bounds__(GATHER_THREADS)
 spectral_edge_gather_kernel(EdgeArgs a) {
-  using T = typename EdgeRung<RUNG>::T;
   EdgeBucket e;
 #pragma unroll
   for (int i = 0; i < EDGE_MAX_BUCKETS; ++i)
@@ -399,9 +365,9 @@ spectral_edge_gather_kernel(EdgeArgs a) {
       val = e.carry[((long long)row * nc + v - f0 + nc) * e.K + j];
     }
   }
-  T* base = static_cast<T*>(e.a);
+  EdgeT* base = static_cast<EdgeT*>(e.a);
   const long long at = ((long long)row * e.n_edge + ei) * e.Kp + 2 * j;
-  split_store<RUNG>(val.x, val.y, base + at, base + (long long)a.rows * e.n_edge * e.Kp + at);
+  split_store(val.x, val.y, base + at, base + (long long)a.rows * e.n_edge * e.Kp + at);
 }
 
 // The first edge frame v' >= v of bucket e that reaches samples [n0, n0 +
@@ -459,11 +425,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // A stage's copies into shared memory: rows m0 .. m0 + BM of a (zeros past
 // the last row) and samples n0 .. n0 + BN of the weight at n - vH (zeros
 // outside the frame and past the output), 32 values each, hi and lo.
-template <int RUNG>
 __device__ __forceinline__ void edge_issue(const EdgeBucket& e, const EdgeStep& st, int m0, int n0,
-                                           const EdgeArgs& a, typename EdgeRung<RUNG>::T* stage) {
-  using T = typename EdgeRung<RUNG>::T;
-  constexpr int LD = EdgeRung<RUNG>::LD;
+                                           const EdgeArgs& a, EdgeT* stage) {
+  using T = EdgeT;
+  constexpr int LD = EDGE_LD;
   constexpr int CH = EDGE_BK * (int)sizeof(T) / 16;  // 16-byte pieces of a row's 32 values
   constexpr int PER = 2 * EDGE_BM * CH / EDGE_THREADS;
   const T* ab = static_cast<const T*>(e.a);
@@ -507,81 +472,48 @@ __device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], const T* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
-template <int RUNG>
 __device__ __forceinline__ void edge_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if constexpr (RUNG == RUNG_BF16X3) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The warp's 32 rows x 64 samples of one stage: per k-step (16 values in
-// bf16, 8 in tf32) lo x hi, then hi x lo, then hi x hi into the float32
-// sums, each pass over the warp's 16 tiles, so that consecutive products
-// go to different sums (PTX ISA, mma.m16n8k16 / m16n8k8 fragments: A rows
-// g, g + 8 at values 2t (t), + 8 (+ 4); B sample g at the same values).
-template <int RUNG>
-__device__ __forceinline__ void edge_compute(const typename EdgeRung<RUNG>::T* stage,
-                                             float (&acc)[EDGE_MT][EDGE_NT][4]) {
-  using T = typename EdgeRung<RUNG>::T;
-  constexpr int LD = EdgeRung<RUNG>::LD;
-  constexpr int KS = RUNG == RUNG_BF16X3 ? 16 : 8;  // values a k-step
-  constexpr int V = RUNG == RUNG_BF16X3 ? 2 : 1;    // values a register
-  const T* A = stage;
-  const T* W = stage + 2 * EDGE_BM * LD;
+// The warp's 32 rows x 64 samples of one stage: per k-step of 16 values
+// lo x hi, then hi x lo, then hi x hi into the float32 sums, each pass
+// over the warp's 16 tiles, so that consecutive products go to different
+// sums (PTX ISA, mma.m16n8k16 fragments: A rows g, g + 8 at values 2t, +
+// 8; B sample g at the same values).
+__device__ __forceinline__ void edge_compute(const EdgeT* stage, float (&acc)[EDGE_MT][EDGE_NT][4]) {
+  constexpr int LD = EDGE_LD;
+  constexpr int KS = 16;  // values a k-step
+  const EdgeT* A = stage;
+  const EdgeT* W = stage + 2 * EDGE_BM * LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
+  // ldmatrix.x4: lane l addresses row l % 8 of 8 x 8 matrix l / 8; A's
+  // four are rows +0 / +8 at values +0 / +8 (a0..a3), W's the samples of
+  // two 8-wide tiles at values +0 / +8 (b0, b1 of each).
+  const int mi = lane >> 3, ri = lane & 7;
 #pragma unroll
   for (int ks = 0; ks < EDGE_BK / KS; ++ks) {
-    const int k0 = ks * KS + V * t;
     uint32_t fa[2][EDGE_MT][4], fb[2][EDGE_NT][2];  // [hi, lo]
-    if constexpr (RUNG == RUNG_BF16X3) {
-      // ldmatrix.x4: lane l addresses row l % 8 of 8 x 8 matrix l / 8; A's
-      // four are rows +0 / +8 at values +0 / +8 (a0..a3), W's the samples
-      // of two 8-wide tiles at values +0 / +8 (b0, b1 of each).
-      const int mi = lane >> 3, ri = lane & 7;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int mt = 0; mt < EDGE_MT; ++mt) {
-          const int row = h * EDGE_BM + wm * 32 + mt * 16 + (mi & 1) * 8 + ri;
-          ldmatrix4(fa[h][mt], A + row * LD + ks * KS + (mi >> 1) * 8);
-        }
-#pragma unroll
-        for (int np = 0; np < EDGE_NT / 2; ++np) {
-          const int nn = h * EDGE_BN + wn * 64 + np * 16 + (mi >> 1) * 8 + ri;
-          uint32_t r[4];
-          ldmatrix4(r, W + nn * LD + ks * KS + (mi & 1) * 8);
-          fb[h][2 * np][0] = r[0];
-          fb[h][2 * np][1] = r[1];
-          fb[h][2 * np + 1][0] = r[2];
-          fb[h][2 * np + 1][1] = r[3];
-        }
+      for (int mt = 0; mt < EDGE_MT; ++mt) {
+        const int row = h * EDGE_BM + wm * 32 + mt * 16 + (mi & 1) * 8 + ri;
+        ldmatrix4(fa[h][mt], A + row * LD + ks * KS + (mi >> 1) * 8);
       }
-    } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int mt = 0; mt < EDGE_MT; ++mt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int row = h * EDGE_BM + wm * 32 + mt * 16 + g + 8 * (r & 1);
-            fa[h][mt][r] = *reinterpret_cast<const uint32_t*>(A + row * LD + k0 + (KS / 2) * (r >> 1));
-          }
-#pragma unroll
-        for (int nt = 0; nt < EDGE_NT; ++nt) {
-          const int nn = h * EDGE_BN + wn * 64 + nt * 8 + g;
-          fb[h][nt][0] = *reinterpret_cast<const uint32_t*>(W + nn * LD + k0);
-          fb[h][nt][1] = *reinterpret_cast<const uint32_t*>(W + nn * LD + k0 + KS / 2);
-        }
+      for (int np = 0; np < EDGE_NT / 2; ++np) {
+        const int nn = h * EDGE_BN + wn * 64 + np * 16 + (mi >> 1) * 8 + ri;
+        uint32_t r[4];
+        ldmatrix4(r, W + nn * LD + ks * KS + (mi & 1) * 8);
+        fb[h][2 * np][0] = r[0];
+        fb[h][2 * np][1] = r[1];
+        fb[h][2 * np + 1][0] = r[2];
+        fb[h][2 * np + 1][1] = r[3];
       }
     }
 #pragma unroll
@@ -590,7 +522,7 @@ __device__ __forceinline__ void edge_compute(const typename EdgeRung<RUNG>::T* s
 #pragma unroll
       for (int nt = 0; nt < EDGE_NT; ++nt)
 #pragma unroll
-        for (int mt = 0; mt < EDGE_MT; ++mt) edge_mma<RUNG>(acc[mt][nt], fa[ha][mt], fb[hb][nt][0], fb[hb][nt][1]);
+        for (int mt = 0; mt < EDGE_MT; ++mt) edge_mma(acc[mt][nt], fa[ha][mt], fb[hb][nt][0], fb[hb][nt][1]);
     }
   }
 }
@@ -600,13 +532,11 @@ __device__ __forceinline__ void edge_compute(const typename EdgeRung<RUNG>::T* s
 // buckets' edge frames that reach its samples, a stage at a time through
 // a ring of EDGE_STAGES copies in flight; then each sum written (or
 // added) at or above its stream's first ready position, zeros below.
-template <int RUNG>
 __global__ void __launch_bounds__(EDGE_THREADS, 2)
 spectral_edge_kernel(EdgeArgs a) {
-  using T = typename EdgeRung<RUNG>::T;
-  constexpr int STAGE = edge_stage_elems<RUNG>();
+  constexpr int STAGE = EDGE_STAGE;
   extern __shared__ float4 smem[];
-  T* stages = reinterpret_cast<T*>(smem);
+  EdgeT* stages = reinterpret_cast<EdgeT*>(smem);
   __shared__ EdgeBucket eb[EDGE_MAX_BUCKETS];
 #pragma unroll
   for (int i = 0; i < EDGE_MAX_BUCKETS; ++i)
@@ -626,7 +556,7 @@ spectral_edge_kernel(EdgeArgs a) {
 #pragma unroll
   for (int s = 0; s < EDGE_STAGES - 1; ++s) {
     if (more) {
-      edge_issue<RUNG>(eb[ld.bi], ld, m0, n0, a, stages + s * STAGE);
+      edge_issue(eb[ld.bi], ld, m0, n0, a, stages + s * STAGE);
       ++issued;
       more = edge_next(eb, a.nb, n0, ld);
     }
@@ -636,12 +566,12 @@ spectral_edge_kernel(EdgeArgs a) {
     cp_async_wait<EDGE_STAGES - 2>();
     __syncthreads();
     if (more) {
-      edge_issue<RUNG>(eb[ld.bi], ld, m0, n0, a, stages + (issued % EDGE_STAGES) * STAGE);
+      edge_issue(eb[ld.bi], ld, m0, n0, a, stages + (issued % EDGE_STAGES) * STAGE);
       ++issued;
       more = edge_next(eb, a.nb, n0, ld);
     }
     cp_async_commit();
-    edge_compute<RUNG>(stages + (i % EDGE_STAGES) * STAGE, acc);
+    edge_compute(stages + (i % EDGE_STAGES) * STAGE, acc);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -672,23 +602,20 @@ spectral_edge_kernel(EdgeArgs a) {
   }
 }
 
-template <int RUNG>
 int launch_edge_gather(const EdgeArgs& a, void* stream) {
   long long most = 0;
   for (int i = 0; i < a.nb; ++i) most = max(most, (long long)a.rows * a.b[i].n_edge * (a.b[i].Kp / 2));
   const dim3 grid((unsigned)((most + GATHER_THREADS - 1) / GATHER_THREADS), a.nb, 1);
-  spectral_edge_gather_kernel<RUNG><<<grid, GATHER_THREADS, 0, (cudaStream_t)stream>>>(a);
+  spectral_edge_gather_kernel<<<grid, GATHER_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int RUNG>
 int launch_edge(const EdgeArgs& a, void* stream) {
-  constexpr size_t smem = edge_smem_bytes<RUNG>();
   const cudaError_t err =
-      cudaFuncSetAttribute(spectral_edge_kernel<RUNG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(spectral_edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)EDGE_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + EDGE_BN - 1) / EDGE_BN, (a.rows + EDGE_BM - 1) / EDGE_BM, 1);
-  spectral_edge_kernel<RUNG><<<grid, EDGE_THREADS, smem, (cudaStream_t)stream>>>(a);
+  spectral_edge_kernel<<<grid, EDGE_THREADS, EDGE_SMEM, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -738,14 +665,14 @@ int pool_spectral_mask(const float* part, const int* t, const float* carry, floa
 // The edge product of nb <= EDGE_MAX_BUCKETS buckets, in two launches:
 // pool_spectral_edge_gather (stage 0), then pool_spectral_edge (stage 1),
 // with the same arguments.  w: their split weights [2, B, Kp]; abuf: the
-// gathered operands [2, 3 S, n_edge, Kp] (both in the rung's element);
+// gathered operands [2, 3 S, n_edge, Kp] (both bf16);
 // carry, spec: their states (as pool_spectral_forward's); geo[5 i ..] = B,
 // H, K, Kp, n_edge of bucket i; out [S, 3, hops * hw] written (accumulate
-// = 0) or added into; rung 0 bf16x3, 1 tf32x3.
+// = 0) or added into.
 static int edge_launch(int stage, const void* const* w, void* const* abuf, const float* const* carry,
                        const float* const* spec, const int* geo, int nb, const int* t, float* out, int S, int hw,
-                       int hops, int warmup, int accumulate, int rung, void* stream) {
-  if (nb < 1 || nb > EDGE_MAX_BUCKETS || (rung != RUNG_BF16X3 && rung != RUNG_TF32X3)) return (int)cudaErrorInvalidValue;
+                       int hops, int warmup, int accumulate, void* stream) {
+  if (nb < 1 || nb > EDGE_MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   EdgeArgs a{};
   for (int i = 0; i < nb; ++i) {
     const int B = geo[5 * i], H = geo[5 * i + 1], K = geo[5 * i + 2], Kp = geo[5 * i + 3], n_edge = geo[5 * i + 4];
@@ -762,21 +689,19 @@ static int edge_launch(int stage, const void* const* w, void* const* abuf, const
   a.hops = hops;
   a.warmup = warmup;
   a.accumulate = accumulate;
-  if (stage == 0) return rung == RUNG_BF16X3 ? launch_edge_gather<RUNG_BF16X3>(a, stream)
-                                             : launch_edge_gather<RUNG_TF32X3>(a, stream);
-  return rung == RUNG_BF16X3 ? launch_edge<RUNG_BF16X3>(a, stream) : launch_edge<RUNG_TF32X3>(a, stream);
+  return stage == 0 ? launch_edge_gather(a, stream) : launch_edge(a, stream);
 }
 
 int pool_spectral_edge_gather(const void* const* w, void* const* abuf, const float* const* carry,
                               const float* const* spec, const int* geo, int nb, const int* t, float* out, int S,
-                              int hw, int hops, int warmup, int accumulate, int rung, void* stream) {
-  return edge_launch(0, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, rung, stream);
+                              int hw, int hops, int warmup, int accumulate, void* stream) {
+  return edge_launch(0, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, stream);
 }
 
 int pool_spectral_edge(const void* const* w, void* const* abuf, const float* const* carry, const float* const* spec,
                        const int* geo, int nb, const int* t, float* out, int S, int hw, int hops, int warmup,
-                       int accumulate, int rung, void* stream) {
-  return edge_launch(1, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, rung, stream);
+                       int accumulate, void* stream) {
+  return edge_launch(1, w, abuf, carry, spec, geo, nb, t, out, S, hw, hops, warmup, accumulate, stream);
 }
 
 // out: [S, 3, hops * hw], written (accumulate = 0) or added into by the

@@ -100,8 +100,8 @@ def load() -> ctypes.CDLL:
     lib.pool_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     lib.pool_spectral_forward.argtypes = [p] * 8 + [i] * 10 + [ll, p]
     lib.pool_spectral_mask.argtypes = [p] * 6 + [i] * 10 + [p]
-    lib.pool_spectral_edge_gather.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
-    lib.pool_spectral_edge.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+    lib.pool_spectral_edge_gather.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
+    lib.pool_spectral_edge.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
     lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 12 + [p]
     lib.pool_spectral_wide_inverse.argtypes = [p] * 11 + [i] * 15 + [p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]

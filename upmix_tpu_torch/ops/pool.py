@@ -52,7 +52,7 @@ hardware block of 8192 samples at the streaming configs' 4 x hw cap;
      inverse weight with the synthesis window and the 1/B, 2/B scales
      folded in (`make_edge_weight`, from `dftmm.make_direct_plan`: the
      weight the JAX body rearranges into its `wq`), in split precision
-     (`split_edge_weight`, EDGE_RUNG); a gather launch splits the frames'
+     (bf16x3, `split_edge_weight`); a gather launch splits the frames'
      spectra, then one product launch takes every such bucket;
   3. `spectral_whole`: the rest ("whole frames", inside the window) by
      the inverse FFTs, per stream in frame order, added after the product.
@@ -60,28 +60,32 @@ hardware block of 8192 samples at the streaming configs' 4 x hw cap;
 Which buckets' edge frames the product takes is decided when the plan
 is built (`takes_edge_product`): those whose every frame of a one-block
 call is an edge frame, so the product spares them their inverse-FFT
-launch; a bucket it does not take sends every frame to the FFTs.
-`spectral_launches` counts the launches of a call.  On a CPU tensor a
-spectral plan runs `pool_step_spectral_plain`; the three steps' plain
-versions (`spectral_forward_plain`, `spectral_edge_plain`,
-`spectral_whole_plain`) compose to it.  There is no fallback between the
-kernels and the plain versions, nor between the two dataflows.
+launch; a bucket it does not take sends every frame to the FFTs.  A
+plan works out its routes and the product's launch arguments once per
+`hops` (`PoolPlan.spectral_routes`); `spectral_launches` counts the
+launches of a call.  On a CPU tensor a spectral plan runs
+`pool_step_spectral_plain`, and each step its plain version
+(`spectral_forward_plain`, `spectral_edge_plain`,
+`spectral_whole_plain`), which compose to it; a step picks its path from
+where its data lies and refuses inputs spread over devices.  There is no
+fallback between the kernels and the plain versions, nor between the two
+dataflows.
 
 What the TPU plan needed only for Mosaic has no counterpart: no group of
 streams per grid step (so no n_streams % group rule), no 8 MB bound on
 the baked weights, no quarter refs; for the spectral OLA no lane padding
 of the spectra, no Q hops a product and no rearranged inverse weight:
 the edge product reads its weight's rows at each frame's offset.  Its
-bf16 (or tf32) hi/lo split is the H100's choice of precision for the
-tensor cores, as the TPU's was for its matrix unit.  The plan declines only what the function
-cannot do: a hop that does not divide hw or its block, or mixed
+bf16 hi/lo split is the H100's choice of precision for the tensor cores,
+as the TPU's was for its matrix unit.  The plan declines only what the
+function cannot do: a hop that does not divide hw or its block, or mixed
 block/hop ratios.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -111,19 +115,18 @@ EDGE_LAUNCHES = 0
 OLA_MODES = ("time", "spectral")
 SPECTRAL_LANES = 128  # the JAX package's packed spectra: 2K rounded up to this
 
-# The edge product (csrc/pool_spectral.cu, spectral_edge_kernel): its
-# split-precision rungs, the one a plan's weights are split for (the
-# faster of those that hold 80 dB against float64 in every bucket on the
-# card; PERF.md), the buckets one launch takes, and the depth its weight
-# is padded to (one stage of the kernel: 16 kept bins, re and im).
-EDGE_RUNGS = ("bf16x3", "tf32x3")
-EDGE_RUNG = "bf16x3"
+# The edge product (csrc/pool_spectral.cu, spectral_edge_kernel): the
+# buckets one launch takes, and the depth its weight is padded to (one
+# stage of the kernel: 16 kept bins, re and im).
 EDGE_MAX_BUCKETS = 8
 EDGE_DEPTH = 32
 # The product's tensor-core rate over the inverse FFTs' rate that
-# `takes_edge_product` assumes (its three products at about 250 TFLOP/s,
-# the FFTs at 3-7 TFLOP/s on an H100; PERF.md).
-EDGE_RATE_RATIO = 48
+# `takes_edge_product` assumes: about the least the H100 showed, timing
+# the product step against the FFTs' inverse of the same frames, at 512
+# and 2048 streams (43.9 to 150.2 over the serving buckets, hw 8192's
+# 32768 and one band keeping every bin of 16384; chip_smoke.py's routes
+# lines, PERF.md).
+EDGE_RATE_RATIO = 44
 
 
 def spectral_pass(block: int) -> int:
@@ -152,7 +155,12 @@ def takes_edge_product(block: int, hop: int, kept: int, hw: int) -> bool:
     edge frame reaches) at EDGE_RATE_RATIO times the FFTs' rate costs no
     more than those frames' inverse FFTs (1.5 complex transforms of B
     points a frame, 5 B log2 B FLOP each), which keeps a bucket that
-    keeps most of its bins (a wide K) on the FFTs."""
+    keeps most of its bins (a wide K) on the FFTs.  The stream count
+    does not enter: a one-card mesh plans each shard's streams but
+    launches all of them as rows of one step, so a rule on the count
+    would route it apart from the unsharded pool and break their bit-for-
+    bit equality; and at 16 and 128 streams the plan as built still beat
+    every bucket on the FFTs on the card (PERF.md)."""
     Kr, P = block // hop, hw // hop
     if Kr < 2 or P > Kr - 1:
         return False
@@ -162,62 +170,32 @@ def takes_edge_product(block: int, hop: int, kept: int, hw: int) -> bool:
     return bool(product <= EDGE_RATE_RATIO * len(edge) * 7.5 * block * np.log2(block))
 
 
+def edge_depth(kept: int) -> int:
+    """Kp: the edge weight's depth, 2K rounded up to EDGE_DEPTH."""
+    return -(-2 * kept // EDGE_DEPTH) * EDGE_DEPTH
+
+
 def make_edge_weight(block: int, lo: int, kept: int, analysis_window, synthesis_window) -> np.ndarray:
     """The edge product's weight [B, Kp] float32: w[n, 2j + c] = w_inv[c K
     + j, n] of `dftmm.make_direct_plan` (c = 0 the real, 1 the imaginary
     part of kept bin lo + j; the synthesis window and the 1/B, 2/B scales
     folded in), so a frame's (re, im) pairs as the spectra store them meet
     their rows, each sample's column contiguous; rows 2K .. Kp - 1 are
-    zeros, Kp = 2K rounded up to EDGE_DEPTH."""
+    zeros (`edge_depth`)."""
     w_inv = make_direct_plan(block, lo, lo + kept - 1, analysis_window, synthesis_window).w_inv
-    out = np.zeros((block, -(-2 * kept // EDGE_DEPTH) * EDGE_DEPTH), np.float32)
+    out = np.zeros((block, edge_depth(kept)), np.float32)
     out[:, 0 : 2 * kept : 2] = w_inv[:kept].T
     out[:, 1 : 2 * kept : 2] = w_inv[kept:].T
     return out
 
 
-def _tf32(x: np.ndarray) -> np.ndarray:
-    """float32 -> tf32 bit patterns (int32), rounded to nearest with ties
-    away from zero, as the card's cvt.rna.tf32.f32."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.int32)
-
-
-def split_edge_weight(w: np.ndarray, rung: str = EDGE_RUNG) -> torch.Tensor:
-    """The edge weight split for the product's `rung`: [2, B, Kp], hi then
-    lo (hi + lo = w to within the lo's rounding), bf16 for "bf16x3" and
-    tf32 bit patterns (int32) for "tf32x3"; the product splits its other
-    operand the same way on the card."""
-    if rung not in EDGE_RUNGS:
-        raise ValueError(f"unknown edge rung {rung!r}; one of {EDGE_RUNGS}")
-    w = np.ascontiguousarray(w, np.float32)
-    if rung == "bf16x3":
-        wt = torch.from_numpy(w)
-        hi = wt.to(torch.bfloat16)
-        return torch.stack([hi, (wt - hi.float()).to(torch.bfloat16)])
-    hi = _tf32(w)
-    return torch.from_numpy(np.stack([hi, _tf32(w - hi.view(np.float32))]))
-
-
-def edge_rung(bucket) -> str:
-    """The rung a bucket's split edge weight is for."""
-    return "bf16x3" if bucket.edge_weight.dtype == torch.bfloat16 else "tf32x3"
-
-
-def edge_rung_plan(plan, rung: str, every_bucket: bool = False):
-    """The plan with its edge weights split for `rung`, and with
-    `every_bucket` every bucket whose frames overlap (Kr > 1) sent to the
-    product: for holding the rungs, and the product on any geometry,
-    against their plain versions and timing them."""
-    buckets = []
-    for b in plan.buckets:
-        if b.edge_product or (every_bucket and b.overlap > 1):
-            w = make_edge_weight(b.block, b.lo, b.kept, b.analysis_window.cpu().numpy(),
-                                 b.synthesis_window.cpu().numpy())
-            b = replace(b, edge_product=True,
-                        edge_weight=split_edge_weight(w, rung).to(b.analysis_window.device))
-        buckets.append(b)
-    return replace(plan, buckets=tuple(buckets))
+def split_edge_weight(w: np.ndarray) -> torch.Tensor:
+    """The edge weight split for the product: [2, B, Kp] bf16, hi then lo
+    (hi + lo = w to within the lo's rounding); the product splits its
+    other operand the same way on the card."""
+    wt = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+    hi = wt.to(torch.bfloat16)
+    return torch.stack([hi, (wt - hi.float()).to(torch.bfloat16)])
 
 
 @dataclass(frozen=True, eq=False)
@@ -267,17 +245,83 @@ class PoolBucket:
 
 
 @dataclass(frozen=True, eq=False)
+class _EdgeGroup:
+    """One launch pair of the edge product: up to EDGE_MAX_BUCKETS buckets
+    (indices into the plan), their edge frames and weight depths, and the
+    kernel's arguments that do not change between calls: the split
+    weights' pointers (None where the plan carries no valid weight) and
+    the geometry (B, H, K, Kp, edge frames of each bucket)."""
+
+    buckets: tuple
+    n_edge: tuple
+    depth: tuple
+    weights: object  # ctypes c_void_p array, or None
+    geo: object  # ctypes c_int array
+    device: torch.device | None  # the weights'
+
+
+@dataclass(frozen=True, eq=False)
+class SpectralRoutes:
+    """A spectral plan's routes at one `hops`: per bucket its (edge, whole)
+    frames (`PoolBucket.spectral_frames`), the edge product's launch
+    groups, the kernel launches of a call, and why the product cannot run
+    where a bucket it takes has no split weight on a CUDA device."""
+
+    frames: tuple
+    groups: tuple  # _EdgeGroup
+    launches: int
+    weight_error: str | None
+
+
+@dataclass(frozen=True, eq=False)
 class PoolPlan:
     hw: int
     warmup: int  # K = block / hop, the same for every bucket
     n_streams: int
     buckets: tuple  # PoolBucket, live buckets in config order
     ola: str = "time"  # the OLA dataflow: "time" or "spectral"
+    _routes: dict = field(default_factory=dict, init=False, repr=False)  # hops -> SpectralRoutes
 
     @property
     def window(self) -> int:
         """Shared history length: warmup * hw."""
         return self.warmup * self.hw
+
+    def spectral_routes(self, hops: int) -> SpectralRoutes:
+        """The spectral routes of a call of `hops` blocks, worked out on the
+        first such call and kept."""
+        routes = self._routes.get(hops)
+        if routes is None:
+            routes = self._routes[hops] = _spectral_routes(self, hops)
+        return routes
+
+
+def _spectral_routes(plan: PoolPlan, hops: int) -> SpectralRoutes:
+    frames = tuple(b.spectral_frames(hops) for b in plan.buckets)
+    takes = [i for i, (edge, _) in enumerate(frames) if edge]
+    error = None
+    for i in takes:
+        b = plan.buckets[i]
+        w = b.edge_weight
+        if (w is None or w.device.type != "cuda" or w.dtype != torch.bfloat16 or not w.is_contiguous()
+                or tuple(w.shape) != (2, b.block, edge_depth(b.kept))):
+            error = ("the edge product takes its split weight [2, B, Kp] bf16 on the card (make_pool_plan builds it "
+                     "for a CUDA device)")
+    if error is None and len({plan.buckets[i].edge_weight.device for i in takes}) > 1:
+        error = "the plan's split weights lie on several devices"
+    groups = []
+    for g in range(0, len(takes), EDGE_MAX_BUCKETS):
+        idx = tuple(takes[g : g + EDGE_MAX_BUCKETS])
+        bs = [plan.buckets[i] for i in idx]
+        n_edge = tuple(len(frames[i][0]) for i in idx)
+        depth = tuple(edge_depth(b.kept) for b in bs)
+        geo = (ctypes.c_int * (5 * len(idx)))(*[v for b, e, kp in zip(bs, n_edge, depth)
+                                                for v in (b.block, b.hop, b.kept, kp, e)])
+        weights = None if error else (ctypes.c_void_p * len(idx))(*[b.edge_weight.data_ptr() for b in bs])
+        groups.append(_EdgeGroup(idx, n_edge, depth, weights, geo, None if error else bs[0].edge_weight.device))
+    launches = (sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * len(groups)
+                + sum(1 for _, whole in frames if whole))
+    return SpectralRoutes(frames, tuple(groups), launches, error)
 
 
 def check_ola(ola: str) -> None:
@@ -500,38 +544,48 @@ def spectral_launches(plan: PoolPlan, hops: int) -> int:
     (two over FFT_MAX points: the split's forward and a mask pass), the
     edge product's gather and product for every EDGE_MAX_BUCKETS buckets
     it takes, and per bucket with whole frames their inverse FFTs."""
-    routes = [b.spectral_frames(hops) for b in plan.buckets]
-    edge = sum(1 for e, _ in routes if e)
-    return (sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * -(-edge // EDGE_MAX_BUCKETS)
-            + sum(1 for _, w in routes if w))
+    return plan.spectral_routes(int(hops)).launches
 
 
 def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     t32 = t.to(device=hist.device, dtype=torch.int32).contiguous()
-    specs, new = spectral_forward(hist, t32, carries, plan, hops)
-    out = None
-    if any(b.spectral_frames(hops)[0] for b in plan.buckets):
-        out = spectral_edge(carries, specs, t32, plan, hops)
-    return spectral_whole(carries, specs, t32, plan, hops, out), new
+    routes = plan.spectral_routes(hops)
+    specs, new = _forward_cuda(hist, t32, carries, plan, hops)
+    out = _edge_cuda(carries, specs, t32, plan, hops, routes) if routes.groups else None
+    return _whole_cuda(carries, specs, t32, plan, hops, routes, out), new
 
 
-def _check_spectral_state(carries, specs, t, plan: PoolPlan, hops: int) -> None:
+def _spectral_device(carries, specs, t, plan: PoolPlan, hops: int, out=None) -> torch.device:
+    """The device a step on the spectra runs on: the spectra's.  Raises
+    unless t, the carries and out lie there too and the shapes fit; on the
+    card, unless they are what the kernels take."""
     if len(carries) != len(plan.buckets) or len(specs) != len(plan.buckets):
         raise ValueError(f"expected {len(plan.buckets)} bucket carries and spectra")
+    dev = specs[0].device
+    for x in (t, *carries, *specs, *(() if out is None else (out,))):
+        if x.device != dev:
+            raise ValueError(f"the spectral steps take t, the carries, the spectra and out on one device: got {x.device} "
+                             f"beside the spectra's {dev}")
     S = t.shape[0]
     for b, c, x in zip(plan.buckets, carries, specs):
         want = (S, 3, hops * b.passes, b.kept, 2)
         if tuple(c.shape) != b.spectral_carry_shape(S) or tuple(x.shape) != want:
             raise ValueError(f"expected carry {list(b.spectral_carry_shape(S))} and spectra {list(want)}, "
                              f"got {tuple(c.shape)} and {tuple(x.shape)}")
-    if t.device.type == "cuda":
-        dev = t.device
+    if out is not None and tuple(out.shape) != (S, 3, hops * plan.hw):
+        raise ValueError(f"expected out [S, 3, {hops * plan.hw}], got {tuple(out.shape)}")
+    if dev.type == "cuda":
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("the spectral kernels take t as contiguous int32")
-        if any(x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev for x in (*carries, *specs)):
-            raise ValueError("the spectral kernels take contiguous float32 carries and spectra on t's device")
+        if any(x.dtype != torch.float32 or not x.is_contiguous() for x in (*carries, *specs)):
+            raise ValueError("the spectral kernels take contiguous float32 carries and spectra")
+        if out is not None and (out.dtype != torch.float32 or not out.is_contiguous()):
+            raise ValueError("the spectral kernels take out as contiguous float32")
+    elif dev.type != "cpu":
+        raise ValueError(f"the spectral steps run on cpu or cuda, not {dev}")
+    return dev
 
 
 def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
@@ -541,12 +595,16 @@ def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
     A CPU tensor runs `spectral_forward_plain`."""
     if hist.device.type == "cpu":
         return spectral_forward_plain(hist, t, carries, plan, hops)
-    from upmix_tpu_torch.ops import _build
-
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     if t.dtype != torch.int32 or not t.is_contiguous() or t.device != hist.device:
         raise ValueError("the spectral kernels take t as contiguous int32 on the history's device")
+    return _forward_cuda(hist, t, carries, plan, int(hops))
+
+
+def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    from upmix_tpu_torch.ops import _build
+
     lib = _build.load()
     S, _, width = hist.shape
     dev, hw, nq = hist.device, plan.hw, plan.warmup
@@ -591,47 +649,42 @@ def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
 def spectral_edge(carries, specs, t, plan: PoolPlan, hops: int = 1):
     """Step 2 of K3s: out [S, 3, hops * hw], the edge frames of every
     bucket the product takes, summed (zeros below each stream's first
-    ready hop, by selection).  On the card, for every EDGE_MAX_BUCKETS
-    such buckets, two launches: a gather of their edge frames' spectra,
-    split as the weights are (the rung of the plan's split weights,
-    `edge_rung`), then `spectral_edge_kernel`; a CPU tensor runs
-    `spectral_edge_plain`."""
-    if t.device.type == "cpu":
+    ready hop, by selection).  Runs where the spectra lie: on the card,
+    for every EDGE_MAX_BUCKETS such buckets, two launches, a gather of
+    their edge frames' spectra split into bf16 hi + lo, then
+    `spectral_edge_kernel`; on the CPU `spectral_edge_plain`."""
+    hops = int(hops)
+    if _spectral_device(carries, specs, t, plan, hops).type == "cpu":
         return spectral_edge_plain(carries, specs, t, plan, hops)
+    routes = plan.spectral_routes(hops)
+    if not routes.groups:
+        raise ValueError("no bucket of this plan sends frames to the edge product")
+    return _edge_cuda(carries, specs, t, plan, hops, routes)
+
+
+def _edge_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRoutes):
     from upmix_tpu_torch.ops import _build
 
-    _check_spectral_state(carries, specs, t, plan, hops)
-    takes = [i for i, b in enumerate(plan.buckets) if b.spectral_frames(hops)[0]]
-    if not takes:
-        raise ValueError("no bucket of this plan sends frames to the edge product")
-    S, hw = t.shape[0], plan.hw
-    for i in takes:
-        b = plan.buckets[i]
-        w = b.edge_weight
-        if (w is None or w.device != t.device or w.dtype not in (torch.bfloat16, torch.int32) or not w.is_contiguous()
-                or tuple(w.shape) != (2, b.block, -(-2 * b.kept // EDGE_DEPTH) * EDGE_DEPTH)):
-            raise ValueError("the edge product takes its split weight [2, B, Kp] on t's device "
-                             "(make_pool_plan builds it for a CUDA device)")
-    rungs = {edge_rung(plan.buckets[i]) for i in takes}
-    if len(rungs) != 1:
-        raise ValueError(f"the plan's edge weights are split for several rungs: {sorted(rungs)}")
-    rung = rungs.pop()
+    if routes.weight_error:
+        raise ValueError(routes.weight_error)
+    dev, S = t.device, t.shape[0]
+    if any(g.device != dev for g in routes.groups):
+        raise ValueError(f"the plan's split weights lie on {routes.groups[0].device}, the spectra on {dev}")
     lib = _build.load()
-    out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=t.device)
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    for g in range(0, len(takes), EDGE_MAX_BUCKETS):
-        group = [plan.buckets[i] for i in takes[g : g + EDGE_MAX_BUCKETS]]
-        n = len(group)
-        edge = [len(b.spectral_frames(hops)[0]) for b in group]
-        gathered = [torch.empty((2, 3 * S, e, b.edge_weight.shape[2]), dtype=b.edge_weight.dtype, device=t.device)
-                    for b, e in zip(group, edge)]
-        ptrs = [(ctypes.c_void_p * n)(*[x.data_ptr() for x in xs]) for xs in (
-            [b.edge_weight for b in group], gathered, [carries[i] for i in takes[g : g + n]],
-            [specs[i] for i in takes[g : g + n]])]
-        geo = (ctypes.c_int * (5 * n))(*[v for b, e in zip(group, edge)
-                                         for v in (b.block, b.hop, b.kept, b.edge_weight.shape[2], e)])
-        args = (*ptrs, geo, n, t.data_ptr(), out.data_ptr(), S, hw, hops, plan.warmup, int(g > 0),
-                EDGE_RUNGS.index(rung), stream)
+    out = torch.empty((S, 3, hops * plan.hw), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for g, group in enumerate(routes.groups):
+        n = len(group.buckets)
+        # The gathered operands [2, 3 S, n_edge, Kp] of the group's buckets
+        # in one allocation; each a multiple of 64 bf16 values long, so
+        # every one starts on 16 bytes.
+        sizes = [2 * 3 * S * e * kp for e, kp in zip(group.n_edge, group.depth)]
+        gathered = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+        at = np.cumsum([0, *sizes[:-1]]) * gathered.element_size() + gathered.data_ptr()
+        args = (group.weights, (ctypes.c_void_p * n)(*at.tolist()),
+                (ctypes.c_void_p * n)(*[carries[i].data_ptr() for i in group.buckets]),
+                (ctypes.c_void_p * n)(*[specs[i].data_ptr() for i in group.buckets]),
+                group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0), stream)
         _launched_spectral(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
         _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
     return out
@@ -640,28 +693,29 @@ def spectral_edge(carries, specs, t, plan: PoolPlan, hops: int = 1):
 def spectral_whole(carries, specs, t, plan: PoolPlan, hops: int = 1, out=None):
     """Step 3 of K3s: the whole frames of every bucket (every frame of a
     bucket the product does not take) by inverse FFTs, added into `out`
-    (the edge product's), or into zeros when it is None; returns out.  On
-    the card one launch per bucket with whole frames, one block per
-    stream adding its frames in frame order; a CPU tensor runs
-    `spectral_whole_plain`."""
-    if t.device.type == "cpu":
+    (the edge product's), or into zeros when it is None; returns out.
+    Runs where the spectra lie: on the card one launch per bucket with
+    whole frames, one block per stream adding its frames in frame order;
+    on the CPU `spectral_whole_plain`."""
+    hops = int(hops)
+    if _spectral_device(carries, specs, t, plan, hops, out).type == "cpu":
         whole = spectral_whole_plain(carries, specs, t, plan, hops)
         return whole if out is None else out + whole
-    from upmix_tpu_torch.ops import _build
-
-    _check_spectral_state(carries, specs, t, plan, hops)
     for b in plan.buckets:
         check_kernel_tables(b, t.device)
+    return _whole_cuda(carries, specs, t, plan, hops, plan.spectral_routes(hops), out)
+
+
+def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRoutes, out):
+    from upmix_tpu_torch.ops import _build
+
     lib = _build.load()
     S, hw, nq = t.shape[0], plan.hw, plan.warmup
     accumulate = out is not None
     if out is None:
         out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=t.device)
-    elif tuple(out.shape) != (S, 3, hops * hw) or out.dtype != torch.float32 or not out.is_contiguous():
-        raise ValueError(f"expected out [S, 3, {hops * hw}] contiguous float32, got {tuple(out.shape)}")
     stream = torch.cuda.current_stream(t.device).cuda_stream
-    for b, carry, spec in zip(plan.buckets, carries, specs):
-        _, whole = b.spectral_frames(hops)
+    for b, carry, spec, (_, whole) in zip(plan.buckets, carries, specs, routes.frames):
         if not whole:
             continue
         B, H, K, w = b.block, b.hop, b.kept, b.wide
