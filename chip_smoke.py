@@ -17,9 +17,11 @@ two probes through their entry points (`ops.int8_dot` check and bench,
 (offline, --streaming, --pipe, --serve); and the stream server on
 loopback through `run_stream_server`; the pool's spectral OLA through
 `make_stream_pool(..., ola="spectral")`, the pool on a mesh and the
-tuner (`python -m upmix_tpu_torch.tune`'s two sweeps).  Phases, one line
-each or more, any failure exits nonzero (phases 10-13 and 19-21 run
-between 5 and 6, 22-25 after 8, then 14-18):
+tuner (`python -m upmix_tpu_torch.tune`'s two sweeps); and the AOT
+artifacts (`upmix_tpu_torch.aot`) of the offline program, the pool and
+the streaming step, loaded onto the card.  Phases, one line each or
+more, any failure exits nonzero (phases 10-13 and 19-21 run between 5
+and 6, 22-25 after 8, then 14-18 and 26):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -122,7 +124,10 @@ between 5 and 6, 22-25 after 8, then 14-18):
      `Upmixer.process_np` + `scale_lcr` bit for bit, with --meter's
      realtime factor beside phase 5's; --streaming and --pipe on a short
      WAV must launch K3 (the pipe's output as long as its input); --serve
-     answers a ping and two jobs;
+     answers a ping and two jobs; with --no-compile-cache the kernels
+     build afresh (nvcc runs) into a temporary directory for that call
+     alone, K1 still launches, and the cached directory and library
+     come back after it;
  18. the stream server on the card: `run_stream_server` on loopback at
      the server's default config (16 slots, the CLI's default), 8
      clients of 48 seeded blocks each in lockstep, at hops 1 (with a
@@ -161,7 +166,10 @@ between 5 and 6, 22-25 after 8, then 14-18):
      product (the gather and the tensor-core product of the frames a
      call's output cuts) alone against its plain version at the same
      shapes, every bucket's edge frames forced onto it (`edge_everywhere`):
-     >= 80 dB per bucket, exact zeros, two calls bit for bit;
+     >= 80 dB per bucket, exact zeros, two calls bit for bit; and
+     spectral_whole(out=None) on a plan whose every bucket takes the edge
+     product (the serving config's 8192 and 4096 buckets at hops 1)
+     launches nothing and returns exact zeros;
  23. the spectral pool end to end: make_stream_pool(cfg, 2048, 2048,
      ola="spectral") must be the CUDA pool and launch K3s (and not K3),
      its edge product once a block; the plan's edge and whole frames per
@@ -189,13 +197,29 @@ between 5 and 6, 22-25 after 8, then 14-18):
  25. the tuner: `tune.main` (python -m upmix_tpu_torch.tune) over 1024
      and 2048 streams, both OLA modes, hops 1 and 4, protocol "scan", then
      the offline chunks 2^19-2^22 on bench.py's config at 2^23 samples:
-     every candidate timed, best printed.
+     every candidate timed, best printed;
+ 26. AOT artifacts on the card: `aot.save_offline` of bench.py's config
+     at 2^21 samples, then `aot.load`: each call launches K1 as Upmixer
+     does and equals `Upmixer(cfg, device="cuda").process` bit for bit; a
+     shorter input is padded and trimmed as Upmixer(pad_granularity=2^21)
+     does, a longer one refused; the same artifact loaded and called in
+     a fresh process, with the kernel library cached and with none (the
+     load builds it); `save_stream_pool` of the serving config
+     at 2048 streams in both OLA modes at hops 1 and 4: 12 blocks launch K3
+     (or K3s and its edge product) and equal the live make_stream_pool bit
+     for bit, a snapshot restored into a fresh load continues bit for bit
+     (and through JSON at 16 streams); `save_stream_step` at hw 2048:
+     push_block launches K3 and equals StreamingUpmixer bit for bit; the
+     CLI's --save-aot for the three kinds, each loaded; a JAX artifact
+     refused with one line; each artifact's bytes, save and load seconds
+     and first call beside the live class's construction (and first call).
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -609,6 +633,7 @@ def main():
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
     server_phases(smi, dev)
+    aot_phases(smi, dev)
 
     # 9. results.  A kernel faster than its bound means the bound does not
     # bound what was timed (bytes served by L2, say): a fault of this script.
@@ -1398,6 +1423,32 @@ def spectral_phases(smi: str, dev) -> dict:
           f"{KERNEL_BAR_DB} dB)", flush=True)
     if not (edge_worst >= KERNEL_BAR_DB):
         fail(f"the edge product at {edge_worst:.1f} dB < {KERNEL_BAR_DB} dB")
+    # A plan whose every bucket takes the edge product (the serving
+    # config's 8192 and 4096 records alone, hops 1): spectral_whole
+    # launches nothing, and its out=None result must be exact zeros, not
+    # memory the caching allocator hands back unwritten (NaN-filled first).
+    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
+    from upmix_tpu_torch.ops.pool import plan_from_stream_buckets
+
+    cfg_p = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    records = [r for r in _plan_stream_buckets(cfg_p, POOL_HW) if r.block_size in (8192, 4096)]
+    edge_plan = plan_from_stream_buckets(records, POOL_HW, 4, POOL_STREAMS, dev, ola="spectral")
+    all_edge = all(not whole for _, whole in edge_plan.spectral_routes(1).frames)
+    gen = torch.Generator(dev).manual_seed(22)
+    carries = [torch.randn(b.spectral_carry_shape(POOL_STREAMS), device=dev, generator=gen) for b in edge_plan.buckets]
+    specs = [torch.randn((POOL_STREAMS, 3, b.passes, b.kept, 2), device=dev, generator=gen) for b in edge_plan.buckets]
+    t = torch.full((POOL_STREAMS,), 9, dtype=torch.int32, device=dev)
+    torch.full((POOL_STREAMS, 3, POOL_HW), float("nan"), device=dev)  # freed at once, its block reused below
+    before = pool.SPECTRAL_LAUNCHES
+    out = spectral_whole(carries, specs, t, edge_plan)
+    torch.cuda.synchronize()
+    launched, nonzero = pool.SPECTRAL_LAUNCHES - before, int(torch.count_nonzero(out))
+    print(f"K3s spectral_whole(out=None) on an all-edge plan (buckets {[b.block for b in edge_plan.buckets]}, "
+          f"S={POOL_STREAMS}, every frame on the edge product {all_edge}): {launched} launches, {nonzero} nonzero "
+          "values (want exact zeros)", flush=True)
+    if not all_edge or launched or nonzero:
+        fail("spectral_whole(out=None) on an all-edge plan did not return exact zeros")
+    del carries, specs, out
 
     # 23. the spectral pool end to end through the user's entry point
     cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
@@ -2069,6 +2120,34 @@ def app_phases(smi: str, dev, path_rtf: float):
         if rc != 0 or launches != 2 * per_file:
             fail(f"the CLI's offline run failed or launched the omnibus kernels {launches} times, "
                  f"not {2 * per_file}")
+        # --no-compile-cache: the kernels build afresh into a temporary
+        # directory for that call alone, K1 still launches, and the cached
+        # directory and library come back after it.
+        from upmix_tpu_torch.ops import _build
+
+        cached_dir, cached_lib = _build.BUILD_DIR, _build.load()
+        built_in = []
+        real_nvcc = _build._nvcc
+        _build._nvcc = lambda: built_in.append(_build.BUILD_DIR) or real_nvcc()
+        omnibus.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc_fresh = cli.main([str(work / "song.wav"), "--out-dir", str(work / "fresh"), "--band-edges",
+                                     edges, "--no-compile-cache"])
+        finally:
+            _build._nvcc = real_nvcc
+        fresh_s = time.perf_counter() - t0
+        restored = _build.BUILD_DIR == cached_dir and _build._lib is cached_lib
+        gone = bool(built_in) and not built_in[0].exists()
+        print(f"app e2e: --no-compile-cache: rc {rc_fresh}, built into {built_in} (cached {cached_dir}), "
+              f"nvcc {_build.build_seconds:.2f} s, omnibus launches {omnibus.LAUNCHES} (want {per_file}), "
+              f"{fresh_s:.2f} s for the run; after it the cached directory and library back: {restored}, "
+              f"the temporary directory removed: {gone}", flush=True)
+        if (rc_fresh or omnibus.LAUNCHES != per_file or len(built_in) != 1 or built_in[0] == cached_dir
+                or not restored or not gone):
+            fail("--no-compile-cache did not build afresh into a temporary directory for the call alone, "
+                 "or did not launch K1")
         stems = [p for p in lines if p.endswith(".wav") and Path(p).name.startswith("song_")]
         got = {Path(p).name.split("_")[1]: read_wav(p)[0] for p in stems}
         l64, r64, _, peak_in = load_stereo(work / "song.wav")
@@ -2128,6 +2207,240 @@ def app_phases(smi: str, dev, path_rtf: float):
               flush=True)
         if rc or len(resps) != 3 or not all(r["ok"] for r in resps) or omnibus.LAUNCHES == 0:
             fail("--serve did not answer the ping and both jobs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _equal(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _tree_lists(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_lists(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return [_tree_lists(v) for v in tree]
+    return np.asarray(tree).tolist()
+
+
+AOT_JSON_STREAMS = 16  # the JSON round trip of a snapshot (2048 streams' would be gigabytes of text)
+
+# Phase 26's child: a fresh process loads the offline artifact and calls it twice.
+_AOT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from upmix_tpu_torch import aot
+from upmix_tpu_torch.ops import _build, omnibus
+t1 = time.perf_counter()
+art = aot.load(sys.argv[1])
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+x = torch.randn((2, art.n_samples), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+torch.cuda.synchronize()
+times = []
+for _ in range(2):
+    t3 = time.perf_counter()
+    art.process(x[0], x[1])
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t3)
+print(json.dumps({"import_s": t1 - t0, "load_s": t2 - t1, "nvcc_s": _build.build_seconds, "first_ms": times[0] * 1e3,
+                  "second_ms": times[1] * 1e3, "launches": omnibus.LAUNCHES}))
+"""
+
+
+def aot_phases(smi: str, dev):
+    """Phase 26: AOT artifacts saved, loaded onto the card, and held bit for
+    bit against the live classes, each launching its kernels."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from upmix_tpu_torch import aot, cli
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.offline import Upmixer, _plan_buckets, plans_from_numpy
+    from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
+    from upmix_tpu_torch.ops import omnibus, pool
+    from upmix_tpu_torch.ops.omnibus import launches_per_bucket
+
+    work = Path(__file__).resolve().parent / "upmix_tpu_torch" / "_build" / "aot_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    try:
+        # The offline program: bench.py's config at 2^21 samples (K1).
+        cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
+        want = sum(launches_per_bucket(b.block) for b in plans_from_numpy(_plan_buckets(cfg, 1), "cpu"))
+        path = str(work / "offline.upmixaot")
+        meta, save_s = timed(lambda: aot.save_offline(path, cfg, N_SAMPLES))
+        art, load_s = timed(lambda: aot.load(path))
+        rng = np.random.default_rng(26)
+        Lt = torch.as_tensor(rng.standard_normal(N_SAMPLES), dtype=torch.float32, device=dev)
+        Rt = torch.as_tensor(rng.standard_normal(N_SAMPLES), dtype=torch.float32, device=dev)
+        omnibus.LAUNCHES = 0
+        got, first_s = timed(lambda: art.process(Lt, Rt))
+        launches = omnibus.LAUNCHES
+        live, live_init_s = timed(lambda: Upmixer(cfg, device="cuda"))
+        ref, live_first_s = timed(lambda: live.process(Lt, Rt))
+        same = _equal(got, ref)
+        n_short = N_SAMPLES - 12345
+        short = art.process(Lt[:n_short], Rt[:n_short])
+        short_ref = Upmixer(cfg, device="cuda", pad_granularity=N_SAMPLES).process(Lt[:n_short], Rt[:n_short])
+        short_same = _equal(short, short_ref) and all(o.shape == (n_short,) for o in short)
+        try:
+            art.process(torch.zeros(N_SAMPLES + 1), torch.zeros(N_SAMPLES + 1))
+            refused = False
+        except ValueError:
+            refused = True
+        print(f"aot [{smi}]: offline artifact of bench.py's config at {N_SAMPLES} samples: "
+              f"{Path(path).stat().st_size} bytes, save {save_s:.3f} s, load {load_s:.3f} s (the kernel library "
+              "already loaded in this process), first "
+              f"call {first_s * 1e3:.1f} ms; the live Upmixer: construction {live_init_s * 1e3:.3f} ms, first call "
+              f"{live_first_s * 1e3:.1f} ms (its plan built there); K1 launches per call {launches} (want {want}); "
+              f"bit for bit the live Upmixer {same}; {n_short} samples padded and trimmed as Upmixer("
+              f"pad_granularity={N_SAMPLES}) {short_same}; a longer input refused {refused}", flush=True)
+        if launches != want or not same or not short_same or not refused:
+            fail("the offline artifact did not launch K1 as Upmixer does or differs from it")
+        del got, ref, short, short_ref, art, live, Lt, Rt
+
+        # A serving host's load: a fresh process, with the kernel library
+        # cached (the checkout's build directory) and with none (a new
+        # $UPMIX_TORCH_BUILD_DIR: the load compiles the kernels).
+        for label, env in (("library cached", {}), ("no library", {"UPMIX_TORCH_BUILD_DIR": str(work / "cold")})):
+            res = subprocess.run([sys.executable, "-c", _AOT_CHILD, path], capture_output=True, text=True,
+                                 env={**os.environ, **env}, timeout=600)
+            if res.returncode != 0:
+                fail(f"a fresh process could not load the offline artifact: {res.stderr[-2000:]}")
+            child = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"aot [{smi}]: offline artifact in a fresh process, {label}: import {child['import_s']:.3f} s, "
+                  f"load {child['load_s']:.3f} s (nvcc {child['nvcc_s']:.2f} s of it), first call "
+                  f"{child['first_ms']:.1f} ms, second {child['second_ms']:.2f} ms, K1 launches {child['launches']}",
+                  flush=True)
+            if child["launches"] != 2 * want:
+                fail("the offline artifact in a fresh process did not launch K1")
+
+        # The serving pool: the Bela config at S = 2048, both OLA modes, hops 1 and 4.
+        pcfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+        for ola in ("time", "spectral"):
+            for hops in (1, 4):
+                path = str(work / f"pool_{ola}_{hops}.upmixaot")
+                _, save_s = timed(lambda: aot.save_stream_pool(path, pcfg, POOL_HW, POOL_STREAMS, ola=ola, hops=hops))
+                art, load_s = timed(lambda: aot.load(path))
+                live, live_init_s = timed(lambda: make_stream_pool(pcfg, POOL_HW, POOL_STREAMS, ola=ola))
+                if not isinstance(live, CudaStreamPool):
+                    fail("make_stream_pool did not return the CUDA pool")
+                rng = np.random.default_rng(hops)
+                x = torch.as_tensor(rng.standard_normal((POOL_BLOCKS // hops, 2, POOL_STREAMS, hops * POOL_HW)) * 0.3,
+                                    dtype=torch.float32, device=dev)
+
+                def push(p, blk):
+                    return p.push_blocks_multi(blk[0], blk[1]) if hops > 1 else p.push_blocks(blk[0], blk[1])
+
+                counts = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES)
+                pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = pool.EDGE_LAUNCHES = 0
+                first, first_s = timed(lambda: push(art, x[0]))
+                outs = [first] + [push(art, blk) for blk in x[1:]]
+                k3, k3s, edge = pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
+                same = all(_equal(o, push(live, blk)) for o, blk in zip(outs, x))
+                snap = art.snapshot()
+                fresh = aot.load(path)
+                fresh.restore(snap)
+                cont = _equal(push(fresh, x[0]), push(live, x[0]))
+                pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES = counts
+                launched = (k3 > 0 and k3s == 0) if ola == "time" else (k3s > 0 and edge > 0 and k3 == 0)
+                print(f"aot [{smi}]: pool artifact ola={ola} hops={hops} S={POOL_STREAMS}: "
+                      f"{Path(path).stat().st_size} bytes, save {save_s:.3f} s, load {load_s:.3f} s, first call "
+                      f"{first_s * 1e3:.2f} ms; the live make_stream_pool: construction {live_init_s:.3f} s; over "
+                      f"{POOL_BLOCKS} blocks K3 launches {k3}, K3s launches {k3s} (edge product {edge}); bit for bit "
+                      f"the live pool {same}; a snapshot restored into a fresh load continues bit for bit {cont}",
+                      flush=True)
+                if not launched or not same or not cont:
+                    fail(f"the pool artifact (ola={ola}, hops={hops}) did not launch its kernels or differs from the "
+                         "live pool")
+                del art, live, fresh, outs, first, snap, x
+                torch.cuda.empty_cache()
+
+                # The snapshot through JSON, at the server's default slot count.
+                path = str(work / f"pool_{ola}_{hops}_small.upmixaot")
+                aot.save_stream_pool(path, pcfg, POOL_HW, AOT_JSON_STREAMS, ola=ola, hops=hops)
+                art, live = aot.load(path), CudaStreamPool(pcfg, POOL_HW, AOT_JSON_STREAMS, ola=ola)
+                x = torch.as_tensor(rng.standard_normal((POOL_BLOCKS // hops + 1, 2, AOT_JSON_STREAMS,
+                                                         hops * POOL_HW)) * 0.3, dtype=torch.float32, device=dev)
+                for blk in x[:-1]:
+                    push(art, blk)
+                    push(live, blk)
+                text = json.dumps(_tree_lists(art.snapshot()))
+                art.restore(json.loads(text))
+                cont = _equal(push(art, x[-1]), push(live, x[-1]))
+                print(f"aot: pool artifact ola={ola} hops={hops} S={AOT_JSON_STREAMS}: snapshot through JSON "
+                      f"({len(text)} characters) restored, continues bit for bit {cont}", flush=True)
+                if not cont:
+                    fail("a pool artifact's snapshot did not continue bit for bit after JSON")
+                del art, live, x
+
+        # The streaming step at hw 2048 (K3).
+        path = str(work / "step.upmixaot")
+        _, save_s = timed(lambda: aot.save_stream_step(path, pcfg, POOL_HW))
+        art, load_s = timed(lambda: aot.load(path))
+        live, live_init_s = timed(lambda: StreamingUpmixer(pcfg, POOL_HW, device="cuda"))
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal((POOL_BLOCKS, 2, POOL_HW)).astype(np.float32) * 0.3
+        pool.LAUNCHES = 0
+        got = [art.push_block(b[0], b[1]) for b in x]
+        k3 = pool.LAUNCHES
+        same = all(_equal(g, live.push_block(b[0], b[1])) for g, b in zip(got, x))
+        nonzero = bool(got[-1][0].abs().max() > 0)
+        print(f"aot [{smi}]: stream-step artifact hw={POOL_HW}: {Path(path).stat().st_size} bytes, save {save_s:.3f} s, "
+              f"load {load_s:.3f} s; StreamingUpmixer construction {live_init_s:.3f} s; K3 launches over "
+              f"{POOL_BLOCKS} blocks {k3}; bit for bit StreamingUpmixer {same}, signal after warmup {nonzero}",
+              flush=True)
+        if not k3 or not same or not nonzero:
+            fail("the stream-step artifact did not launch K3 or differs from StreamingUpmixer")
+
+        # The CLI's --save-aot, all three kinds, each loaded onto the card.
+        edges = ",".join(str(int(e)) for e in BAND_EDGES)
+        pedges = ",".join(str(int(e)) for e in POOL_EDGES)
+        kinds = {
+            "cli_offline": ["--sr", str(int(SR)), "--band-edges", edges],
+            "cli_step": ["--sr", str(int(POOL_SR)), "--band-edges", pedges, "--aot-stream"],
+            "cli_pool": ["--sr", str(int(POOL_SR)), "--band-edges", pedges, "--aot-pool", str(POOL_STREAMS),
+                         "--aot-hops", "4", "--pool-ola", "spectral"],
+        }
+        loaded = []
+        for name, extra in kinds.items():
+            path = str(work / f"{name}.upmixaot")
+            stdout = io.StringIO()
+            with contextlib.redirect_stdout(stdout):
+                rc = cli.main(["-", "--save-aot", path, *extra])
+            line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            art = aot.load(path)
+            loaded.append(f"{name} rc {rc} {line['type']} {line['platforms']} -> {type(art).__name__}")
+            if rc or line["platforms"] != ["cuda"]:
+                fail(f"--save-aot ({name}) failed")
+        print("aot: the CLI's --save-aot, then load: " + "; ".join(loaded), flush=True)
+
+        # A JAX artifact, written by hand (the port needs no jax), is refused.
+        path = work / "jax.upmixaot"
+        jax_meta = {"format": 1, "type": "offline", "config": {}, "n_samples": 4096, "kernel": "mm",
+                    "platforms": ["tpu"], "jax_version": "0.0"}
+        path.write_bytes(b"UPMIXAOT1\n" + json.dumps(jax_meta).encode() + b"\n" + b"\0" * 64)
+        try:
+            aot.load(str(path))
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        print(f"aot: a JAX artifact: read_meta type {aot.read_meta(str(path))['type']}, load refused: {msg}",
+              flush=True)
+        if msg is None or "JAX package artifact" not in msg or "\n" in msg:
+            fail("load did not refuse a JAX artifact with one line")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -2,8 +2,8 @@
 against the JAX package's CLI on the same seeded WAV: the same file names
 and layouts in every export mode, AB's right channel identical, the stems
 at 60 dB or better; --mesh on a CPU mesh against the plain run (the
-pattern of tests/test_cli.py); --streaming, --pipe and --serve; and a
-clean one-line error for every flag whose mode is not ported.
+pattern of tests/test_cli.py); --streaming (and --engine native), --pipe
+and --serve; and the one-line errors of the --save-aot flags.
 """
 
 import io
@@ -19,10 +19,11 @@ import pytest
 from upmix_tpu.cli import main as jax_main
 from upmix_tpu.cli import parse_edges as jax_parse_edges
 from upmix_tpu.cli import parse_mesh_spec as jax_parse_mesh_spec
-from upmix_tpu_torch.cli import NOT_PORTED, main, parse_edges, parse_mesh_spec
+from upmix_tpu_torch.cli import main, parse_edges, parse_mesh_spec
 from upmix_tpu_torch.io import read_wav, write_wav
 
 from helpers import cpu_child_env, make_stereo, snr_db
+from torch_helpers import native_engine
 
 ROOT = Path(__file__).resolve().parent.parent
 COMMON = ["--band-edges", "0,400,1600", "--max-block-size", "512"]
@@ -73,7 +74,7 @@ def test_offline_matches_jax_cli(tmp_path, capsys, mode):
     a = _input(tmp_path, "a.wav", seed=1)
     b = _input(tmp_path, "b.wav", n=2500, seed=2)
     args = [str(a), str(b), "--export-mode", mode, *COMMON]
-    assert main([*args, "--out-dir", str(tmp_path / "t"), *CPU]) == 0
+    assert main([*args, "--out-dir", str(tmp_path / "t"), "--no-compile-cache", *CPU]) == 0
     got = _printed(capsys)
     assert jax_main([*args, "--out-dir", str(tmp_path / "j"), "--no-compile-cache"]) == 0
     ref = _printed(capsys)
@@ -193,22 +194,34 @@ def test_serve(tmp_path, capsys, monkeypatch):
         main([str(a), "--serve", *CPU])
 
 
-@pytest.mark.parametrize("dest", sorted(NOT_PORTED))
-def test_unported_flags_exit_cleanly(dest, capsys):
-    flag, _what = NOT_PORTED[dest]
+# The --save-aot flags' errors, with the JAX CLI's checks and messages.
+AOT_ERRORS = {
+    "stream_and_pool": (["--aot-stream", "--aot-pool", "8"], "--aot-stream and --aot-pool are exclusive"),
+    "hops_without_pool": (["--aot-hops", "4"], "--aot-hops requires --aot-pool"),
+    "tpu_platform": (["--aot-platforms", "tpu"], "platform 'tpu'"),
+    "no_sr": (["--sr", "0"], "--save-aot requires a positive --sr"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AOT_ERRORS))
+def test_unported_flags_exit_cleanly(case, tmp_path, capsys):
+    extra, want = AOT_ERRORS[case]
     with pytest.raises(SystemExit) as exc:
-        main(["-", flag, "8000"])
+        main(["-", "--save-aot", str(tmp_path / "x.upmixaot"), "--sr", "8000", *extra])
     msg = str(exc.value)
-    assert msg.startswith(f"error: {flag}") and "not ported" in msg and "\n" not in msg
+    assert msg.startswith("error: ") and want in msg and "\n" not in msg
+    assert not (tmp_path / "x.upmixaot").exists()
 
 
 def test_other_clean_errors(tmp_path):
     path = _input(tmp_path)
     with pytest.raises(SystemExit, match="unknown --window"):
         main([str(path), "--window", "blackman_haris", *CPU])
-    with pytest.raises(SystemExit, match="native"):
-        main([str(path), "--streaming", "--engine", "native", *CPU])
     with pytest.raises(SystemExit):
         main([str(path), "--export-mode", "quad", *CPU])
     with pytest.raises(FileNotFoundError):
         main([str(tmp_path / "nope.wav"), "--out-dir", str(tmp_path), *CPU])
+    # Last, since it skips where the native library cannot be built.
+    native_engine()
+    assert main([str(path), "--streaming", "--engine", "native", "--out-dir", str(tmp_path / "n"), *CPU]) == 0
+    assert len(os.listdir(tmp_path / "n")) == 1

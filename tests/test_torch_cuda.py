@@ -521,6 +521,56 @@ def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
     assert pool.SPECTRAL_LAUNCHES == before
 
 
+def test_spectral_whole_of_an_all_edge_plan_is_zeros_on_the_card(cuda):
+    # The Bela config's 8192 and 4096 records alone: at hops 1 every frame
+    # goes to the edge product, so spectral_whole launches nothing and its
+    # out=None result must be exact zeros, not unwritten memory.
+    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.ops.pool import plan_from_stream_buckets, spectral_whole
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    records = [r for r in _plan_stream_buckets(cfg, 2048) if r.block_size in (8192, 4096)]
+    S = 64
+    plan = plan_from_stream_buckets(records, 2048, 4, S, cuda, ola="spectral")
+    assert all(not whole for _, whole in plan.spectral_routes(1).frames)
+    gen = torch.Generator(cuda).manual_seed(0)
+    carries = [torch.randn(b.spectral_carry_shape(S), device=cuda, generator=gen) for b in plan.buckets]
+    specs = [torch.randn((S, 3, b.passes, b.kept, 2), device=cuda, generator=gen) for b in plan.buckets]
+    t = torch.full((S,), 9, dtype=torch.int32, device=cuda)
+    for _ in range(3):  # reuse of freed blocks of the caching allocator
+        torch.full((S, 3, 2048), float("nan"), device=cuda)
+        before = pool.SPECTRAL_LAUNCHES
+        out = spectral_whole(carries, specs, t, plan)
+        torch.cuda.synchronize()
+        assert pool.SPECTRAL_LAUNCHES == before and out.shape == (S, 3, 2048) and not out.any()
+
+
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+def test_aot_pool_artifact_on_the_card(cuda, ola, tmp_path):
+    # A pool artifact saved on the host loads onto the card, launches the
+    # pool kernels and equals the live pool bit for bit, at hops 1 and 4.
+    from upmix_tpu_torch import aot
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    S = 8
+    rng = np.random.default_rng(0)
+    for hops in (1, 4):
+        path = str(tmp_path / f"pool{hops}.upmixaot")
+        aot.save_stream_pool(path, cfg, 2048, S, ola=ola, hops=hops)
+        art = aot.load(path)
+        live = CudaStreamPool(cfg, 2048, S, ola=ola)
+        before = pool.LAUNCHES + pool.SPECTRAL_LAUNCHES
+        for _ in range(3):
+            x = rng.standard_normal((2, S, hops * 2048)).astype(np.float32)
+            push = (lambda p: p.push_blocks_multi(x[0], x[1])) if hops > 1 else (lambda p: p.push_blocks(x[0], x[1]))
+            for got, want in zip(push(art), push(live)):
+                assert torch.equal(got, want)
+        assert pool.LAUNCHES + pool.SPECTRAL_LAUNCHES > before
+
+
 @pytest.mark.parametrize("ola", ["time", "spectral"])
 def test_mesh_pool_on_the_card(cuda, ola):
     # data = 2 over the one card, repeated: the shards run as rows of one

@@ -4,9 +4,12 @@ ShardedUpmixer on a CPU mesh, the stream pools (a spectral one and one
 on a mesh of two CPU devices among them), the tuner's two sweeps, a
 stream-server session,
 both probes' plain versions and the CLI on a WAV file, the custom-window
-registry, and the routes of geometries no kernel takes (overlap 0.65
+registry, the routes of geometries no kernel takes (overlap 0.65
 offline, batched and sharded, `--window-file` and `--overlap` in the
-CLI) leaves jax, and every module of the JAX package, unimported.
+CLI), AOT artifacts of all three kinds saved and loaded (and the CLI's
+--save-aot), the native engine (where `make -C native` builds it), the
+utils, the FIR design, the plots and the demo leaves jax, and every
+module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
 """
@@ -15,7 +18,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from helpers import cpu_child_env
+from torch_helpers import native_engine
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -31,7 +37,8 @@ for name in names:
     importlib.import_module(name)
 for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
             "ops.fused", "parallel.sharded", "models.batch", "ops.int8_dot", "ops.overhead_probe", "app",
-            "cli", "io.wav", "metrics", "serve_stream", "tune"):
+            "cli", "io.wav", "metrics", "serve_stream", "tune", "aot", "native", "native.host", "utils.profiling",
+            "utils.cache", "filter_design", "visualize", "demo"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
@@ -98,6 +105,29 @@ with tempfile.TemporaryDirectory() as tmp:
     np.savetxt(win, np.hanning(64))
     assert cli.main([wav, "--out-dir", tmp, "--band-edges", "0,400,1600", "--max-block-size", "512",
                      "--overlap", "0.65", "--window-file", win, "--device", "cpu"]) == 0
+from upmix_tpu_torch import aot, filter_design, native, utils, visualize
+from upmix_tpu_torch.demo import run_demo
+with tempfile.TemporaryDirectory() as tmp:
+    p = os.path.join(tmp, "a.upmixaot")
+    aot.save_offline(p, cfg, 3000, device="cpu")
+    c2, _, _ = aot.load(p, device="cpu").process_np(L, 0.5 * L)
+    np.testing.assert_array_equal(c2, Upmixer(cfg, device="cpu").process_np(L, 0.5 * L)[0])
+    aot.save_stream_step(p, scfg, 256, device="cpu")
+    assert aot.load(p, device="cpu").push_block(L[:256], L[:256])[0].shape == (256,)
+    assert cli.main(["-", "--save-aot", p, "--sr", "8000", "--band-edges", "0,400,1600", "--hw-block", "256",
+                     "--aot-pool", "2", "--aot-hops", "2", "--pool-ola", "spectral", "--device", "cpu"]) == 0
+    assert aot.load(p, device="cpu").push_blocks_multi(np.ones((2, 512)), np.ones((2, 512)))[0].shape == (2, 512)
+    wav = os.path.join(tmp, "in.wav")
+    write_wav(wav, np.stack([L, 0.5 * L], 1), 8000)
+    run_demo(wav, out_dir=tmp, band_edges=[0.0, 400.0, 1600.0], device="cpu")
+    assert cli.main([wav, "--out-dir", tmp, "--band-edges", "0,400,1600", "--max-block-size", "512", "--device",
+                     "cpu", "--no-compile-cache"]) == 0
+if native.is_available():
+    eng = native.NativeStreamingUpmixer([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
+    assert eng.process_signal(L, L)[0].shape == (2816,)
+assert len(filter_design.apply_fir_filter(L, filter_design.design_lr4_lp_fir(8000.0))) == len(L)
+assert visualize.overlapped_window_sums(np.hanning(64), np.hanning(64), 0.75)[0].shape == (112,)
+assert utils.time_fn(lambda: torch.ones(4) * 2, iters=2) > 0 and utils.RealtimeMeter(8000.0).audio_s == 0.0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_package = sorted(m for m in sys.modules if m == "upmix_tpu" or m.startswith("upmix_tpu."))
@@ -107,6 +137,10 @@ print("NOJAX_OK", len(names))
 
 
 def test_port_never_imports_jax():
+    try:  # the native engine runs in the script where it can be built
+        native_engine()
+    except pytest.skip.Exception:
+        pass
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT],
         cwd=ROOT, env=cpu_child_env(), capture_output=True, text=True, timeout=120,

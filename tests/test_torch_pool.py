@@ -18,6 +18,7 @@ from upmix_tpu.models.streaming import PallasStreamPool
 from upmix_tpu.ops.pallas_pool import make_pool_plan as jax_make_pool_plan
 from upmix_tpu.ops.pallas_pool import pool_step_lcr as jax_pool_step_lcr
 from upmix_tpu_torch.config import UpmixConfig
+from upmix_tpu_torch import aot
 from upmix_tpu_torch.models.streaming import CudaStreamPool
 from upmix_tpu_torch.ops import pool
 from upmix_tpu_torch.ops.fftplan import pass_twiddles
@@ -326,7 +327,7 @@ def test_cpu_pool_plan_builds_no_split_tables():
             _assert_close(want[o], got[o], what=f"block {i} output {o}")
 
 
-def test_cpu_dispatch_is_the_plain_version_and_options_not_ported():
+def test_cpu_dispatch_is_the_plain_version_and_options_not_ported(tmp_path):
     cfg, _ = _cfgs()
     plan = make_pool_plan(cfg, HW, 2, device="cpu")
     rng = np.random.default_rng(0)
@@ -342,14 +343,20 @@ def test_cpu_dispatch_is_the_plain_version_and_options_not_ported():
     with pytest.raises(ValueError):
         pool_step_lcr(hist[..., :-1], t, carries, plan)
     # A mesh and the spectral dataflow construct (tests/test_torch_pool_mesh.py
-    # and test_torch_spectral.py run them); AOT loading is not ported.
+    # and test_torch_spectral.py run them); the AOT load (the JAX package's
+    # shape-only build) gives the built plan, checked against the artifact.
     mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
     assert CudaStreamPool(cfg, HW, 8, device="cpu", mesh=mesh).plan.n_streams == 4
     assert CudaStreamPool(cfg, HW, 8, device="cpu", ola="spectral").plan.ola == "spectral"
     with pytest.raises(ValueError, match="unknown ola"):
         CudaStreamPool(cfg, HW, 8, device="cpu", ola="freq")
-    with pytest.raises(NotImplementedError, match="Queue 1: aot.py"):
-        CudaStreamPool(cfg, HW, 8, device="cpu", _shape_only=True)
+    built = CudaStreamPool(cfg, HW, 8, device="cpu")
+    aot.save_stream_pool(str(tmp_path / "pool.upmixaot"), cfg, HW, 8, device="cpu")
+    slim = aot.load(str(tmp_path / "pool.upmixaot"), device="cpu")
+    assert [(b.block, b.hop, b.lo, b.kept) for b in slim.plan.buckets] == [
+        (b.block, b.hop, b.lo, b.kept) for b in built.plan.buckets]
+    assert all(torch.equal(s.gains, b.gains) and torch.equal(s.analysis_window, b.analysis_window)
+               for s, b in zip(slim.plan.buckets, built.plan.buckets))
 
 
 def _probe_body(histL, histR, geometry, hw, mode):

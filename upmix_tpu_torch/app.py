@@ -13,8 +13,9 @@ What differs: the engines are the port's (`Upmixer`, `ShardedUpmixer`,
 kernel (K1), `--mesh` the fused bucket kernel (K2) beside it, and the
 streaming and pipe paths the pool kernel (K3).  The JAX package's
 `kernel=` knob is gone: the device decides, and `device=` (default
-"cuda") takes its place.  The streaming engine is "torch"; "native" (the
-C++ host shell, whose loader belongs to the JAX package) is not ported.
+"cuda") takes its place.  The streaming engines are "torch" and
+"native" (the C++ host shell of native/, `make -C native`; it runs on
+the host CPU and ignores `device`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from upmix_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 EXPORT_MODES = ("AB", "split", "stereo_sum")
-STREAM_ENGINES = ("torch",)
+STREAM_ENGINES = ("torch", "native")
 
 
 def load_stereo(path):
@@ -138,12 +139,12 @@ def run_streaming(in_path, out_dir="out", hw_block_size: int = 2048, band_edges=
     if export_mode not in ("stereo_sum", "split"):
         raise ValueError(f"streaming export_mode must be 'stereo_sum' or 'split', got {export_mode!r}")
     L, R, sr, _peak = load_stereo(in_path)
-    eng, config = _make_streaming_engine(
+    eng, _warmup, config = _make_streaming_engine(
         band_edges, sr, hw_block_size, window, xover_mode, threshold_factor, synthesis, bin_rounding, engine,
         verbose=verbose, device=device,
     )
     mix = "stereo_sum" if export_mode == "stereo_sum" else "lcr"
-    outs = tuple(o.cpu().numpy() for o in eng.process_signal(L.astype(np.float32), R.astype(np.float32), mix=mix))
+    outs = _host(eng.process_signal(L.astype(np.float32), R.astype(np.float32), mix=mix))
 
     os.makedirs(out_dir, exist_ok=True)
     info = band_info_str(config)
@@ -166,19 +167,32 @@ def run_streaming(in_path, out_dir="out", hw_block_size: int = 2048, band_edges=
 def _make_streaming_engine(band_edges, sr: float, hw_block_size: int, window: str, xover_mode: str,
                            threshold_factor: float, synthesis: str, bin_rounding: str, engine: str,
                            verbose: bool = False, device="cuda"):
-    """The streaming engine of run_streaming and run_pipe: (engine, config)."""
-    if engine == "native":
-        raise ValueError("engine 'native' (the C++ host shell) is not ported to upmix_tpu_torch; "
-                         "use engine 'torch' or the JAX package's CLI")
+    """The streaming engine of run_streaming and run_pipe: (engine, warmup
+    blocks, config); both engines have push_block and process_signal."""
     if engine not in STREAM_ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {STREAM_ENGINES}")
-    from upmix_tpu_torch.models.streaming import StreamingUpmixer
-
     config = UpmixConfig.streaming(
         list(band_edges), sr=float(sr), hw_block_size=hw_block_size, window=window, xover_mode=xover_mode,
         threshold_factor=threshold_factor, synthesis=synthesis, bin_rounding=bin_rounding, verbose=verbose,
     )
-    return StreamingUpmixer(config, hw_block_size, device=device), config
+    if engine == "native":
+        from upmix_tpu_torch.native import NativeStreamingUpmixer
+
+        eng = NativeStreamingUpmixer(
+            list(band_edges), sr=float(sr), hw_block_size=hw_block_size, xover_mode=xover_mode, synthesis=synthesis,
+            bin_rounding=bin_rounding, threshold_factor=threshold_factor, window=window,
+        )
+        return eng, eng.latency_blocks, config
+    from upmix_tpu_torch.models.streaming import StreamingUpmixer
+
+    eng = StreamingUpmixer(config, hw_block_size, device=device)
+    return eng, eng.warmup_blocks, config
+
+
+def _host(outs) -> tuple:
+    """An engine's outputs (tensors, or the native engine's numpy arrays)
+    as numpy arrays."""
+    return tuple(o.cpu().numpy() if hasattr(o, "cpu") else np.asarray(o) for o in outs)
 
 
 def _read_exact(src, nbytes: int) -> bytes:
@@ -212,13 +226,12 @@ def run_pipe(stdin, stdout, sr: float, hw_block_size: int = 2048, band_edges=(0,
     if mix not in ("stereo_sum", "lcr"):
         raise ValueError(f"pipe mix must be 'stereo_sum' or 'lcr', got {mix!r}")
     hw = int(hw_block_size)
-    eng, _config = _make_streaming_engine(
+    eng, warmup_blocks, _config = _make_streaming_engine(
         band_edges, sr, hw, window, xover_mode, threshold_factor, synthesis, bin_rounding, engine, device=device,
     )
-    warmup_blocks = eng.warmup_blocks
 
     def push(bl, br):
-        return tuple(o.cpu().numpy() for o in eng.push_block(bl, br))
+        return _host(eng.push_block(bl, br))
 
     src = getattr(stdin, "buffer", stdin)
     dst = getattr(stdout, "buffer", stdout)

@@ -8,14 +8,17 @@ process, with the data-axis batch for many files), `--streaming`,
 `--pipe`, the `--serve` job server, the `--serve-stream` multi-client
 stream server (its pool in either OLA dataflow, `--pool-ola`, and on a
 mesh, `--pool-mesh`) with its network client (`--connect`) and metrics
-(`--fetch-metrics`, `--prometheus`, `--metrics-http`).  `--device`
+(`--fetch-metrics`, `--prometheus`, `--metrics-http`), and `--save-aot`
+(a deployment artifact of the offline program, the streaming step or the
+serving pool; load it with `upmix_tpu_torch.aot.load`).  `--device`
 (default cuda) takes the place of the JAX package's platform choice and
 of its `--kernel` flag: on the card the offline path runs the omnibus
 kernel, `--mesh` the fused bucket kernel beside it, the streaming modes
-and the stream server the pool kernel.  Geometries no kernel takes
+and the stream server the pool kernel; `--engine native` runs the C++
+host engine on the CPU instead.  Geometries no kernel takes
 (`--overlap 0.65`, a non-power-of-two `--max-block-size`) run on
-torch.fft, as the JAX CLI runs them on XLA.  Flags of modes that are not
-ported yet exit with a one-line error.
+torch.fft, as the JAX CLI runs them on XLA.  `--no-compile-cache` builds
+the kernels afresh into a temporary directory for this call.
 
 Usage:
   python -m upmix_tpu_torch.cli song.wav [more.wav ...] --export-mode stereo_sum
@@ -24,6 +27,7 @@ Usage:
   python -m upmix_tpu_torch.cli song.wav --window-file w.npy   # a custom window vector (.npy or text)
   python -m upmix_tpu_torch.cli - --serve-stream 7000 --sr 48000
   python -m upmix_tpu_torch.cli song.wav --connect 127.0.0.1:7000
+  python -m upmix_tpu_torch.cli - --save-aot pool.upmixaot --sr 48000 --aot-pool 2048 --aot-hops 4
 """
 
 from __future__ import annotations
@@ -36,12 +40,6 @@ from upmix_tpu_torch.app import EXPORT_MODES, run_offline
 from upmix_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
-
-# Flags of the JAX CLI whose modes are not ported yet (ROADMAP.md, Queue 1).
-NOT_PORTED = {
-    "save_aot": ("--save-aot", "AOT artifacts"),
-    "load_aot": ("--load-aot", "AOT artifacts"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,8 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hw-block", type=int, default=2048,
                    help="streaming hardware block size in samples (default 2048, the reference Bela config)")
     p.add_argument("--engine", default="torch", choices=["torch", "native"],
-                   help="streaming engine: torch (the pool kernel on the card); native (the C++ host "
-                   "shell) is not ported")
+                   help="streaming engine: torch (the pool kernel on the card) or native (the C++ host shell on "
+                   "the CPU; requires `make -C native`)")
     p.add_argument("--serve", action="store_true",
                    help='job-server mode: one JSON job per stdin line ({"in": path, "out_dir"?, '
                    '"export_mode"?} or {"cmd": "ping"|"stats"}), one JSON result per stdout line '
@@ -118,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meter", action="store_true",
                    help="print the realtime factor (audio-sec per wall-sec) after each file")
     p.add_argument("--verbose", action="store_true", help="print per-band config table")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="build the CUDA kernels into a fresh temporary directory for this call instead of reusing "
+                   "a cached library (upmix_tpu_torch/_build/, or $UPMIX_TORCH_BUILD_DIR)")
     p.add_argument("--serve-stream", type=int, default=None, metavar="PORT",
                    help="multi-client live-stream server: each TCP connection claims one slot of a shared serving "
                    "pool, one pool dispatch per hardware block serves every live session (requires --sr; port 0 "
@@ -168,8 +169,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "Prometheus text with --prometheus)")
     p.add_argument("--prometheus", action="store_true",
                    help="with --fetch-metrics: print the Prometheus text exposition instead of JSON")
-    for dest, (flag, _what) in NOT_PORTED.items():
-        p.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--save-aot", default=None, metavar="PATH",
+                   help="write a deployment artifact for the active config and exit: the offline program frozen at "
+                   "--aot-samples, the streaming step with --aot-stream, or the serving pool with --aot-pool "
+                   "(requires --sr; input must be '-'; load with upmix_tpu_torch.aot.load)")
+    p.add_argument("--aot-samples", type=int, default=2**21,
+                   help="input length the offline artifact is frozen at (default 2097152, about 47.6 s at 44.1 kHz; "
+                   "shorter inputs zero-pad)")
+    p.add_argument("--aot-stream", action="store_true",
+                   help="with --save-aot: the real-time streaming step (C++-parity defaults, --hw-block sized) "
+                   "instead of the offline program")
+    p.add_argument("--aot-pool", type=int, default=None, metavar="N_STREAMS",
+                   help="with --save-aot: the serving-pool step for N concurrent streams (--hw-block sized, "
+                   "--pool-ola dataflow) instead of the offline program")
+    p.add_argument("--aot-hops", type=int, default=1, metavar="T",
+                   help="with --save-aot --aot-pool: freeze the step of T consecutive hardware blocks per call (the "
+                   "loaded pool serves through push_blocks_multi with [N, T*hw] inputs)")
+    p.add_argument("--aot-platforms", default=None,
+                   help="comma-separated platforms the artifact may load on: cuda and/or cpu (default: --device's)")
     return p
 
 
@@ -262,16 +279,17 @@ def load_window_file(path: str) -> str:
     return name
 
 
-def _check_not_ported(args):
-    for dest, (flag, what) in NOT_PORTED.items():
-        if getattr(args, dest):
-            raise SystemExit(f"error: {flag} ({what}) is not ported to upmix_tpu_torch yet; "
-                             "use the JAX package's CLI (python -m upmix_tpu.cli)")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_not_ported(args)
+    if not args.no_compile_cache:
+        return _main(args)
+    from upmix_tpu_torch.ops import _build
+
+    with _build.fresh_build_dir():
+        return _main(args)
+
+
+def _main(args) -> int:
     if args.window_file is not None:
         try:
             args.window = load_window_file(args.window_file)
@@ -285,9 +303,6 @@ def main(argv=None) -> int:
         if not is_known_window(args.window):
             raise SystemExit(f"error: unknown --window {args.window!r}; one of {', '.join(sorted(window_names()))} "
                              "(or register one via --window-file / upmix_tpu_torch.ops.windows.register_window)")
-    if args.engine == "native":
-        raise SystemExit("error: --engine native (the C++ host shell) is not ported to upmix_tpu_torch; "
-                         "use --engine torch")
     edges = parse_edges(args.band_edges)
     if args.mesh is not None and (args.pipe or args.streaming or args.serve or args.serve_stream is not None
                                   or args.connect is not None):
@@ -358,6 +373,62 @@ def _connect(args) -> int:
     return 0
 
 
+def _save_aot(args, edges) -> int:
+    """Write the --save-aot artifact and print its metadata line."""
+    import json
+
+    from upmix_tpu_torch import aot
+    from upmix_tpu_torch.config import UpmixConfig
+
+    if args.pipe or args.streaming or args.serve or args.serve_stream is not None:
+        raise SystemExit("error: --save-aot is exclusive with --serve/--serve-stream/--pipe/--streaming")
+    if args.sr is None or args.sr <= 0:
+        raise SystemExit("error: --save-aot requires a positive --sr")
+    if args.inputs != ["-"]:
+        raise SystemExit("error: --save-aot takes no input files; pass '-'")
+    platforms = None
+    if args.aot_platforms:
+        platforms = [s for s in args.aot_platforms.split(",") if s.strip()]
+    if args.aot_stream and args.aot_pool is not None:
+        raise SystemExit("error: --aot-stream and --aot-pool are exclusive")
+    if args.aot_hops != 1 and args.aot_pool is None:
+        raise SystemExit("error: --aot-hops requires --aot-pool")
+    try:
+        if args.aot_stream or args.aot_pool is not None:
+            cfg = UpmixConfig.streaming(
+                edges, sr=args.sr, hw_block_size=args.hw_block, window=args.window, xover_mode=args.xover_mode,
+                threshold_factor=args.threshold_factor, synthesis=args.synthesis or "analysis",
+                bin_rounding=args.bin_rounding or "cpp",
+            )
+            if args.aot_pool is not None:
+                if args.aot_pool < 1:
+                    raise SystemExit("error: --aot-pool must be >= 1 streams")
+                if args.pool_group < 8:
+                    raise SystemExit("error: --pool-group must be >= 8")
+                if args.aot_hops < 1:
+                    raise SystemExit("error: --aot-hops must be >= 1")
+                meta = aot.save_stream_pool(args.save_aot, cfg, args.hw_block, args.aot_pool, group=args.pool_group,
+                                            ola=args.pool_ola, hops=args.aot_hops, platforms=platforms,
+                                            device=args.device)
+            else:
+                meta = aot.save_stream_step(args.save_aot, cfg, args.hw_block, platforms=platforms,
+                                            device=args.device)
+        else:
+            if args.aot_samples < 1:
+                raise SystemExit("error: --aot-samples must be >= 1")
+            cfg = UpmixConfig.make(
+                edges, sr=args.sr, overlap=args.overlap, window=args.window, xover_mode=args.xover_mode,
+                max_block_size=args.max_block_size, threshold_factor=args.threshold_factor,
+                synthesis=args.synthesis or "wola", bin_rounding=args.bin_rounding or "python",
+            )
+            meta = aot.save_offline(args.save_aot, cfg, args.aot_samples, device=args.device, chunk=args.chunk,
+                                    platforms=platforms)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}")
+    print(json.dumps({"saved": args.save_aot, **{k: meta[k] for k in ("type", "platforms", "torch_version")}}))
+    return 0
+
+
 def _serve_stream(args, edges) -> int:
     """Serve until ^C or SIGTERM, then checkpoint to --snapshot-path."""
     import signal
@@ -420,6 +491,8 @@ def _run(args, edges) -> int:
         raise SystemExit("error: --prometheus requires --fetch-metrics")
     if args.connect is not None:
         return _connect(args)
+    if args.save_aot is not None:
+        return _save_aot(args, edges)
     if args.metrics_http is not None and args.serve_stream is None:
         raise SystemExit("error: --metrics-http requires --serve-stream")
     if args.serve_stream is not None:

@@ -60,6 +60,9 @@ WARMUP_BLOCKS = 4
 # frames held at once).
 _SIGNAL_HOPS = 64
 
+NOT_ELIGIBLE = ("config not eligible for the pool kernel (a hop that does not divide hw or its block, or no live "
+                "bucket); use BatchStreamingUpmixer")
+
 
 @dataclass(frozen=True)
 class _StreamBucketPlan:
@@ -591,26 +594,44 @@ class CudaStreamPool(_StreamPool):
     No group and no n_streams % group rule: any S >= 1.  A mesh needs a
     'data' axis and splits the streams over it (`_StreamPool`).
 
-    Not in this port yet: `_shape_only` AOT loading (ROADMAP.md, Queue 1:
-    aot.py) raises NotImplementedError.
+    `aot.load` freezes the pool at an artifact's `hops` (`_aot_hops`): a
+    pool frozen at hops > 1 serves through `push_blocks_multi` only, and
+    no other hops than the frozen one run.
     """
 
+    _aot_hops = None  # the hops an AOT-loaded pool is frozen at
+
     def __init__(self, config: UpmixConfig, hw_block_size: int, n_streams: int, device="cuda",
-                 mesh=None, ola: str = "time", _shape_only: bool = False):
+                 mesh=None, ola: str = "time"):
         check_ola(ola)
-        if _shape_only:
-            raise NotImplementedError("AOT pool artifacts are not ported yet (ROADMAP.md, Queue 1: aot.py)")
         self.ola = self._ola = ola
         super().__init__(config, hw_block_size, n_streams, device, mesh, need_data=True)
 
     def _make_plan(self, n_streams: int, device):
         plan = make_pool_plan(self.config, self.hw_block_size, n_streams, device, ola=self.ola)
         if plan is None:
-            raise ValueError(
-                "config not eligible for the pool kernel (a hop that does not divide hw "
-                "or its block, or no live bucket); use BatchStreamingUpmixer"
-            )
+            raise ValueError(NOT_ELIGIBLE)
         return plan
+
+    def _check_aot_hops(self, hops: int) -> None:
+        if self._aot_hops is not None and hops != self._aot_hops:
+            raise ValueError(
+                f"multi-hop steps other than hops={self._aot_hops} are unavailable on an AOT-loaded pool (its "
+                "artifact froze that step); save the multi-hop artifact (save_stream_pool(hops=...)) or build "
+                "a live pool"
+            )
+
+    def push_blocks(self, in_l, in_r):
+        if self._aot_hops not in (None, 1):
+            raise ValueError(
+                f"this AOT-loaded pool carries no single-hop program (artifact saved with hops={self._aot_hops}); "
+                "feed push_blocks_multi with [n_streams, hops*hw] inputs"
+            )
+        return super().push_blocks(in_l, in_r)
+
+    def make_sustained_runner(self, n_blocks: int, hops: int = 1):
+        self._check_aot_hops(int(hops))
+        return super().make_sustained_runner(n_blocks, hops)
 
     def push_blocks_multi(self, in_l, in_r):
         """`hops` consecutive blocks for every stream in one step: [S,
@@ -623,6 +644,7 @@ class CudaStreamPool(_StreamPool):
             raise ValueError(
                 f"push_blocks_multi expects two [{self.n_streams}, k*{hw}] channel arrays; got width {width}"
             )
+        self._check_aot_hops(width // hw)
         x = _blocks(in_l, in_r, self.device, (self.n_streams, width), "push_blocks_multi")
         self.state, out = self._step(self.state, x)
         return out[:, 0], out[:, 1], out[:, 2]

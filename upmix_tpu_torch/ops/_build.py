@@ -2,20 +2,25 @@
 
 `nvcc` compiles every `csrc/*.cu` (a plain C interface, no PyTorch
 headers) for sm_90a, one process per source, all started together, and
-links the objects into one library under `upmix_tpu_torch/_build/`,
-keyed by a hash of the flags and of every source and header under
-`csrc/`; the library is bound with ctypes.  Nothing here runs at
-import time: machines without a GPU or nvcc import the package and use
-the plain versions.
+links the objects into one library, keyed by a hash of the flags and of
+every source and header under `csrc/`; the library is bound with
+ctypes.  It lives in `BUILD_DIR`, which is `utils/cache.py::
+kernel_build_dir()` (the package's `_build/` in a checkout) unless set
+before the first load; `fresh_build_dir` points it at a temporary
+directory for the length of a block (the CLI's --no-compile-cache).  Nothing here
+runs at import time: machines without a GPU or nvcc import the package
+and use the plain versions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -23,15 +28,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = None  # a Path; kernel_build_dir() on the first load when None
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
-# Filled by load(): seconds spent in nvcc (0.0 when the library was
-# already built) and the compiler's report (registers, spills per kernel).
+# Filled by load(): seconds the last build spent in nvcc (0.0 when the
+# library was already built) and the compiler's report (registers, spills
+# per kernel).
 build_seconds = None
 build_log = ""
 
@@ -55,11 +61,35 @@ def library_key() -> str:
     return digest.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def fresh_build_dir():
+    """Inside the block, build into a new temporary directory and reuse no
+    library built before: the next `load` compiles afresh.  On leaving it,
+    the directory is removed and the earlier `BUILD_DIR` and library come
+    back."""
+    global BUILD_DIR, _lib
+    saved = BUILD_DIR, _lib
+    fresh = Path(tempfile.mkdtemp(prefix="upmix_torch_build_"))
+    BUILD_DIR, _lib = fresh, None
+    try:
+        yield fresh
+    finally:
+        BUILD_DIR, _lib = saved
+        shutil.rmtree(fresh, ignore_errors=True)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first call."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, BUILD_DIR
     if _lib is not None:
         return _lib
+    if BUILD_DIR is None:
+        from upmix_tpu_torch.utils.cache import ENV, kernel_build_dir
+
+        found = kernel_build_dir()
+        if not found:
+            raise RuntimeError(f"no writable directory to build the CUDA kernels in; set {ENV}")
+        BUILD_DIR = Path(found)
     so = BUILD_DIR / f"kernels_{library_key()}.so"
     build_seconds = 0.0
     if not so.exists():

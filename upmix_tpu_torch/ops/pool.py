@@ -713,7 +713,10 @@ def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRo
     S, hw, nq = t.shape[0], plan.hw, plan.warmup
     accumulate = out is not None
     if out is None:
-        out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=t.device)
+        # The first launch writes every position; with no launch (every
+        # bucket's frames on the edge product) the result is zeros.
+        alloc = torch.empty if any(whole for _, whole in routes.frames) else torch.zeros
+        out = alloc((S, 3, hops * hw), dtype=torch.float32, device=t.device)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     for b, carry, spec, (_, whole) in zip(plan.buckets, carries, specs, routes.frames):
         if not whole:

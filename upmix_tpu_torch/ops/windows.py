@@ -3,7 +3,8 @@ synthesis-window design.
 
 Numpy copies of `upmix_tpu/ops/windows.py` (the built-in windows, the
 registry: `register_window`, `register_window_vector`, `window_names`,
-`is_known_window`, `window_payload`, and `design_wola_synthesis_window`):
+`is_known_window`, `window_payload`, `restore_window`,
+`custom_window_vector`, and `design_wola_synthesis_window`):
 the port imports nothing of the JAX package.  tests/test_torch_ops.py
 pins every built-in window to the JAX package's output bit for bit, and
 tests/test_torch_windows.py the registry.  A registered name is accepted
@@ -32,13 +33,38 @@ def make_blackman_harris(N: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+def make_sqrt_hann(N: int) -> np.ndarray:
+    """Square-root Hann."""
+    return np.sqrt(np.hanning(N)).astype(np.float32)
+
+
+def make_hann(N: int) -> np.ndarray:
+    """Hann."""
+    return np.hanning(N).astype(np.float32)
+
+
+def make_blackman(N: int) -> np.ndarray:
+    """Blackman."""
+    return np.blackman(N).astype(np.float32)
+
+
+def make_hamming(N: int) -> np.ndarray:
+    """Hamming."""
+    return np.hamming(N).astype(np.float32)
+
+
+def make_rect(N: int) -> np.ndarray:
+    """Rectangular."""
+    return np.ones(N, dtype=np.float32)
+
+
 _WINDOWS = {
     "blackman_harris": make_blackman_harris,
-    "sqrt_hann": lambda N: np.sqrt(np.hanning(N)).astype(np.float32),
-    "hann": lambda N: np.hanning(N).astype(np.float32),
-    "blackman": lambda N: np.blackman(N).astype(np.float32),
-    "hamming": lambda N: np.hamming(N).astype(np.float32),
-    "rect": lambda N: np.ones(N, dtype=np.float32),
+    "sqrt_hann": make_sqrt_hann,
+    "hann": make_hann,
+    "blackman": make_blackman,
+    "hamming": make_hamming,
+    "rect": make_rect,
 }
 BUILTIN_WINDOWS = tuple(_WINDOWS)
 
@@ -143,6 +169,70 @@ def window_payload(name: str, sizes) -> dict:
         "kind": "sampled",
         "sizes": {str(int(n)): [float(v) for v in make_window(name, int(n))] for n in sorted({int(s) for s in sizes})},
     }
+
+
+def _payload_reference_coeffs(payload: dict) -> dict:
+    """{size: float32 coefficients} the payload pins, for conflict checks."""
+    kind = payload.get("kind")
+    if kind == "vector":
+        vec = np.asarray(payload["coeffs"], np.float32)
+        return {int(vec.size): vec}
+    if kind == "sampled":
+        return {int(k): np.asarray(v, np.float32) for k, v in payload["sizes"].items()}
+    raise ValueError(f"unknown window payload kind {kind!r}")
+
+
+def restore_window(name: str, payload: dict, check_sizes=()) -> str:
+    """Re-register `name` from a `window_payload`.
+
+    A name already known keeps its live registration, but only after its
+    coefficients are checked against the payload's at the payload's own
+    sizes and at `check_sizes` (the restoring config's block sizes: a
+    vector registration can agree at the vector's length and resample
+    differently at the sizes in use); a registration that differs raises,
+    since the plans would silently run another window."""
+    if is_known_window(name):
+        refs = _payload_reference_coeffs(payload)
+        if payload.get("kind") == "vector":
+            ref_fn = window_from_vector(np.asarray(payload["coeffs"], np.float32))
+            for n in check_sizes:
+                refs.setdefault(int(n), ref_fn(int(n)))
+        for n, want in refs.items():
+            got = make_window(name, n)
+            if got.shape != want.shape or not np.allclose(got, want, rtol=1e-6, atol=1e-7):
+                raise ValueError(
+                    f"window {name!r} is already registered in this process with coefficients that differ from "
+                    f"the artifact's at N={n}; unregister or rename the live registration before restoring this "
+                    "artifact"
+                )
+        return name
+    kind = payload.get("kind")
+    if kind == "vector":
+        return register_window_vector(name, np.asarray(payload["coeffs"], np.float32))
+    if kind == "sampled":
+        table = {int(k): np.asarray(v, np.float32) for k, v in payload["sizes"].items()}
+        if not table:
+            raise ValueError(f"sampled window payload for {name!r} is empty")
+        resample = window_from_vector(table[max(table)])
+
+        def fn(N: int) -> np.ndarray:
+            N = int(N)
+            if N in table:
+                return table[N].copy()
+            # A length off the table (a config edited after the restore):
+            # resampled from the longest stored evaluation.
+            return resample(N)
+
+        return register_window(name, fn)
+    raise ValueError(f"unknown window payload kind {kind!r} for {name!r}")
+
+
+def custom_window_vector(name: str):
+    """The registered vector behind `name` if it was vector-backed
+    (register_window_vector, --window-file), else None: the native engine
+    takes it to resample per band as the plans do."""
+    fn = _CUSTOM.get(name)
+    return getattr(fn, "vector", None) if fn is not None else None
 
 
 def design_wola_synthesis_window(analysis_window: np.ndarray, overlap: float) -> np.ndarray:
