@@ -19,9 +19,11 @@ loopback through `run_stream_server`; the pool's spectral OLA through
 `make_stream_pool(..., ola="spectral")`, the pool on a mesh and the
 tuner (`python -m upmix_tpu_torch.tune`'s two sweeps); and the AOT
 artifacts (`upmix_tpu_torch.aot`) of the offline program, the pool and
-the streaming step, loaded onto the card.  Phases, one line each or
-more, any failure exits nonzero (phases 10-13 and 19-21 run between 5
-and 6, 22-25 after 8, then 14-18 and 26):
+the streaming step, loaded onto the card; and processes that share one
+global mesh (`upmix_tpu_torch.parallel.distributed`,
+`build_sharded_offline_fn` across processes, `pod_check`).  Phases, one
+line each or more, any failure exits nonzero (phases 10-13 and 19-21 run
+between 5 and 6, 22-24, 27 and 25 after 8, then 14-18 and 26):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -212,7 +214,24 @@ and 6, 22-25 after 8, then 14-18 and 26):
      push_block launches K3 and equals StreamingUpmixer bit for bit; the
      CLI's --save-aot for the three kinds, each loaded; a JAX artifact
      refused with one line; each artifact's bytes, save and load seconds
-     and first call beside the live class's construction (and first call).
+     and first call beside the live class's construction (and first call);
+ 27. processes on one global mesh: two child processes, each holding four
+     entries of the one card, bring up torch.distributed under gloo
+     (`init_distributed`, the kernels already built by phase 2) and run
+     `build_sharded_offline_fn` on phase 11's two files over a global
+     {"seq": 4, "data": 2} mesh, whose seq axis crosses the process
+     boundary (the input head and the spill go by send and receive through
+     pinned host memory); each process's shards >= 60 dB against the
+     float64 whole-file path and within float32 rounding of phase 13's
+     ShardedUpmixer output (K1 and K2 sum a pass's frames before adding
+     them to the output, and the passes follow the launch geometry, which
+     follows the row count), K1 and K2 launched 3 times each a call, the
+     shards covering the output once; the exchange's ms a call beside the
+     call's and the group's realtime factor beside phase 13's; then
+     `run_pod_check` at its defaults in both processes (all_reduce, an
+     8-entry seq mesh, > 60 dB); the same at world size 1 under NCCL on 8
+     entries of one process; NCCL across two cards where there are two
+     (else one line says it was not run).
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -629,6 +648,7 @@ def main():
     kernels += pool_phases(smi, dev)
     kernels.append(spectral_phases(smi, dev))
     mesh_phases(smi, dev)
+    distributed_phases(smi, dev, shard_rtf)
     tune_phases(smi, dev)
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
@@ -1800,6 +1820,222 @@ def mesh_phases(smi: str, dev):
           f"{same} (max abs err {float(np.abs(got - ref).max()):.3g})", flush=True)
     if saved != SERVER_CLIENTS or not unsharded or not same or pool.SPECTRAL_LAUNCHES == 0:
         fail("the mesh pool's server session did not resume bit for bit on an unsharded server")
+
+
+DIST_MESH = {"seq": 4, "data": 2}  # over two processes of 4 entries: process 0 holds seq 0-1 of both files
+DIST_LOOPS = 5
+DIST_TIMEOUT = 300  # seconds a group of child processes may take
+# Shards against phase 13's output: K1 and K2 sum a pass's G frames before
+# adding them to the output, and which frames share a pass follows the
+# launch's hops per block, which follows the row count (4 rows a process
+# here, 8 in phase 13): float32 rounding apart, never more.
+DIST_DIFF_BAR = 1e-5
+
+# Phase 27's child: one process of a group.  argv[1] is a JSON object: the
+# group (port, rank, world, backend, device, local entries), bench.py's
+# config, the global mesh, the files and samples of phase 13's input, the
+# path of phase 13's output and the timing loops.  Prints one JSON line.
+_DIST_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from upmix_tpu_torch.config import UpmixConfig
+from upmix_tpu_torch.models.offline import build_offline_fn
+from upmix_tpu_torch.ops import fused, omnibus
+from upmix_tpu_torch.parallel import Shard, build_sharded_offline_fn, init_distributed, make_mesh, run_pod_check
+from upmix_tpu_torch.parallel import sharded
+
+a = json.loads(sys.argv[1])
+dev = torch.device(a["device"])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+info = init_distributed(f"127.0.0.1:{a['port']}", a["world"], a["rank"], [a["device"]] * a["local"], a["backend"])
+cfg = UpmixConfig.make(a["edges"], sr=a["sr"], max_block_size=a["max_block"])
+n, files = a["samples"], a["files"]
+audio = torch.as_tensor(np.random.default_rng(5).standard_normal((files, 2, n)), dtype=torch.float32, device=dev)
+fn, plan = build_sharded_offline_fn(cfg, n, make_mesh(a["mesh"]))
+assert plan.n_padded == n, plan
+fn(audio)  # the device plans are built on the first call
+sync()
+omnibus.LAUNCHES = fused.LAUNCHES = 0
+out = fn(audio)
+sync()
+k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+if isinstance(out, torch.Tensor):  # this process holds every entry
+    out = [Shard((slice(0, files), slice(None), slice(0, n)), out)]
+phase13 = np.load(a["ref"], mmap_mode="r")
+shards = []
+for i in range(files):
+    ref = torch.stack(build_offline_fn(cfg, n, chunk=0, device=dev)(audio[i, 0].double(), audio[i, 1].double()))
+    for s in out:
+        rows, _, sl = s.index
+        if rows.start <= i < rows.stop:
+            got = s.data[i - rows.start].double()
+            err, sig = ((ref[:, sl] - got) ** 2).sum(-1).tolist(), (ref[:, sl] ** 2).sum(-1).tolist()
+            snr = min(10 * np.log10(g / e) if e > 0 else float("inf") for g, e in zip(sig, err))
+            diff = float(np.abs(got.float().cpu().numpy() - phase13[i, :, sl]).max())
+            shards.append({"file": i, "start": sl.start, "stop": sl.stop, "snr_db": snr, "max_diff": diff})
+del ref
+
+
+def best_ms(after=lambda: None):
+    best = []
+    for _ in range(a["loops"]):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        fn(audio)
+        sync()
+        best.append((time.perf_counter() - t0, after()))
+    return min(best)
+
+
+call_s, _ = best_ms()
+# The exchange's own time: each halo step between a synchronize before and
+# after it (staging, send and receive, waits), summed over the call's two.
+spent, moved, real = [], [], sharded._exchange
+
+
+def timed(sends, recvs):
+    sync()
+    t0 = time.perf_counter()
+    got = real(sends, recvs)
+    sync()
+    spent.append(time.perf_counter() - t0)
+    moved.append(sum(t.numel() for _, _, t in sends) * 4 + sum(int(np.prod(r[2])) * 4 for r in recvs))
+    return got
+
+
+def drain():
+    took = (sum(spent), sum(moved))
+    spent.clear()
+    moved.clear()
+    return took
+
+
+sharded._exchange = timed
+timed_call_s, (exchange_s, exchange_bytes) = best_ms(drain)
+sharded._exchange = real
+pod = run_pod_check(device=a["device"], local_devices=a["local"], backend=a["backend"])
+print(json.dumps({"rank": a["rank"], "topology": info, "backend": dist.get_backend(), "k1": k1, "k2": k2,
+                  "shards": shards, "call_ms": call_s * 1e3, "timed_call_ms": timed_call_s * 1e3,
+                  "exchange_ms": exchange_s * 1e3, "exchange_bytes": exchange_bytes,
+                  "pod": {k: pod[k] for k in ("collective", "seq_sharded", "ok")}}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_group(world: int, backend: str, local: int, devices: list, ref_path: str) -> list:
+    """Start `world` processes of _DIST_CHILD at once; returns their JSON
+    lines, or fails on a non-zero exit or a timeout."""
+    from pathlib import Path
+
+    base = dict(port=_free_port(), world=world, backend=backend, local=local, edges=BAND_EDGES, sr=SR,
+                max_block=MAX_BLOCK, mesh=DIST_MESH, files=SHARD_FILES, samples=SHARD_SAMPLES, ref=ref_path,
+                loops=DIST_LOOPS)
+    argvs = [[sys.executable, "-c", _DIST_CHILD, json.dumps({**base, "rank": r, "device": devices[r]})]
+             for r in range(world)]
+    procs = [subprocess.Popen(argv, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        fail(f"a process of the {backend} group did not finish within {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reps = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"process {r} of the {backend} group exited {p.returncode}: {out[-1500:]} {err[-3000:]}")
+        reps.append(json.loads(out.strip().splitlines()[-1]))
+    return reps
+
+
+def distributed_phases(smi: str, dev, shard_rtf: float):
+    """Phase 27: processes that share one global mesh, on the one card
+    under gloo and with NCCL at world size 1 (and across cards with NCCL
+    where there are two)."""
+    import tempfile
+
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.offline import plans_from_numpy
+    from upmix_tpu_torch.ops.omnibus import launches_per_bucket
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh, sequence_plan
+    from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
+
+    cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
+    splan = sequence_plan(cfg, SHARD_SAMPLES, DIST_MESH["seq"])
+    omni_plan, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), dev), splan.chunk)
+    want_k1, want_k2 = sum(launches_per_bucket(b.block) for b in omni_plan.buckets), len(narrow)
+    audio_s = SHARD_FILES * SHARD_SAMPLES / SR
+    audio = torch.as_tensor(np.random.default_rng(5).standard_normal((SHARD_FILES, 2, SHARD_SAMPLES)),
+                            dtype=torch.float32, device=dev)  # phase 11's input
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = f"{tmp}/phase13.npy"
+        phase13 = ShardedUpmixer(cfg, make_mesh(SHARD_MESH, devices=[dev] * SHARD_FILES * SHARD_MESH["seq"]))
+        np.save(ref_path, phase13.process_batch(audio).cpu().numpy())
+        del audio, omni_plan, narrow, phase13
+        torch.cuda.empty_cache()
+
+        def report(reps, label: str):
+            for rep in reps:
+                t = rep["topology"]
+                worst = min(s["snr_db"] for s in rep["shards"])
+                diff = max(s["max_diff"] for s in rep["shards"])
+                spans = sorted({(s["start"], s["stop"]) for s in rep["shards"]})
+                pod = rep["pod"]
+                pod_snr = min(s["snr_db"] for s in pod["seq_sharded"]["shards"])
+                print(f"distributed [{smi}] {label}: process {t['process_index']}/{t['process_count']} "
+                      f"({rep['backend']}, {t['local_devices']} of {t['global_devices']} entries of {DIST_MESH}), "
+                      f"shards {len(rep['shards'])} at samples {spans}: worst SNR vs float64 whole-file path "
+                      f"{worst:.1f} dB (bar >= {E2E_BAR_DB} dB), max |shard - phase 13's ShardedUpmixer| {diff:.3e} "
+                      f"(bar < {DIST_DIFF_BAR}); "
+                      f"K1 launches {rep['k1']} (want {want_k1}), K2 {rep['k2']} (want {want_k2}); call "
+                      f"{rep['call_ms']:.3f} ms, exchange {rep['exchange_ms']:.3f} ms a call over "
+                      f"{rep['exchange_bytes'] / 1e6:.3f} MB (call {rep['timed_call_ms']:.3f} ms with it timed); "
+                      f"pod_check: sum {pod['collective']['got']} (want {pod['collective']['want']}), "
+                      f"{len(pod['seq_sharded']['shards'])} shards >= {pod_snr:.1f} dB", flush=True)
+                if not (worst >= E2E_BAR_DB and pod_snr > E2E_BAR_DB and pod["ok"]):
+                    fail(f"{label}: a shard of process {t['process_index']} is under {E2E_BAR_DB} dB")
+                if not diff < DIST_DIFF_BAR:
+                    fail(f"{label}: process {t['process_index']}'s shards differ from phase 13's by {diff:.3e}")
+                if rep["k1"] != want_k1 or rep["k2"] != want_k2:
+                    fail(f"{label}: process {t['process_index']} launched K1 {rep['k1']} and K2 {rep['k2']} times")
+                if pod["collective"]["got"] != pod["collective"]["want"]:
+                    fail(f"{label}: the all_reduce gave {pod['collective']['got']}")
+            covered = sorted((s["file"], s["start"]) for rep in reps for s in rep["shards"])
+            whole = [(i, q * splan.chunk) for i in range(SHARD_FILES) for q in range(DIST_MESH["seq"])]
+            if len(reps) > 1 and covered != whole:
+                fail(f"{label}: the processes' shards {covered} do not cover the output once")
+            slowest = max(rep["call_ms"] for rep in reps)
+            print(f"distributed [{smi}] {label}: {audio_s / slowest * 1e3:.1f}x realtime for the group (slowest "
+                  f"process {slowest:.3f} ms for {SHARD_FILES} x {SHARD_SAMPLES} samples; phase 13's one-process "
+                  f"ShardedUpmixer {shard_rtf:.1f}x)", flush=True)
+
+        # (a) Two processes on the one card under gloo, the halos staged
+        # through host memory: the seq axis crosses the process boundary.
+        report(_dist_group(2, "gloo", 4, ["cuda:0", "cuda:0"], ref_path), "gloo, 2 processes on one card")
+        # (b) NCCL at world size 1: bring-up, the all_reduce and the pipeline
+        # on a one-process global mesh of 8 entries.
+        report(_dist_group(1, "nccl", 8, ["cuda:0"], ref_path), "nccl, world size 1")
+        # (c) NCCL between distinct cards.
+        if torch.cuda.device_count() >= 2:
+            report(_dist_group(2, "nccl", 4, ["cuda:0", "cuda:1"], ref_path), "nccl, 2 processes on 2 cards")
+        else:
+            print(f"distributed: nccl between 2 cards not run: {torch.cuda.device_count()} card here, and NCCL "
+                  "refuses two ranks on one device", flush=True)
 
 
 def tune_phases(smi: str, dev):

@@ -79,3 +79,13 @@ def test_spectral_whole_of_an_all_edge_plan_is_zeros():
              for b in plan.buckets]
     for out in (spectral_whole_plain(carries, specs, t, plan), spectral_whole(carries, specs, t, plan)):
         assert out.shape == (3, 3, 2048) and not out.any()
+
+
+def test_parallel_exports_match_jax():
+    import upmix_tpu.parallel
+    import upmix_tpu_torch.parallel
+
+    for name in upmix_tpu.parallel.__all__:
+        assert name in upmix_tpu_torch.parallel.__all__, name
+        fn = getattr(upmix_tpu_torch.parallel, name)
+        assert fn.__module__.startswith("upmix_tpu_torch.parallel."), (name, fn.__module__)

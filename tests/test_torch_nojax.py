@@ -8,7 +8,8 @@ registry, the routes of geometries no kernel takes (overlap 0.65
 offline, batched and sharded, `--window-file` and `--overlap` in the
 CLI), AOT artifacts of all three kinds saved and loaded (and the CLI's
 --save-aot), the native engine (where `make -C native` builds it), the
-utils, the FIR design, the plots and the demo leaves jax, and every
+utils, the FIR design, the plots, the demo, and a world-size-1 gloo
+`init_distributed` with a one-process pod check leaves jax, and every
 module of the JAX package, unimported.
 
 Runs in a fresh interpreter, since this test process has jax loaded.
@@ -38,7 +39,7 @@ for name in names:
 for mod in ("ops.omnibus", "ops._build", "ops.pool", "ops.pool_floor", "models.streaming",
             "ops.fused", "parallel.sharded", "models.batch", "ops.int8_dot", "ops.overhead_probe", "app",
             "cli", "io.wav", "metrics", "serve_stream", "tune", "aot", "native", "native.host", "utils.profiling",
-            "utils.cache", "filter_design", "visualize", "demo"):
+            "utils.cache", "filter_design", "visualize", "demo", "parallel.distributed", "parallel.pod_check"):
     assert "upmix_tpu_torch." + mod in names, names
 
 cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
@@ -128,6 +129,14 @@ if native.is_available():
 assert len(filter_design.apply_fir_filter(L, filter_design.design_lr4_lp_fir(8000.0))) == len(L)
 assert visualize.overlapped_window_sums(np.hanning(64), np.hanning(64), 0.75)[0].shape == (112,)
 assert utils.time_fn(lambda: torch.ones(4) * 2, iters=2) > 0 and utils.RealtimeMeter(8000.0).audio_s == 0.0
+import socket
+from upmix_tpu_torch.parallel import init_distributed, local_file_shard, run_pod_check
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+rep = run_pod_check(f"127.0.0.1:{port}", 1, 0, seq_samples=2000, device="cpu", local_devices=2, backend="gloo")
+assert rep["ok"] and rep["topology"]["global_devices"] == 2 and len(rep["seq_sharded"]["shards"]) == 2
+assert init_distributed() == rep["topology"] and local_file_shard(["a", "b"]) == ["a", "b"]
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_package = sorted(m for m in sys.modules if m == "upmix_tpu" or m.startswith("upmix_tpu."))

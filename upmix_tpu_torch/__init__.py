@@ -22,7 +22,11 @@ so each module's counterpart is easy to find:
   - models.offline: Upmixer / upmix_offline
   - models.batch: BatchUpmixer (many files as rows of one call)
   - parallel.sharded: make_mesh, ShardedUpmixer (data and sequence
-    sharding over the devices of one process)
+    sharding over the devices of one process), build_sharded_offline_fn
+    (also over a mesh that spans processes)
+  - parallel.distributed, parallel.pod_check: processes that share one
+    global mesh on torch.distributed (init_distributed, local_file_shard,
+    run_pod_check)
   - models.streaming: StreamingUpmixer, BatchStreamingUpmixer,
     CudaStreamPool, make_stream_pool
   - ops.int8_dot, ops.overhead_probe: the two measurement probes (the

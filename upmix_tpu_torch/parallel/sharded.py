@@ -1,22 +1,28 @@
 """Sharded offline pipeline: a batch axis over the mesh's ``data`` axis and
 the sample axis of long inputs over its ``seq`` axis.
 
-Port of `upmix_tpu/parallel/sharded.py`, for the devices of one process.
-Each ``seq`` shard takes a contiguous chunk of samples (a multiple of
-every block and hop, so shard edges land on every bucket's frame grid).
-Frames that straddle a shard edge need the right neighbour's first
-``halo = max(block - hop)`` samples, and a shard's overlap-add spills
-``halo`` output samples into the right neighbour's head.  Both halo
-exchanges are explicit steps around a per-shard body that does not
-communicate (`_local_lcr`):
+Port of `upmix_tpu/parallel/sharded.py`.  Each ``seq`` shard takes a
+contiguous chunk of samples (a multiple of every block and hop, so shard
+edges land on every bucket's frame grid).  Frames that straddle a shard
+edge need the right neighbour's first ``halo = max(block - hop)``
+samples, and a shard's overlap-add spills ``halo`` output samples into
+the right neighbour's head.  Both halo exchanges are explicit steps
+around a per-shard body that does not communicate (`_local_lcr`):
 
   - input: each shard receives its right neighbour's first `halo`
     samples; the last shard receives zeros (its halo lies in the padding);
   - output: each shard's tail [chunk:] is added into its right
     neighbour's head.
 
-Between devices of one process both are copies; meshes that span
-processes (`torch.distributed`) are a later item of ROADMAP.md.
+Every mesh entry is a device of one process.  Between devices of one
+process both exchanges are copies.  On a mesh that spans processes
+(after `parallel/distributed.py::init_distributed`, `make_mesh()` builds
+over every process's devices) each process runs its own shards only, and
+a halo whose neighbour lives in another process goes by send and receive
+(`_exchange`): CUDA tensors directly under NCCL, through pinned host
+buffers under gloo.  The pipeline then returns this process's output
+shards, each with its index (the counterpart of JAX's
+`addressable_shards`); no process assembles the global output.
 
 Shards that share a device run as rows of one launch per kernel and
 bucket, so a mesh may repeat a device: `make_mesh({"data": 2, "seq": 4},
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,50 +61,63 @@ from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, takes_fused
 from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.omnibus import kernel_geometry, make_omnibus_plan, omnibus_lcr_batch
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
+from upmix_tpu_torch.parallel.distributed import global_devices, process_index
 
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Devices on named axes: `devices` is an object array of
     torch.device whose shape gives the axes' sizes, in the order of
-    `axis_names`."""
+    `axis_names`; `processes` (same shape) the process that owns each."""
 
     devices: np.ndarray
     axis_names: tuple
+    processes: np.ndarray
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def fully_addressable(self) -> bool:
+        """Every entry belongs to this process."""
+        return bool((self.processes == process_index()).all())
+
 
 def make_mesh(axis_sizes: dict | None = None, devices=None) -> Mesh:
-    """Build a mesh over `devices` (default: every visible CUDA device).
+    """Build a mesh over `devices` (default: `distributed.global_devices()`,
+    every visible CUDA device of this process before `init_distributed`,
+    every process's devices after it).
 
     axis_sizes e.g. {"data": 2, "seq": 4}; defaults to all devices on one
-    ``seq`` axis (the long-file case).  `devices` may repeat a device:
-    its shards then run as rows of one launch.
+    ``seq`` axis (the long-file case).  An entry of `devices` is a device
+    of this process, or a (process, device) pair.  `devices` may repeat a
+    device: its shards then run as rows of one launch.
     """
     if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+        devices = global_devices()
+    me = process_index()
+    entries = [d if isinstance(d, tuple) else (me, d) for d in devices]
     if axis_sizes is None:
-        axis_sizes = {"seq": len(devices)}
+        axis_sizes = {"seq": len(entries)}
     names = tuple(axis_sizes)
     sizes = tuple(axis_sizes[n] for n in names)
     total = math.prod(sizes)
-    if total > len(devices) or total < 1:
-        raise ValueError(f"mesh needs {total} devices, have {len(devices)}")
+    if total > len(entries) or total < 1:
+        raise ValueError(f"mesh needs {total} devices, have {len(entries)}")
     arr = np.empty(total, dtype=object)
-    for i, d in enumerate(devices[:total]):
-        arr[i] = d
-    return Mesh(arr.reshape(sizes), names)
+    for i, (_, d) in enumerate(entries[:total]):
+        arr[i] = torch.device(d)
+    procs = np.array([int(p) for p, _ in entries[:total]]).reshape(sizes)
+    return Mesh(arr.reshape(sizes), names, procs)
 
 
-def _device_grid(mesh: Mesh, data_axis: str | None, seq_axis: str | None) -> np.ndarray:
-    """[D, Q] object array: the device of data index d and seq index q
-    (size 1 for an axis that is None; other axes at index 0)."""
+def _index_grid(mesh: Mesh, data_axis: str | None, seq_axis: str | None) -> np.ndarray:
+    """[D, Q] int array: the flat mesh index of data index d and seq index
+    q (size 1 for an axis that is None; other axes at index 0)."""
     names = mesh.axis_names
-    sub = mesh.devices[tuple(slice(None) if n in (data_axis, seq_axis) else 0 for n in names)]
+    sub = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    sub = sub[tuple(slice(None) if n in (data_axis, seq_axis) else 0 for n in names)]
     kept = [n for n in names if n in (data_axis, seq_axis)]
     sub = sub.transpose([kept.index(a) for a in (data_axis, seq_axis) if a is not None])
     if data_axis is None:
@@ -105,6 +125,11 @@ def _device_grid(mesh: Mesh, data_axis: str | None, seq_axis: str | None) -> np.
     if seq_axis is None:
         sub = sub[:, None]
     return sub
+
+
+def _device_grid(mesh: Mesh, data_axis: str | None, seq_axis: str | None) -> np.ndarray:
+    """[D, Q] object array: the device of data index d and seq index q."""
+    return mesh.devices.reshape(-1)[_index_grid(mesh, data_axis, seq_axis)]
 
 
 @dataclass(frozen=True)
@@ -263,6 +288,42 @@ def _run_grouped(items, body) -> list:
     return out
 
 
+class Shard(NamedTuple):
+    """One output shard of this process on a mesh that spans processes:
+    `index` its (rows, channels, samples) slices of the global output,
+    `data` the tensor on its device (JAX's `addressable_shards`)."""
+
+    index: tuple
+    data: torch.Tensor
+
+
+def _exchange(sends, recvs) -> list:
+    """One halo step between processes.  sends: (peer, tag, tensor);
+    recvs: (peer, tag, shape, device).  Every send and receive is posted
+    at once (`batch_isend_irecv`) and then waited for, so no order of the
+    peers' posts can deadlock; both sides list a pair's messages in the
+    mesh's edge order (NCCL pairs them by order, gloo by tag).  A backend
+    other than NCCL takes CUDA tensors through pinned host buffers.
+    Returns the received float32 tensors on their devices."""
+    import torch.distributed as dist
+
+    if not sends and not recvs:
+        return []
+    staged = dist.get_backend() != "nccl"
+    ops, bufs = [], []
+    for peer, tag, t in sends:
+        if staged and t.device.type == "cuda":
+            t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), peer, tag=tag))
+    for peer, tag, shape, dev in recvs:
+        host = staged and dev.type == "cuda"
+        bufs.append(torch.empty(shape, dtype=torch.float32, device="cpu" if host else dev, pin_memory=host))
+        ops.append(dist.P2POp(dist.irecv, bufs[-1], peer, tag=tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [buf.to(dev, non_blocking=True) for buf, (_, _, _, dev) in zip(bufs, recvs)]
+
+
 def build_sharded_offline_fn(
     config: UpmixConfig,
     n_samples: int,
@@ -282,18 +343,29 @@ def build_sharded_offline_fn(
     (`plans_from_numpy`) and is filled in for devices it lacks, so a
     caller can share the plans between lengths.  Buckets off the kernels'
     geometry run on torch.fft inside each shard (`_leftover_lcr`).
+
+    On a mesh that spans processes every process calls fn with the same
+    shape of x, but fn reads only this process's shards of it and
+    returns this process's output shards, a list of `Shard` in mesh
+    order; halos from other processes arrive by send and receive.
     """
     shape = mesh.shape
     if seq_axis is not None and seq_axis not in shape:
         seq_axis = None
     if data_axis is not None and data_axis not in shape:
         data_axis = None
-    grid = _device_grid(mesh, data_axis, seq_axis)
+    index = _index_grid(mesh, data_axis, seq_axis)
+    grid = mesh.devices.reshape(-1)[index]
+    owner = mesh.processes.reshape(-1)[index]
     n_data, n_seq = grid.shape
+    me = process_index()
+    local = [(d, q) for d in range(n_data) for q in range(n_seq) if owner[d, q] == me]
+    whole = len(local) == grid.size  # else return this process's shards
     out_dev = mesh.devices.flat[0]
     buckets = {} if buckets is None else buckets
     kernel_plans, leftover = split_plans(config)
-    for dev in set(grid.flat):
+    devices = {grid[k] for k in local}
+    for dev in devices:
         if dev not in buckets:
             buckets[dev] = plans_from_numpy(kernel_plans, dev)
     # Dead leftovers (all gains zero) add nothing.
@@ -307,58 +379,78 @@ def build_sharded_offline_fn(
             )
         return x.shape[0] // n_data
 
+    def finish(ys: dict, bl: int, width: int, n_padded: int):
+        if not whole:
+            return [
+                Shard((slice(d * bl, (d + 1) * bl), slice(None), slice(q * width, (q + 1) * width)),
+                      ys[d, q][..., :width])
+                for d, q in local
+            ]
+        y = torch.empty((n_data * bl, 3, n_padded), dtype=torch.float32, device=out_dev)
+        for (d, q), part in ys.items():
+            y[d * bl : (d + 1) * bl, :, q * width : (q + 1) * width] = part[..., :width]
+        return y
+
     if seq_axis is None:
         # Pure data parallelism: no shard edges in the sample axis, so none
         # of the sequence machinery applies; each device's rows go through
         # the chunked offline path.
         rows_fns = {
             dev: build_offline_rows_fn(config, n_samples, device=dev, buckets=buckets[dev])
-            for dev in set(grid.flat)
+            for dev in devices
         }
         plan = SequencePlan(
             n_samples=n_samples, n_devices=1, chunk=n_samples, halo=0, n_padded=n_samples,
         )
 
-        def fn(x: torch.Tensor) -> torch.Tensor:
+        def fn(x: torch.Tensor):
             bl = split_batch(x, n_samples)
-            items = [(grid[d, 0], x[d * bl : (d + 1) * bl]) for d in range(n_data)]
+            items = [(grid[d, 0], x[d * bl : (d + 1) * bl]) for d, _ in local]
             ys = _run_grouped(items, lambda dev, rows: rows_fns[dev](rows))
-            return torch.cat([y.to(out_dev) for y in ys])
+            return finish(dict(zip(local, ys)), bl, n_samples, n_samples)
 
         return fn, plan
 
     plan = sequence_plan(config, n_samples, n_seq)
     chunk, halo = plan.chunk, plan.halo
-    routes = {dev: route_buckets(buckets[dev], chunk) for dev in set(grid.flat)}
+    routes = {dev: route_buckets(buckets[dev], chunk) for dev in devices}
 
-    def fn(x: torch.Tensor) -> torch.Tensor:
+    def move(pairs, payload, shape) -> dict:
+        """Each (src, dst) shard pair's payload(src) onto dst's device:
+        a copy within this process, a send or a receive across processes.
+        Returns {dst: tensor} for this process's dst."""
+        got, sends, recvs = {}, [], []
+        for tag, (src, dst) in enumerate(pairs):
+            mine, theirs = owner[src] == me, owner[dst] == me
+            if mine and theirs:
+                got[dst] = payload(src).to(grid[dst])
+            elif mine:
+                sends.append((int(owner[dst]), tag, payload(src)))
+            elif theirs:
+                recvs.append((int(owner[src]), tag, dst))
+        received = _exchange(sends, [(p, tag, shape, grid[dst]) for p, tag, dst in recvs])
+        got.update(zip([dst for _, _, dst in recvs], received))
+        return got
+
+    edges = [((d, q), (d, q + 1)) for d in range(n_data) for q in range(n_seq - 1)]
+
+    def fn(x: torch.Tensor):
         bl = split_batch(x, plan.n_padded)
-        shards = [
-            [x[d * bl : (d + 1) * bl, :, q * chunk : (q + 1) * chunk].to(grid[d, q]) for q in range(n_seq)]
-            for d in range(n_data)
-        ]
+        own = {(d, q): x[d * bl : (d + 1) * bl, :, q * chunk : (q + 1) * chunk].to(grid[d, q]) for d, q in local}
         # Input halo: each shard gets its right neighbour's first `halo`
         # samples (chunk >= halo); the last shard gets zeros.
+        heads = move([(r, l) for l, r in edges], lambda k: own[k][..., :halo], (bl, 2, halo))
         items = []
-        for d in range(n_data):
-            for q in range(n_seq):
-                own = shards[d][q]
-                if q + 1 < n_seq:
-                    head = shards[d][q + 1][..., :halo].to(own.device)
-                else:
-                    head = own.new_zeros(own.shape[:-1] + (halo,))
-                items.append((grid[d, q], torch.cat([own, head], dim=-1)))
+        for d, q in local:
+            head = heads[d, q] if q + 1 < n_seq else own[d, q].new_zeros((bl, 2, halo))
+            items.append((grid[d, q], torch.cat([own[d, q], head], dim=-1)))
         ys = _run_grouped(items, lambda dev, rows: _local_lcr(rows, chunk, halo, *routes[dev], leftover))
+        ys = dict(zip(local, ys))
         # Output halo: each shard's tail [chunk:] lands on its right
         # neighbour's head (disjoint from that neighbour's own tail).
-        y = torch.empty((x.shape[0], 3, plan.n_padded), dtype=torch.float32, device=out_dev)
-        for d in range(n_data):
-            for q in range(n_seq):
-                own = ys[d * n_seq + q]
-                if q > 0:
-                    own[..., :halo] += ys[d * n_seq + q - 1][..., chunk:].to(own.device)
-                y[d * bl : (d + 1) * bl, :, q * chunk : (q + 1) * chunk] = own[..., :chunk]
-        return y
+        for k, tail in move(edges, lambda k: ys[k][..., chunk:], (bl, 3, halo)).items():
+            ys[k][..., :halo] += tail
+        return finish(ys, bl, chunk, plan.n_padded)
 
     return fn, plan
 
@@ -375,6 +467,9 @@ class ShardedUpmixer:
     def __init__(self, config: UpmixConfig, mesh: Mesh | None = None):
         self.config = config
         self.mesh = mesh if mesh is not None else make_mesh()
+        if not self.mesh.fully_addressable:
+            raise ValueError("ShardedUpmixer runs on the devices of one process; on a mesh that spans processes "
+                             "use build_sharded_offline_fn, which returns this process's output shards")
         self._cache = {}
         self._buckets = {}  # device -> device plan, shared by every length
         # Fail n-independent geometry problems (pathological frame-grid
