@@ -23,7 +23,7 @@ the streaming step, loaded onto the card; and processes that share one
 global mesh (`upmix_tpu_torch.parallel.distributed`,
 `build_sharded_offline_fn` across processes, `pod_check`).  Phases, one
 line each or more, any failure exits nonzero (phases 10-13 and 19-21 run
-between 5 and 6, 22-24, 27 and 25 after 8, then 14-18 and 26):
+between 5 and 6, 22-24, 27, 28 and 25 after 8, then 14-18 and 26):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
@@ -231,7 +231,30 @@ between 5 and 6, 22-24, 27 and 25 after 8, then 14-18 and 26):
      `run_pod_check` at its defaults in both processes (all_reduce, an
      8-entry seq mesh, > 60 dB); the same at world size 1 under NCCL on 8
      entries of one process; NCCL across two cards where there are two
-     (else one line says it was not run).
+     (else one line says it was not run);
+ 28. one process over the cards, in a child process: on one card,
+     `Upmixer(device=cuda:0)` under a non-default current stream, bit for bit the default stream's,
+     the caller's device and stream kept; then one line says the
+     multi-card groups were not run.  On two or more cards (up to four),
+     each group with its cards, launches a card from torch.profiler's
+     kernel rows (so a launch on the wrong card fails), worst SNR against
+     float64 and ms (CUDA events on every card, min of 5): 1
+     `Upmixer(device="cuda:1")` on phase 4's input, bit for bit cuda:0's,
+     every K1 row on card 1; 2 `ShardedUpmixer` on phase 11's two files,
+     {"data": 2, "seq": 2} over four cards ({"seq": 2} over two), within
+     1e-5 of phase 13's mesh on cuda:0, K1 and K2 on every card, beside
+     phase 13's and phase 27's NCCL figure, the halo moves and the gather
+     to cuda:0 timed alone, the share of the kernel span when kernels of
+     two or more cards run at once; 3 one file of 2^23 samples on {"seq":
+     N}, beside `Upmixer` on cuda:0; 4 `BatchUpmixer` on {"data": N},
+     pipelined == sequential, within 1e-5 of phase 12's engine; 5
+     `CudaStreamPool` on {"data": N}, 2048 streams a card, both OLA modes,
+     hops 1 and 4, within 1e-5 of the unsharded pool on cuda:0, a snapshot
+     resumed on an unsharded pool, ms a block of the sustained runner beside
+     phases 8 and 23, the step's scatter and gather timed alone; 6 a
+     stream-server session on that pool (`--pool-mesh data=N`), frames
+     bit for bit the pool fed directly; 7 the offline artifact loaded onto
+     cuda:1, bit for bit; 8 `pod_check` at world size 1 over the cards.
 
 Exits nonzero without a result when no CUDA device is present.  Needs no
 jax: the GPU machine does not have it.
@@ -580,6 +603,7 @@ def main():
     audio_s = N_SAMPLES / SR
     whole = build_offline_fn(cfg, N_SAMPLES, chunk=0, device=dev)
     path_ms = time_ms(lambda: up.process(Lt, Rt))
+    MEASURED["offline_ms"] = path_ms
     plain_path_ms = time_ms(lambda: whole(Lt, Rt))
     kernel_ms = time_ms(lambda: omnibus_lcr_batch(x, plan))
     plain_ms = time_ms(lambda: omnibus_lcr_batch_plain(x, plan))
@@ -649,6 +673,7 @@ def main():
     kernels.append(spectral_phases(smi, dev))
     mesh_phases(smi, dev)
     distributed_phases(smi, dev, shard_rtf)
+    cards_phases(smi)
     tune_phases(smi, dev)
     kernels += probe_phases(smi, dev)
     app_phases(smi, dev, audio_s / path_ms * 1e3)
@@ -789,6 +814,7 @@ def sharded_phases(smi: str, dev) -> dict:
     # 13. timing
     audio_s = SHARD_FILES * SHARD_SAMPLES / SR
     path_ms = time_ms(lambda: su.process_batch(audio), loops=5, iters=1)
+    MEASURED["sharded_ms"] = path_ms
     print(f"timing [{smi}]: sharded path ({SHARD_MESH} on one card) {path_ms:.3f} ms for {SHARD_FILES} x "
           f"{SHARD_SAMPLES} samples = {audio_s / path_ms * 1e3:.1f}x realtime", flush=True)
     k2_ms = k2_plain_ms = k2_lib_ms = 0.0
@@ -1168,6 +1194,8 @@ def pool_phases(smi: str, dev) -> list:
 
     for n_streams, hops in ((16, 1), (S, 1), (S, 4), *((n, 1) for n in POOL_CAPACITY_STREAMS)):
         ms, per_stream = sustained(n_streams, hops)
+        if n_streams == S:
+            MEASURED[f"time {hops}"] = ms
     # Capacity by measurement: double S past the last size until a block
     # misses the deadline (runs of SWEEP_BLOCKS blocks; a size that would
     # pass 40 GB is cut to the largest that does not), then halve the
@@ -1548,6 +1576,8 @@ def spectral_phases(smi: str, dev) -> dict:
     for n_streams, hops in ((16, 1), (16, 4), (S, 1), (S, 4)):
         ms_s, _ = sustained(n_streams, hops, "spectral")
         ms_t, _ = sustained(n_streams, hops, "time")
+        if n_streams == S:
+            MEASURED[f"spectral {hops}"] = ms_s
         torch.cuda.empty_cache()
         print(f"spectral pool timing [{smi}]: S={n_streams} hops={hops} ({POOL_BLOCKS} blocks a call): K3s pool "
               f"{ms_s:.3f} ms per block, K3 pool {ms_t:.3f} ms (K3s/K3 {ms_s / ms_t:.2f}); the {deadline_ms:.2f} ms "
@@ -2020,6 +2050,7 @@ def distributed_phases(smi: str, dev, shard_rtf: float):
             if len(reps) > 1 and covered != whole:
                 fail(f"{label}: the processes' shards {covered} do not cover the output once")
             slowest = max(rep["call_ms"] for rep in reps)
+            MEASURED[f"{label} rtf"] = audio_s / slowest * 1e3
             print(f"distributed [{smi}] {label}: {audio_s / slowest * 1e3:.1f}x realtime for the group (slowest "
                   f"process {slowest:.3f} ms for {SHARD_FILES} x {SHARD_SAMPLES} samples; phase 13's one-process "
                   f"ShardedUpmixer {shard_rtf:.1f}x)", flush=True)
@@ -2036,6 +2067,514 @@ def distributed_phases(smi: str, dev, shard_rtf: float):
         else:
             print(f"distributed: nccl between 2 cards not run: {torch.cuda.device_count()} card here, and NCCL "
                   "refuses two ranks on one device", flush=True)
+
+
+# One process over several cards (phase 28): the group count and the
+# numbers of earlier phases it prints beside its own.
+CARDS_MAX = 4
+CARDS_DIFF_BAR = 1e-5  # against the one-card paths: float32 rounding of another launch geometry
+CARDS_LONG_SAMPLES = 2**23  # one file on {"seq": cards}
+# Names of the port's kernels as torch.profiler lists them.
+OMNI_ROWS = ("OmniSink",)  # K1 and K2 (K1's kernels on one bucket)
+POOL_ROWS = ("PoolSink", "SpectralSink", "spectral_")  # K3 and K3s
+MEASURED = {}  # numbers of earlier phases of this run, printed beside phase 28's
+CARDS_TIMEOUT = 600  # seconds phase 28's child process may take
+
+
+def sync_cards(cards):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def cards_ms(fn, cards, loops: int = 5) -> float:
+    """Min over `loops` of one call of fn, in ms, from CUDA events on
+    every card: on each card from an event recorded before the call to
+    one after it, the longest of them (every stream is idle when the
+    start events are recorded, so they fire together)."""
+    fn()
+    sync_cards(cards)
+    best = float("inf")
+    for _ in range(loops):
+        starts = [torch.cuda.Event(enable_timing=True) for _ in cards]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in cards]
+        for e, c in zip(starts, cards):
+            e.record(torch.cuda.current_stream(c))
+        fn()
+        for e, c in zip(ends, cards):
+            e.record(torch.cuda.current_stream(c))
+        for e in ends:
+            e.synchronize()
+        best = min(best, max(s.elapsed_time(e) for s, e in zip(starts, ends)))
+    return best
+
+
+def rows_on(fn, match, warm: bool = True):
+    """({card: launches of the kernels named by `match`}, overlap share,
+    {card: busy ms}) of one call of fn, from torch.profiler: the share of
+    the kernels' span during which kernels of two or more cards run, and
+    each card's kernel time, over every kernel's rows of a second call
+    (none when not `warm`: fn runs once)."""
+    from upmix_tpu_torch.utils.profiling import kernel_rows_by_device, overlap_share
+
+    counts, _ = kernel_rows_by_device(fn, match=match, warm=warm)
+    _, rows = kernel_rows_by_device(fn, warm=False) if warm else (None, [])
+    busy = {}
+    for d, _, s, e in rows:
+        busy[d] = busy.get(d, 0.0) + (e - s) / 1e3
+    return counts, overlap_share(rows), {d: round(b, 3) for d, b in sorted(busy.items())}
+
+
+def body_overlap(fn, cards, pool: bool = False) -> float:
+    """Share of one call of fn, unprofiled, during which the bodies of two
+    or more cards run at once: CUDA events on each card's stream before
+    and after its body (`sharded._run_grouped`'s per-device call, or the
+    pool's per-part `streaming._batch_step`), against an origin event on
+    every card recorded while all were idle, so the cards' times share one
+    origin.  A body's start event fires when the card starts the body."""
+    from upmix_tpu_torch.models import streaming
+    from upmix_tpu_torch.parallel import sharded
+    from upmix_tpu_torch.utils.profiling import overlap_share
+
+    spans = []
+
+    def timed(body, dev, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(torch.cuda.current_stream(dev))
+        out = body(*args)
+        b.record(torch.cuda.current_stream(dev))
+        spans.append((dev, a, b))
+        return out
+
+    module, name = (streaming, "_batch_step") if pool else (sharded, "_run_grouped")
+    real = getattr(module, name)
+    if pool:
+        patched = lambda plan, hw, st, x: timed(real, x.device, plan, hw, st, x)  # noqa: E731
+    else:
+        patched = lambda items, body: real(items, lambda dev, rows: timed(body, dev, dev, rows))  # noqa: E731
+    fn()
+    sync_cards(cards)
+    origin = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    for c, e in origin.items():
+        e.record(torch.cuda.current_stream(c))
+    setattr(module, name, patched)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    sync_cards(cards)
+    rows = [(d.index, "body", origin[d].elapsed_time(a) * 1e3, origin[d].elapsed_time(b) * 1e3) for d, a, b in spans]
+    return overlap_share(rows)
+
+
+def enqueue_ms(fn, cards, loops: int = 5) -> float:
+    """Min over `loops` of the host's ms to return from one call of fn,
+    every card idle before it: the dispatch alone (a call that waited for
+    a card would show that card's time here)."""
+    best = float("inf")
+    for _ in range(loops):
+        sync_cards(cards)
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    sync_cards(cards)
+    return best
+
+
+def no_sync(label: str, fn):
+    """Fail if a PyTorch call inside fn makes the host wait for a card
+    (torch.cuda.set_sync_debug_mode("error")): one card's wait would hold
+    back the next card's launches."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"{label}: a call waits for a card between the cards' launches: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def check_rows(label: str, counts: dict, given: list):
+    """Fail unless the kernels ran on every card given and on no other."""
+    want = sorted(c.index for c in given)
+    if sorted(counts) != want or not all(counts.values()):
+        fail(f"{label}: kernel rows on cards {counts}, want launches on each of {want} and on no other")
+
+
+def cards_phases(smi: str):
+    """Phase 28 in a child process of its own, which is the one process
+    over the cards, so that every card's first use and every profile of
+    the phase fall in it: in this process, after the earlier phases'
+    profiler sessions on cuda:0, a session recorded no kernel row on
+    cuda:1, where a fresh process records them.  The child gets the
+    earlier phases' numbers it prints beside its own."""
+    from pathlib import Path
+
+    code = "import json, sys, chip_smoke; chip_smoke.cards_child(sys.argv[1], json.loads(sys.argv[2]))"
+    try:
+        res = subprocess.run([sys.executable, "-c", code, smi, json.dumps(MEASURED)],
+                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                             timeout=CARDS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 28 did not finish within {CARDS_TIMEOUT} s")
+    print(res.stdout, end="", flush=True)
+    if res.returncode != 0:
+        fail(f"phase 28 exited {res.returncode}: {res.stderr[-3000:]}")
+
+
+def cards_child(smi: str, measured: dict):
+    """Phase 28 itself (see `cards_phases`): on one card, the device guard
+    under a non-default current stream; on two or more, the eight groups
+    over up to four distinct cards."""
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.offline import Upmixer
+    from upmix_tpu_torch.ops import _build, omnibus
+
+    MEASURED.update(measured)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()  # built by phase 2
+    cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
+    audio = np.random.default_rng(0)  # phase 4's input
+    L = audio.standard_normal(N_SAMPLES).astype(np.float32)
+    R = audio.standard_normal(N_SAMPLES).astype(np.float32)
+    zero = torch.device("cuda", 0)
+    want = Upmixer(cfg, device=zero).process_np(L, R)
+    # One card: Upmixer on cuda:0 under a non-default current stream; the
+    # launches go to that stream and the guard leaves the device current.
+    side = torch.cuda.Stream(device=zero)
+    before = torch.cuda.current_device()
+    with torch.cuda.stream(side):
+        omnibus.LAUNCHES = 0
+        got = Upmixer(cfg, device=zero).process_np(L, R)
+        kept = torch.cuda.current_device() == before and torch.cuda.current_stream(zero) == side
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    print(f"cards [{smi}]: Upmixer(device=cuda:0) under a non-default current stream: K1 launches "
+          f"{omnibus.LAUNCHES}, bit for bit the default stream's {same}; current device and stream kept {kept}",
+          flush=True)
+    if not same or not kept or omnibus.LAUNCHES == 0:
+        fail("phase 28: Upmixer under a non-default stream differs, or the guard changed the current device")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"cards: the multi-card groups of phase 28 not run: {n_cards} card here (python3 chip_smoke.py on a "
+              "machine of two or more cards runs them)", flush=True)
+        return
+    cards = [torch.device("cuda", i) for i in range(CARDS_MAX if n_cards >= CARDS_MAX else 2)]
+    print(f"cards: phase 28 over {len(cards)} of {n_cards} cards", flush=True)
+    cards_offline(smi, cfg, cards, L, R, want)
+    cards_sharded(smi, cfg, cards)
+    cards_batch(smi, cfg, cards)
+    cards_pool(smi, cards)
+    cards_server(smi, cards)
+    cards_aot(smi, cfg, cards, L, R, want)
+    cards_pod_check(smi, cards)
+
+
+def cards_offline(smi: str, cfg, cards, L, R, want):
+    """Group 1: Upmixer(device="cuda:1") on phase 4's input."""
+    from upmix_tpu_torch.models.offline import Upmixer, build_offline_fn
+
+    one = cards[1]
+    up = Upmixer(cfg, device=one)
+    got = up.process_np(L, R)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    Lt, Rt = torch.as_tensor(L, device=one), torch.as_tensor(R, device=one)
+    counts, _, _ = rows_on(lambda: up.process(Lt, Rt), OMNI_ROWS)
+    ref = build_offline_fn(cfg, N_SAMPLES, chunk=0, device=one)(Lt.double(), Rt.double())
+    worst = min(snr_db(r.cpu(), torch.as_tensor(g)) for r, g in zip(ref, got))
+    del ref
+    ms = cards_ms(lambda: up.process(Lt, Rt), [one])
+    audio_s = N_SAMPLES / SR
+    print(f"cards [{smi}] 1 Upmixer(cuda:1): {N_SAMPLES} samples, K1 launches by card {counts}; bit for bit "
+          f"cuda:0's output {same}; worst SNR vs float64 {worst:.1f} dB; {ms:.3f} ms = "
+          f"{audio_s / ms * 1e3:.1f}x realtime (phase 5 on cuda:0: {MEASURED.get('offline_ms', float('nan')):.3f} ms)",
+          flush=True)
+    if not same or counts != {1: 6} or not worst >= E2E_BAR_DB:
+        fail("phase 28 group 1: Upmixer(cuda:1) differs from cuda:0, ran off card 1, or is under the bar")
+    if torch.cuda.current_device() != 0:
+        fail("phase 28: a call changed the current device")
+
+
+def _sharded_group(smi: str, label: str, cfg, cards, axes: dict, x, want, ref_label: str, beside: str):
+    """Groups 2 and 3: ShardedUpmixer on `axes` over `cards` against the
+    float64 whole-file path and `want`, the same mesh's output on cuda:0
+    (`ref_label`); `beside` names the one-card times printed beside."""
+    from upmix_tpu_torch.models.offline import build_offline_fn
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh, sequence_plan
+    from upmix_tpu_torch.parallel.sharded import _device_grid
+
+    mesh = make_mesh(axes)
+    given = list(mesh.devices.flat)
+    su = ShardedUpmixer(cfg, mesh)
+    y = su.process_batch(x)
+    files, _, n = x.shape
+    worst = float("inf")
+    for i in range(files):
+        ref = build_offline_fn(cfg, n, chunk=0, device=cards[0])(x[i, 0].double(), x[i, 1].double())
+        worst = min(worst, *(snr_db(r, y[i, o]) for o, r in enumerate(ref)))
+        del ref
+    diff = float((y - want).abs().max())
+    no_sync(f"phase 28 group {label}", lambda: su.process_batch(x))
+    counts, overlap, busy = rows_on(lambda: su.process_batch(x), OMNI_ROWS)
+    ms = cards_ms(lambda: su.process_batch(x), cards)
+    host = enqueue_ms(lambda: su.process_batch(x), cards)
+    bodies = body_overlap(lambda: su.process_batch(x), cards)
+    # The halo moves and the final gather alone, at the call's shapes and cards.
+    splan = sequence_plan(cfg, n, axes.get("seq", 1))
+    grid = _device_grid(mesh, "data" if "data" in axes else None, "seq")
+    n_data, n_seq = grid.shape
+    bl, chunk, halo = files // n_data, splan.chunk, splan.halo
+    heads = [(torch.zeros((bl, 2, halo), device=grid[d, q + 1]), grid[d, q])
+             for d in range(n_data) for q in range(n_seq - 1)]
+    tails = [(torch.zeros((bl, 3, halo), device=grid[d, q]), grid[d, q + 1])
+             for d in range(n_data) for q in range(n_seq - 1)]
+    parts = [(d, q, torch.zeros((bl, 3, chunk + halo), device=grid[d, q])) for d in range(n_data) for q in range(n_seq)]
+    out = torch.empty((files, 3, splan.n_padded), device=cards[0])
+
+    def gather():
+        for d, q, p in parts:
+            out[d * bl : (d + 1) * bl, :, q * chunk : (q + 1) * chunk] = p[..., :chunk]
+
+    halo_ms = cards_ms(lambda: [t.to(dst) for t, dst in heads + tails], cards)
+    gather_ms = cards_ms(gather, cards)
+    audio_s = files * n / SR
+    print(f"cards [{smi}] {label}: ShardedUpmixer {axes} over cards {[c.index for c in given]}, {files} x {n} "
+          f"samples: K1+K2 launches by card {counts}; worst SNR vs float64 {worst:.1f} dB (bar >= {E2E_BAR_DB}); "
+          f"max |y - {ref_label}| {diff:.3e}; {ms:.3f} ms = {audio_s / ms * 1e3:.1f}x realtime ({beside}; "
+          f"NCCL over two processes on two cards, phase 27: "
+          f"{MEASURED.get('nccl, 2 processes on 2 cards rtf', float('nan')):.1f}x); halo moves alone {halo_ms:.3f} ms, "
+          f"gather to cuda:0 "
+          f"alone {gather_ms:.3f} ms ({out.numel() * 4 / 1e6:.1f} MB); the cards' bodies at once {bodies:.1%} of "
+          f"their span (events), kernels of two or more cards at once {overlap:.1%} of the kernel span (profiled); "
+          f"the host's dispatch of the call {host:.3f} ms, kernel ms by card {busy}; no call waits for a card",
+          flush=True)
+    check_rows(f"phase 28 {label}", counts, given)
+    if len(set(counts.values())) != 1:
+        fail(f"phase 28 {label}: K1/K2 launches differ between cards: {counts}")
+    if not worst >= E2E_BAR_DB or not diff < CARDS_DIFF_BAR:
+        fail(f"phase 28 {label}: {worst:.1f} dB or {diff:.3e} from {ref_label}")
+    return y
+
+
+def cards_sharded(smi: str, cfg, cards):
+    """Groups 2 and 3: phase 11's two files, then one long file."""
+    from upmix_tpu_torch.models.offline import Upmixer
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
+
+    zero = cards[0]
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((SHARD_FILES, 2, SHARD_SAMPLES)),
+                        dtype=torch.float32, device=zero)  # phase 11's input
+    audio_s = SHARD_FILES * SHARD_SAMPLES / SR
+    phase13 = ShardedUpmixer(cfg, make_mesh(SHARD_MESH, devices=[zero] * SHARD_FILES * SHARD_MESH["seq"]))
+    want = phase13.process_batch(x)
+    ref_ms = cards_ms(lambda: phase13.process_batch(x), [zero])
+    del phase13
+    axes = {"data": 2, "seq": 2} if len(cards) >= 4 else {"seq": 2}
+    _sharded_group(smi, "2", cfg, cards, axes, x, want, "phase 13's mesh on cuda:0",
+                   f"phase 13's mesh on cuda:0 now {ref_ms:.3f} ms = {audio_s / ref_ms * 1e3:.1f}x, in phase 13 "
+                   f"{MEASURED.get('sharded_ms', float('nan')):.3f} ms")
+    del x, want
+    torch.cuda.empty_cache()
+    long = torch.randn((1, 2, CARDS_LONG_SAMPLES), device=zero, generator=torch.Generator(zero).manual_seed(28))
+    axes = {"seq": len(cards)}
+    want = ShardedUpmixer(cfg, make_mesh(axes, devices=[zero] * len(cards))).process_batch(long)
+    up = Upmixer(cfg, device=zero)
+    up_ms = cards_ms(lambda: up.process(long[0, 0], long[0, 1]), [zero])
+    up_diff = float((torch.stack(up.process(long[0, 0], long[0, 1])) - want[0]).abs().max())
+    print(f"cards [{smi}] 3: Upmixer on cuda:0 (phase 4's path) on the same {CARDS_LONG_SAMPLES} samples "
+          f"{up_ms:.3f} ms = {CARDS_LONG_SAMPLES / SR / up_ms * 1e3:.1f}x realtime, max |Upmixer - sharded| "
+          f"{up_diff:.3e} (bar < 1e-3, phase 11's)", flush=True)
+    if not up_diff < 1e-3:
+        fail(f"phase 28 group 3: the sharded long file differs from Upmixer by {up_diff:.3e}")
+    del up
+    _sharded_group(smi, "3", cfg, cards, axes, long, want, "the same mesh on cuda:0",
+                   f"Upmixer on cuda:0 {up_ms:.3f} ms")
+    del long, want
+    torch.cuda.empty_cache()
+
+
+def cards_batch(smi: str, cfg, cards):
+    """Group 4: BatchUpmixer over the cards' data axis, pipelined and
+    sequential, against phase 12's one-card engine."""
+    from upmix_tpu_torch.models import BatchUpmixer
+    from upmix_tpu_torch.parallel import make_mesh
+
+    n = len(cards)
+    files = [np.random.default_rng(10 + i).standard_normal((2, BATCH_SAMPLES)).astype(np.float32)
+             for i in range(2 * n + 1)]
+    one = list(BatchUpmixer(cfg, BATCH_SAMPLES, BATCH_SIZE, device=cards[0]).process_files(files))
+    bu = BatchUpmixer(cfg, BATCH_SAMPLES, n, mesh=make_mesh({"data": n}))
+    seq = list(bu.process_files(files))
+    piped = list(bu.process_files(files, pipeline=True))
+    same = all(np.array_equal(a, b) for a, b in zip(seq, piped)) and len(seq) == len(piped) == len(files)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(seq, one))
+    x = torch.as_tensor(np.stack(files[:n])).to(cards[0])
+    no_sync("phase 28 group 4", lambda: bu._fn(x))
+    counts, overlap, busy = rows_on(lambda: bu._fn(x), OMNI_ROWS)
+    ms = cards_ms(lambda: bu._fn(x), cards)
+    host = enqueue_ms(lambda: bu._fn(x), cards)
+    bodies = body_overlap(lambda: bu._fn(x), cards)
+    print(f"cards [{smi}] 4 BatchUpmixer(mesh={{'data': {n}}}): {len(files)} files x {BATCH_SAMPLES} samples in "
+          f"batches of {n}: pipelined == sequential {same}; max |batch - phase 12's one-card engine| {diff:.3e}; "
+          f"K1 launches by card {counts}; a batch on the cards {ms:.3f} ms "
+          f"({n * BATCH_SAMPLES / SR / ms * 1e3:.1f}x realtime), the cards' bodies at once {bodies:.1%} (events), "
+          f"kernels of two or more cards at once {overlap:.1%} (profiled), the host's dispatch {host:.3f} ms, kernel "
+          f"ms by card {busy}", flush=True)
+    check_rows("phase 28 group 4", counts, cards)
+    if not same or not diff < CARDS_DIFF_BAR:
+        fail("phase 28 group 4: the batch over the cards differs between its modes or from phase 12's")
+
+
+def cards_pool(smi: str, cards):
+    """Group 5: CudaStreamPool on {"data": N} over the cards, 2048
+    streams a card, both OLA modes, hops 1 and 4."""
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.parallel import make_mesh
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    n, hw, zero = len(cards), POOL_HW, cards[0]
+    S = POOL_STREAMS * n
+    mesh = make_mesh({"data": n})
+    gen = torch.Generator(zero).manual_seed(28)
+    blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=zero, generator=gen)
+    for ola in ("time", "spectral"):
+        for hops in (1, 4):
+            shard = CudaStreamPool(cfg, hw, S, mesh=mesh, ola=ola)
+            plain = CudaStreamPool(cfg, hw, S, device=zero, ola=ola)
+            step = hops * hw
+            xs = blocks.permute(1, 2, 0, 3).reshape(2, S, POOL_BLOCKS * hw)
+            diff = 0.0
+            for i in range(0, 8 * hw, step):
+                push = (lambda p: p.push_blocks_multi(xs[0, :, i : i + step], xs[1, :, i : i + step])) if hops > 1 \
+                    else (lambda p: p.push_blocks(xs[0, :, i : i + step], xs[1, :, i : i + step]))
+                got, ref = torch.stack(push(shard)), torch.stack(push(plain))
+                diff = max(diff, float((got - ref).abs().max()))
+            again = CudaStreamPool(cfg, hw, S, device=zero, ola=ola)
+            again.restore(shard.snapshot())
+            i = 8 * hw
+            tail = (lambda p: p.push_blocks_multi(xs[0, :, i : i + step], xs[1, :, i : i + step])) if hops > 1 \
+                else (lambda p: p.push_blocks(xs[0, :, i : i + step], xs[1, :, i : i + step]))
+            tail(shard)
+            resumed = float((torch.stack(tail(again)) - torch.stack(tail(plain))).abs().max())
+            run, fresh = shard.make_sustained_runner(POOL_BLOCKS, hops=hops)
+            slabs = (blocks.reshape(POOL_BLOCKS // hops, hops, 2, S, hw).permute(0, 2, 3, 1, 4)
+                     .reshape(POOL_BLOCKS // hops, 2, S, step).contiguous())
+            state, _ = run(fresh(), slabs)
+            no_sync(f"phase 28 group 5 ({ola}, hops {hops})", lambda: run(state, slabs))
+            counts, overlap, busy = rows_on(lambda: run(state, slabs), POOL_ROWS)
+            ms = cards_ms(lambda: run(state, slabs), cards) / POOL_BLOCKS
+            host = enqueue_ms(lambda: run(state, slabs), cards) / POOL_BLOCKS
+            bodies = body_overlap(lambda: run(state, slabs), cards, pool=True)
+            # The step's input scatter and output gather alone.
+            x = slabs[0].transpose(0, 1)  # the step's input [S, 2, hops * hw] on cuda:0
+            outs = [torch.empty((len(p.rows), 3, step), device=p.device) for p in shard._parts]
+            full = x.new_empty((S, 3, step))
+            scatter_ms = cards_ms(lambda: [x.index_select(0, idx).to(p.device, non_blocking=True)
+                                           for p, idx in zip(shard._parts, shard._index)], cards)
+
+            def gather():
+                for idx, o in zip(shard._index, outs):
+                    full[idx] = o.to(zero, non_blocking=True)
+
+            gather_ms = cards_ms(gather, cards)
+            one = MEASURED.get(f"{ola} {hops}", float("nan"))
+            print(f"cards [{smi}] 5 pool ola={ola} hops={hops}: S={S} on {{'data': {n}}} ({POOL_STREAMS} a card): "
+                  f"launches by card in {POOL_BLOCKS} blocks {counts}; max |mesh - unsharded pool on cuda:0| "
+                  f"{diff:.3e} (K3/K3s's launch "
+                  f"geometry follows the rows a launch), after a snapshot into an unsharded pool {resumed:.3e}; "
+                  f"{ms:.3f} ms a block (one card at {POOL_STREAMS} streams, phase {23 if ola == 'spectral' else 8}: "
+                  f"{one:.3f}); the step's input scatter alone {scatter_ms:.3f} ms, output gather alone "
+                  f"{gather_ms:.3f} ms; a block's host dispatch {host:.3f} ms, kernel ms a block by card "
+                  f"{ {d: round(b / POOL_BLOCKS, 3) for d, b in busy.items()} }, the cards' steps at once "
+                  f"{bodies:.1%} (events), kernels of two or more cards at once {overlap:.1%} (profiled)", flush=True)
+            check_rows(f"phase 28 group 5 ({ola}, hops {hops})", counts, cards)
+            if not diff < CARDS_DIFF_BAR or not resumed < CARDS_DIFF_BAR:
+                fail(f"phase 28 group 5: the mesh pool ({ola}, hops {hops}) differs from the unsharded pool")
+            del shard, plain, again, run, state, slabs, outs, full
+            torch.cuda.empty_cache()
+
+
+def cards_server(smi: str, cards):
+    """Group 6: a stream-server session on a pool over the cards
+    (--pool-mesh data=N), against the same pool fed directly."""
+    from upmix_tpu_torch.cli import build_mesh
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.serve_stream import StreamSession, run_stream_server
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
+    mesh = build_mesh(f"data={len(cards)}", allowed=("data",), flag="--pool-mesh")
+    hw = POOL_HW
+    x = (np.random.default_rng(281).standard_normal((SERVER_CLIENTS, SERVER_BLOCKS * hw, 2)) * 0.3).astype(np.float32)
+    ref = _direct_frames(CudaStreamPool(cfg, hw, SERVER_SLOTS, mesh=mesh), x, 1)
+    srv = run_stream_server(0, sr=POOL_SR, hw_block_size=hw, band_edges=POOL_EDGES, verbose=False, engine="cuda",
+                            n_streams=SERVER_SLOTS, lockstep=True, mesh=mesh)
+    try:
+        on = [p.device for p in srv.pool._parts]
+        sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(SERVER_CLIENTS)]
+        got = {}
+        pool.LAUNCHES = 0
+        counts, _, _ = rows_on(lambda: got.setdefault("frames", _serve_clients(
+            sessions, x, 0, SERVER_BLOCKS, SERVER_BLOCKS * hw, True)), POOL_ROWS, warm=False)
+        for s in sessions:
+            s.close()
+    finally:
+        srv.close()
+    same = bool(np.array_equal(got["frames"], ref))
+    print(f"cards [{smi}] 6 server: {SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks on a pool of "
+          f"{SERVER_SLOTS} slots over cards {[d.index for d in on]} (--pool-mesh data={len(cards)}): K3 launches by "
+          f"card {counts}; frames "
+          f"equal the pool fed directly bit for bit {same}", flush=True)
+    check_rows("phase 28 group 6", counts, cards)
+    if not same or on != cards:
+        fail("phase 28 group 6: the server on the cards differs from the pool fed directly")
+
+
+def cards_aot(smi: str, cfg, cards, L, R, want):
+    """Group 7: the offline artifact loaded onto cuda:1."""
+    import tempfile
+
+    from upmix_tpu_torch import aot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/offline.upmixaot"
+        aot.save_offline(path, cfg, N_SAMPLES)
+        art = aot.load(path, device=cards[1])
+    got = [t.cpu().numpy() for t in art.process(L, R)]
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    counts, _, _ = rows_on(lambda: art.process(L, R), OMNI_ROWS)
+    print(f"cards [{smi}] 7 aot: the offline artifact loaded onto cuda:1: K1 launches by card {counts}; bit for bit "
+          f"Upmixer on cuda:0 {same}", flush=True)
+    if not same or counts != {1: 6}:
+        fail("phase 28 group 7: the artifact on cuda:1 differs or ran off card 1")
+
+
+def cards_pod_check(smi: str, cards):
+    """Group 8: run_pod_check at world size 1 over the local cards, in a
+    child process (init_distributed changes this process's default mesh)."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        report = f"{tmp}/pod.json"
+        argv = [sys.executable, "-m", "upmix_tpu_torch.parallel.pod_check", "--coordinator",
+                f"127.0.0.1:{_free_port()}", "--num-processes", "1", "--process-id", "0", "--device", "cuda",
+                "--local-devices", str(len(cards)), "--report", report]
+        try:
+            res = subprocess.run(argv, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                                 timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 28 group 8: pod_check did not finish within {DIST_TIMEOUT} s")
+        if res.returncode != 0:
+            fail(f"phase 28 group 8: pod_check exited {res.returncode}: {res.stdout[-1500:]} {res.stderr[-3000:]}")
+        rep = json.loads(Path(report).read_text())
+    snrs = [s["snr_db"] for s in rep["seq_sharded"]["shards"]]
+    print(f"cards [{smi}] 8 pod_check: world size 1, {rep['backend']}, topology {rep['topology']}: all_reduce "
+          f"{rep['collective']['got']} (want {rep['collective']['want']}), {len(snrs)} shards >= {min(snrs):.1f} dB; "
+          f"{res.stdout.strip().splitlines()[-1]}", flush=True)
+    if rep["topology"]["local_devices"] != len(cards) or not min(snrs) > E2E_BAR_DB:
+        fail("phase 28 group 8: pod_check over the local cards failed")
 
 
 def tune_phases(smi: str, dev):

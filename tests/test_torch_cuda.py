@@ -1009,3 +1009,178 @@ def test_stream_server_on_the_card_matches_the_pool_fed_directly(cuda, hops, pip
             s.close()
     assert pool_ops.LAUNCHES > before
     np.testing.assert_array_equal(got, want)
+
+
+# One process over several cards (`-k devices`; two or more cards, else
+# skipped): every launch on its tensors' card, the current device left as
+# the caller had it.  Kernel rows by device come from torch.profiler
+# (`utils/profiling.py::kernel_rows_by_device`), so a launch on the wrong
+# card fails.
+
+BENCH_EDGES = [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0]
+POOL_EDGES = [0.0, 500.0, 2000.0, 8000.0]
+OMNI_ROWS = ("OmniSink",)  # K1 and K2 (K1's kernels on one bucket)
+POOL_ROWS = ("PoolSink", "SpectralSink", "spectral_")  # K3 and K3s
+
+
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices, {n} here")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def _rows(fn, match):
+    from upmix_tpu_torch.utils.profiling import kernel_rows_by_device
+
+    return kernel_rows_by_device(fn, match=match)[0]
+
+
+def test_devices_upmixer_on_card_1_is_card_0_bit_for_bit(cards):
+    cfg = UpmixConfig.make(BENCH_EDGES, sr=44100.0)
+    rng = np.random.default_rng(0)
+    L, R = rng.standard_normal((2, 2**19)).astype(np.float32)
+    want = Upmixer(cfg, device="cuda:0").process_np(L, R)
+    up = Upmixer(cfg, device="cuda:1")
+    assert torch.cuda.current_device() == 0
+    got = up.process_np(L, R)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert _rows(lambda: up.process(L, R), OMNI_ROWS) == {1: 6}  # one a bucket, two for 65536
+
+
+def test_devices_launch_under_another_current_device_and_stream(cards):
+    # The caller's current device is cuda:1 with a stream of its own; a
+    # launch on cuda:0 goes to cuda:0's current stream and the caller's
+    # device and stream are as they were after it.
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    x = np.random.default_rng(1).standard_normal((2, 8192)).astype(np.float32)
+    want = Upmixer(cfg, device="cuda:0").process_np(x[0], x[1])
+    up = Upmixer(cfg, device="cuda:0")
+    side = torch.cuda.Stream(device="cuda:1")
+    with torch.cuda.device(1), torch.cuda.stream(side):
+        got = up.process_np(x[0], x[1])
+        assert torch.cuda.current_device() == 1 and torch.cuda.current_stream() == side
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_devices_sharded_over_distinct_cards(cards):
+    from upmix_tpu_torch.ops import fused
+    from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
+
+    cfg = UpmixConfig.make(BENCH_EDGES, sr=44100.0)
+    axes = {"data": 2, "seq": 2} if len(cards) >= 4 else {"seq": 2}
+    n = int(np.prod(list(axes.values())))
+    x = torch.randn((2, 2, 2**19), device="cuda:0", generator=torch.Generator("cuda:0").manual_seed(3))
+    want = ShardedUpmixer(cfg, make_mesh(axes, devices=[cards[0]] * n)).process_batch(x)
+    su = ShardedUpmixer(cfg, make_mesh(axes))
+    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    got = su.process_batch(x)
+    assert torch.cuda.current_device() == 0 and got.device == torch.device("cuda", 0)
+    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == (3 * n, 3 * n)  # 3 and 3 on every card
+    # Row counts change K1/K2's OLA grouping: float32 rounding apart.
+    assert float((got - want).abs().max()) < 1e-5
+    assert _rows(lambda: su.process_batch(x), OMNI_ROWS) == {i: 6 for i in range(n)}
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_devices_batch_over_distinct_cards(cards, pipeline):
+    from upmix_tpu_torch.models import BatchUpmixer
+    from upmix_tpu_torch.parallel import make_mesh
+
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    rng = np.random.default_rng(4)
+    files = [rng.standard_normal((2, n)).astype(np.float32) for n in (4096, 3000, 4096, 2048) * len(cards)]
+    one = list(BatchUpmixer(cfg, 4096, len(cards), device="cuda:0").process_files(files))
+    bu = BatchUpmixer(cfg, 4096, len(cards), mesh=make_mesh({"data": len(cards)}))
+    got = list(bu.process_files(files, pipeline=pipeline))
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, one):
+        assert a.shape == b.shape and float(np.abs(a - b).max()) < 1e-5
+    x = torch.as_tensor(np.stack([np.pad(f, ((0, 0), (0, 4096 - f.shape[1]))) for f in files[: len(cards)]]))
+    assert _rows(lambda: bu._fn(x.to("cuda:0")), OMNI_ROWS) == {i: 2 for i in range(len(cards))}
+
+
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+def test_devices_pool_over_distinct_cards(cards, ola):
+    # Each card steps its shard's streams; the same kernels on fewer rows
+    # a launch: within 1e-5 of the unsharded pool (K3/K3s's launch
+    # geometry follows the row count), snapshots across the two.
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.parallel import make_mesh
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048)
+    S, hw = 16 * len(cards), 2048
+    mesh_pool = CudaStreamPool(cfg, hw, S, mesh=make_mesh({"data": len(cards)}), ola=ola)
+    plain = CudaStreamPool(cfg, hw, S, device="cuda:0", ola=ola)
+    rng = np.random.default_rng(5)
+    for _ in range(6):
+        b = rng.standard_normal((2, S, hw)).astype(np.float32)
+        got = torch.stack(mesh_pool.push_blocks(b[0], b[1]))
+        want = torch.stack(plain.push_blocks(b[0], b[1]))
+        assert got.device == torch.device("cuda", 0) and torch.cuda.current_device() == 0
+        assert float((got - want).abs().max()) < 1e-5
+    again = CudaStreamPool(cfg, hw, S, device="cuda:0", ola=ola)
+    again.restore(mesh_pool.snapshot())
+    b = rng.standard_normal((2, S, hw)).astype(np.float32)
+    assert float((torch.stack(again.push_blocks(b[0], b[1])) - torch.stack(mesh_pool.push_blocks(b[0], b[1])))
+                 .abs().max()) < 1e-5
+    rows = _rows(lambda: mesh_pool.push_blocks(b[0], b[1]), POOL_ROWS)
+    assert sorted(rows) == list(range(len(cards))) and len(set(rows.values())) == 1
+
+
+def test_devices_stream_pool_on_card_1(cards):
+    from upmix_tpu_torch.models.streaming import make_stream_pool
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048)
+    one = make_stream_pool(cfg, 2048, 8, device="cuda:1")
+    zero = make_stream_pool(cfg, 2048, 8, device="cuda:0")
+    rng = np.random.default_rng(6)
+    for _ in range(4):
+        b = rng.standard_normal((2, 8, 2048)).astype(np.float32)
+        got = torch.stack(one.push_blocks(b[0], b[1]))
+        assert got.device == torch.device("cuda", 1) and torch.cuda.current_device() == 0
+        assert torch.equal(got.cpu(), torch.stack(zero.push_blocks(b[0], b[1])).cpu())
+    assert set(_rows(lambda: one.push_blocks(b[0], b[1]), POOL_ROWS)) == {1}
+
+
+def test_devices_a_launch_over_two_cards_raises(cards):
+    from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch
+    from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr
+
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    plan = make_omnibus_plan(plans_from_numpy(_plan_buckets(cfg, 2048), "cuda:0"), 2048)
+    x = torch.zeros((1, 2, 2048 + plan.halo), device="cuda:1")
+    with pytest.raises(ValueError, match="plan buckets live on cuda:0, input on cuda:1"):
+        omnibus_lcr_batch(x, plan)
+    b = plan.buckets[-1]
+    with pytest.raises(ValueError, match="plan buckets live on cuda:0, input on cuda:1"):
+        fused_bucket_lcr_batch(torch.zeros((1, 2, 2048 + b.spill), device="cuda:1"), b)
+    pcfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=256)
+    pplan = make_pool_plan(pcfg, 256, 2, device="cuda:0")
+    hist = torch.zeros((2, 2, pplan.warmup * 256), device="cuda:1")
+    carries = [torch.zeros((2, 3, pb.block), device="cuda:1") for pb in pplan.buckets]
+    with pytest.raises(ValueError, match="plan buckets live on cuda:0, input on cuda:1"):
+        pool_step_lcr(hist, torch.ones(2, dtype=torch.int32, device="cuda:1"), carries, pplan)
+    carries[0] = carries[0].to("cuda:0")
+    with pytest.raises(ValueError, match="on the history's device"):
+        pool_step_lcr(hist, torch.ones(2, dtype=torch.int32, device="cuda:1"), carries, pplan)
+    assert torch.cuda.current_device() == 0
+
+
+def test_devices_aot_offline_loaded_onto_card_1(cards, tmp_path):
+    from upmix_tpu_torch import aot
+
+    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    path = str(tmp_path / "offline.upmixaot")
+    aot.save_offline(path, cfg, 8192)
+    art = aot.load(path, device="cuda:1")
+    x = np.random.default_rng(7).standard_normal((2, 8192)).astype(np.float32)
+    got = art.process(x[0], x[1])
+    assert got[0].device == torch.device("cuda", 1) and torch.cuda.current_device() == 0
+    for a, b in zip(got, aot.load(path, device="cuda:0").process(x[0], x[1])):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert set(_rows(lambda: art.process(x[0], x[1]), OMNI_ROWS)) == {1}

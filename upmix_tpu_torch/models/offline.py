@@ -152,8 +152,12 @@ def plans_from_numpy(bucket_plans, device) -> tuple:
     bucket, from `_BucketPlan` records of either package (numpy arrays).
     Build it once per config and reuse it: windows, gains and FFT twiddles,
     about 1.4 MB for the default config at 44.1 kHz.  The two-stage
-    split's tables are built for a CUDA device only (`make_bucket`)."""
-    live = (make_bucket(p, device) for p in bucket_plans)
+    split's tables are built for a CUDA device only (`make_bucket`),
+    with `device` current (`ops/_build.py::on_device`)."""
+    from upmix_tpu_torch.ops._build import on_device
+
+    with on_device(device):
+        live = [make_bucket(p, device) for p in bucket_plans]
     return tuple(b for b in live if b is not None)
 
 

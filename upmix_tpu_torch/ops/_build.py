@@ -78,6 +78,30 @@ def fresh_build_dir():
         shutil.rmtree(fresh, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def on_device(device):
+    """Make `device` (a torch.device or a name; a CUDA device) the current
+    device for the block, and the caller's current device again after it.
+
+    Every call into the library runs inside this guard on the device of
+    the tensors it is handed.  A launch goes to the stream handle of
+    `torch.cuda.current_stream(device)`; PyTorch's default stream is
+    handle 0, the legacy stream of whichever device is *current*, and
+    `cudaFuncSetAttribute` acts on the current device too, so without
+    the guard a launch for tensors on cuda:1 would run on cuda:0.  A CPU
+    device (a plan built for the plain versions) makes no change."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"the kernels run on cuda devices, not {dev}")
+        yield dev
+        return
+    with torch.cuda.device(dev):
+        yield dev
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first call."""
     global _lib, build_seconds, build_log, BUILD_DIR

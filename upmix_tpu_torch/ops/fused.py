@@ -104,12 +104,13 @@ def _fused_cuda(x: torch.Tensor, b: FusedBucket, chunk: int) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the fused kernel takes a contiguous float32 tensor")
     check_kernel_tables(b, x.device)
-    lib = _build.load()
     S, _, width = x.shape
-    y = torch.empty((S, 3, width), dtype=torch.float32, device=x.device)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    launch_bucket(lib, x, y, b, chunk // b.hop, False, n_sm, torch.cuda.current_stream(x.device).cuda_stream,
-                  _launched)
+    with _build.on_device(x.device):
+        lib = _build.load()
+        y = torch.empty((S, 3, width), dtype=torch.float32, device=x.device)
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        launch_bucket(lib, x, y, b, chunk // b.hop, False, n_sm, torch.cuda.current_stream(x.device).cuda_stream,
+                      _launched)
     return y
 
 

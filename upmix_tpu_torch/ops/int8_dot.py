@@ -164,21 +164,21 @@ def cluster_size(M: int, resident, at_once, n_sm: int = SMS) -> int:
 _CARD = {}
 
 
-def card_clusters(variant: str):
-    """(resident, at_once) of `variant`'s kernel on the card, for
+def card_clusters(variant: str, device="cuda"):
+    """(resident, at_once) of `variant`'s kernel on the card `device`, for
     `cluster_size`: whether a cluster size keeps W resident, and how many
     of its clusters the card runs at once (cudaOccupancyMaxActiveClusters);
     each asked once."""
     from upmix_tpu_torch.ops import _build
 
     _check_variant(variant)
-    lib = _build.load()
 
     def ask(fn, cs):
         key = (fn, variant, cs)
         if key not in _CARD:
             args = (_CODES[variant], cs) if fn == "dot_chain_resident" else (ROWS, _CODES[variant], cs)
-            n = getattr(lib, fn)(*args)
+            with _build.on_device(device):
+                n = getattr(_build.load(), fn)(*args)
             if n < 0:
                 raise RuntimeError(f"{fn} failed for {variant} at cluster size {cs}")
             _CARD[key] = n
@@ -263,16 +263,17 @@ def dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts, clust
     if any(t is not None and t.device != x.device for t in consts.frags):
         raise ValueError("consts must lie on x's device")
     hi, lo, sw = consts.frags
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     if cluster is None:
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        cluster = cluster_size(M, *card_clusters(variant), n_sm)
+        cluster = cluster_size(M, *card_clusters(variant, x.device), n_sm)
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = _build.load().dot_chain(x.data_ptr(), out.data_ptr(), ptr(hi), ptr(lo), ptr(sw), M,
-                                 _CODES[variant], chain, cluster, stream)
+    with _build.on_device(x.device):
+        out = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.load().dot_chain(x.data_ptr(), out.data_ptr(), ptr(hi), ptr(lo), ptr(sw), M,
+                                     _CODES[variant], chain, cluster, stream)
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] = LAUNCHES_BY_VARIANT.get(variant, 0) + 1
     if rc != 0:

@@ -291,10 +291,15 @@ def _launched(rc: int, what: str) -> None:
 
 
 def check_kernel_tables(b, dev) -> None:
-    """Raise unless bucket b carries the FFT kernels' tables on `dev`."""
+    """Raise unless bucket b carries the FFT kernels' tables, every one of
+    them on `dev`."""
     if b.twiddles is None or (b.block > FFT_MAX and b.wide is None):
         raise ValueError(f"bucket B={b.block} was planned without the kernels' tables (a CPU plan); plan it for {dev}")
-    if b.twiddles.device != dev:
+    w = b.wide
+    tables = (b.analysis_window, b.synthesis_window, b.gains, b.twiddles)
+    if w is not None:
+        tables += (w.stage2, w.rows, w.row_ptr, w.entries, w.tile_ptr)
+    if any(t.device != dev for t in tables):
         raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
 
 
@@ -346,13 +351,14 @@ def _omnibus_cuda(x: torch.Tensor, plan: OmnibusPlan) -> torch.Tensor:
     dev = x.device
     for b in plan.buckets:
         check_kernel_tables(b, dev)
-    lib = _build.load()
     S, _, width = x.shape
-    y = torch.empty((S, 3, width), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for i, b in enumerate(plan.buckets):  # the first writes its span, the others add
-        launch_bucket(lib, x, y, b, plan.chunk // b.hop, i > 0, n_sm, stream, _launched)
+    with _build.on_device(dev):
+        lib = _build.load()
+        y = torch.empty((S, 3, width), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        for i, b in enumerate(plan.buckets):  # the first writes its span, the others add
+            launch_bucket(lib, x, y, b, plan.chunk // b.hop, i > 0, n_sm, stream, _launched)
     return y
 
 

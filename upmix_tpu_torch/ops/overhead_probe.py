@@ -111,12 +111,14 @@ def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, li
         raise ValueError("the probe kernel takes contiguous float32 tensors on one device")
     if x.shape[2] % 4 or tile % 4:
         raise ValueError("the probe kernel stages 16-byte pieces: x's length and the tile must be multiples of 4")
-    out = torch.empty((1, 3, n), dtype=torch.float32, device=x.device)
-    spill = torch.empty((1, 3, halo), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * MAX_WEIGHTS)(*[w.data_ptr() for w in weights])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = (lib or _build.load()).overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights),
-                                               n_views, n // tile, tile, out.data_ptr(), spill.data_ptr(), halo, stream)
+    with _build.on_device(x.device):
+        out = torch.empty((1, 3, n), dtype=torch.float32, device=x.device)
+        spill = torch.empty((1, 3, halo), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = (lib or _build.load()).overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights),
+                                                   n_views, n // tile, tile, out.data_ptr(), spill.data_ptr(), halo,
+                                                   stream)
     LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"overhead_probe launch failed: cudaError {rc}")
@@ -141,7 +143,8 @@ def empty_launch(blocks: int, count: int = 1, device="cuda"):
     probe's width, from one host call (the floor of a launch)."""
     from upmix_tpu_torch.ops import _build
 
-    rc = _build.load().empty_launch(blocks, count, torch.cuda.current_stream(torch.device(device)).cuda_stream)
+    with _build.on_device(device) as dev:
+        rc = _build.load().empty_launch(blocks, count, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"empty_launch failed: cudaError {rc}")
 

@@ -334,11 +334,17 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
                              ola: str = "time") -> PoolPlan | None:
     """Device plan from `_StreamBucketPlan` records (numpy arrays) of
     either package; None when every bucket's gains are zero.  The
-    two-stage split's tables of a block over FFT_MAX are built for a CUDA
-    device only."""
-    check_ola(ola)
-    device = torch.device(device)
+    two-stage split's tables of a block over FFT_MAX and the edge weights
+    are built for a CUDA device only, with it current
+    (`_build.on_device`)."""
+    from upmix_tpu_torch.ops._build import on_device
 
+    check_ola(ola)
+    with on_device(device):
+        return _plan_on(records, hw, warmup, n_streams, torch.device(device), ola)
+
+
+def _plan_on(records, hw: int, warmup: int, n_streams: int, device: torch.device, ola: str) -> PoolPlan | None:
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 
@@ -457,47 +463,48 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     dev = hist.device
-    lib = _build.load()
     S, _, width = hist.shape
     hw, nq = plan.hw, plan.warmup
-    t32 = t.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    new = []
-    for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
-        B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
-        carry_out = torch.empty((S, 3, B), dtype=torch.float32, device=dev)
-        io = (carry.data_ptr(), t32.data_ptr(), out.data_ptr(), carry_out.data_ptr())
-        if w is None:
-            geo = launch_geometry(b, hops * b.passes, S, None, hops * b.passes + B // H)
-            _launched(
-                lib.pool_bucket(
-                    hist.data_ptr(), *io, b.analysis_window.data_ptr(), b.synthesis_window.data_ptr(),
-                    b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq,
-                    geo.frames, int(geo.pair), width, int(i > 0), stream,
-                ),
-                "pool_bucket",
-            )
-        else:
-            part = torch.empty((S, hops * b.passes, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
-            _launched(
-                lib.pool_wide_forward(
-                    hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
-                    b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
-                    width, stream,
-                ),
-                "pool_wide_forward",
-            )
-            _launched(
-                lib.pool_wide_inverse(
-                    part.data_ptr(), *io, b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(),
-                    w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(),
-                    w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, nb, w.n1, w.cols, hw, hops, nq,
-                    int(i > 0), stream,
-                ),
-                "pool_wide_inverse",
-            )
-        new.append(carry_out)
+    with _build.on_device(dev):
+        lib = _build.load()
+        t32 = t.to(device=dev, dtype=torch.int32).contiguous()
+        out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        new = []
+        for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
+            B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
+            carry_out = torch.empty((S, 3, B), dtype=torch.float32, device=dev)
+            io = (carry.data_ptr(), t32.data_ptr(), out.data_ptr(), carry_out.data_ptr())
+            if w is None:
+                geo = launch_geometry(b, hops * b.passes, S, None, hops * b.passes + B // H)
+                _launched(
+                    lib.pool_bucket(
+                        hist.data_ptr(), *io, b.analysis_window.data_ptr(), b.synthesis_window.data_ptr(),
+                        b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq,
+                        geo.frames, int(geo.pair), width, int(i > 0), stream,
+                    ),
+                    "pool_bucket",
+                )
+            else:
+                part = torch.empty((S, hops * b.passes, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
+                _launched(
+                    lib.pool_wide_forward(
+                        hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+                        b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
+                        width, stream,
+                    ),
+                    "pool_wide_forward",
+                )
+                _launched(
+                    lib.pool_wide_inverse(
+                        part.data_ptr(), *io, b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(),
+                        w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(),
+                        w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, nb, w.n1, w.cols, hw, hops, nq,
+                        int(i > 0), stream,
+                    ),
+                    "pool_wide_inverse",
+                )
+            new.append(carry_out)
     return out, tuple(new)
 
 
@@ -605,44 +612,45 @@ def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
 def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     from upmix_tpu_torch.ops import _build
 
-    lib = _build.load()
     S, _, width = hist.shape
     dev, hw, nq = hist.device, plan.hw, plan.warmup
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    specs, new = [], []
-    for b, carry in zip(plan.buckets, carries):
-        B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
-        F = hops * b.passes
-        spec = torch.empty((S, 3, F, K, 2), dtype=torch.float32, device=dev)
-        carry_out = torch.empty_like(carry)
-        state = (carry.data_ptr(), spec.data_ptr(), carry_out.data_ptr())
-        if w is None:
-            _launched_spectral(
-                lib.pool_spectral_forward(
-                    hist.data_ptr(), t.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
-                    b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, spectral_pass(B), width, stream,
-                ),
-                "pool_spectral_forward",
-            )
-        else:
-            part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
-            _launched_spectral(
-                lib.pool_wide_forward(
-                    hist.data_ptr(), t.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
-                    b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
-                    width, stream,
-                ),
-                "pool_wide_forward",
-            )
-            _launched_spectral(
-                lib.pool_spectral_mask(
-                    part.data_ptr(), t.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
-                    hw, hops, nq, stream,
-                ),
-                "pool_spectral_mask",
-            )
-        specs.append(spec)
-        new.append(carry_out)
+    with _build.on_device(dev):
+        lib = _build.load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        specs, new = [], []
+        for b, carry in zip(plan.buckets, carries):
+            B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
+            F = hops * b.passes
+            spec = torch.empty((S, 3, F, K, 2), dtype=torch.float32, device=dev)
+            carry_out = torch.empty_like(carry)
+            state = (carry.data_ptr(), spec.data_ptr(), carry_out.data_ptr())
+            if w is None:
+                _launched_spectral(
+                    lib.pool_spectral_forward(
+                        hist.data_ptr(), t.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
+                        b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, spectral_pass(B), width, stream,
+                    ),
+                    "pool_spectral_forward",
+                )
+            else:
+                part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
+                _launched_spectral(
+                    lib.pool_wide_forward(
+                        hist.data_ptr(), t.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+                        b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
+                        width, stream,
+                    ),
+                    "pool_wide_forward",
+                )
+                _launched_spectral(
+                    lib.pool_spectral_mask(
+                        part.data_ptr(), t.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
+                        hw, hops, nq, stream,
+                    ),
+                    "pool_spectral_mask",
+                )
+            specs.append(spec)
+            new.append(carry_out)
     return tuple(specs), tuple(new)
 
 
@@ -670,23 +678,24 @@ def _edge_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRou
     dev, S = t.device, t.shape[0]
     if any(g.device != dev for g in routes.groups):
         raise ValueError(f"the plan's split weights lie on {routes.groups[0].device}, the spectra on {dev}")
-    lib = _build.load()
-    out = torch.empty((S, 3, hops * plan.hw), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for g, group in enumerate(routes.groups):
-        n = len(group.buckets)
-        # The gathered operands [2, 3 S, n_edge, Kp] of the group's buckets
-        # in one allocation; each a multiple of 64 bf16 values long, so
-        # every one starts on 16 bytes.
-        sizes = [2 * 3 * S * e * kp for e, kp in zip(group.n_edge, group.depth)]
-        gathered = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
-        at = np.cumsum([0, *sizes[:-1]]) * gathered.element_size() + gathered.data_ptr()
-        args = (group.weights, (ctypes.c_void_p * n)(*at.tolist()),
-                (ctypes.c_void_p * n)(*[carries[i].data_ptr() for i in group.buckets]),
-                (ctypes.c_void_p * n)(*[specs[i].data_ptr() for i in group.buckets]),
-                group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0), stream)
-        _launched_spectral(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
-        _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
+    with _build.on_device(dev):
+        lib = _build.load()
+        out = torch.empty((S, 3, hops * plan.hw), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g, group in enumerate(routes.groups):
+            n = len(group.buckets)
+            # The gathered operands [2, 3 S, n_edge, Kp] of the group's buckets
+            # in one allocation; each a multiple of 64 bf16 values long, so
+            # every one starts on 16 bytes.
+            sizes = [2 * 3 * S * e * kp for e, kp in zip(group.n_edge, group.depth)]
+            gathered = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+            at = np.cumsum([0, *sizes[:-1]]) * gathered.element_size() + gathered.data_ptr()
+            args = (group.weights, (ctypes.c_void_p * n)(*at.tolist()),
+                    (ctypes.c_void_p * n)(*[carries[i].data_ptr() for i in group.buckets]),
+                    (ctypes.c_void_p * n)(*[specs[i].data_ptr() for i in group.buckets]),
+                    group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0), stream)
+            _launched_spectral(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
+            _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
     return out
 
 
@@ -709,39 +718,40 @@ def spectral_whole(carries, specs, t, plan: PoolPlan, hops: int = 1, out=None):
 def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRoutes, out):
     from upmix_tpu_torch.ops import _build
 
-    lib = _build.load()
     S, hw, nq = t.shape[0], plan.hw, plan.warmup
-    accumulate = out is not None
-    if out is None:
-        # The first launch writes every position; with no launch (every
-        # bucket's frames on the edge product) the result is zeros.
-        alloc = torch.empty if any(whole for _, whole in routes.frames) else torch.zeros
-        out = alloc((S, 3, hops * hw), dtype=torch.float32, device=t.device)
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    for b, carry, spec, (_, whole) in zip(plan.buckets, carries, specs, routes.frames):
-        if not whole:
-            continue
-        B, H, K, w = b.block, b.hop, b.kept, b.wide
-        state = (carry.data_ptr(), spec.data_ptr(), t.data_ptr(), out.data_ptr())
-        span = (whole[0], whole[-1] + 1)
-        if w is None:
-            _launched_spectral(
-                lib.pool_spectral_inverse(
-                    *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq,
-                    spectral_pass(B), *span, int(accumulate), stream,
-                ),
-                "pool_spectral_inverse",
-            )
-        else:
-            _launched_spectral(
-                lib.pool_spectral_wide_inverse(
-                    *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(),
-                    w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles,
-                    w.kt, S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq, *span, int(accumulate), stream,
-                ),
-                "pool_spectral_wide_inverse",
-            )
-        accumulate = True
+    with _build.on_device(t.device):
+        lib = _build.load()
+        accumulate = out is not None
+        if out is None:
+            # The first launch writes every position; with no launch (every
+            # bucket's frames on the edge product) the result is zeros.
+            alloc = torch.empty if any(whole for _, whole in routes.frames) else torch.zeros
+            out = alloc((S, 3, hops * hw), dtype=torch.float32, device=t.device)
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        for b, carry, spec, (_, whole) in zip(plan.buckets, carries, specs, routes.frames):
+            if not whole:
+                continue
+            B, H, K, w = b.block, b.hop, b.kept, b.wide
+            state = (carry.data_ptr(), spec.data_ptr(), t.data_ptr(), out.data_ptr())
+            span = (whole[0], whole[-1] + 1)
+            if w is None:
+                _launched_spectral(
+                    lib.pool_spectral_inverse(
+                        *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq,
+                        spectral_pass(B), *span, int(accumulate), stream,
+                    ),
+                    "pool_spectral_inverse",
+                )
+            else:
+                _launched_spectral(
+                    lib.pool_spectral_wide_inverse(
+                        *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(),
+                        w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles,
+                        w.kt, S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq, *span, int(accumulate), stream,
+                    ),
+                    "pool_spectral_wide_inverse",
+                )
+            accumulate = True
     return out
 
 

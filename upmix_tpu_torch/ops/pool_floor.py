@@ -96,9 +96,10 @@ def _floor_cuda(hist, hw: int, mode: str, plan, lib=None):
         raise ValueError(f"at most {MAX_BUCKETS} buckets, got {len(geo)}")
     packed = (ctypes.c_int * (2 * MAX_BUCKETS))(*[v for bm in geo for v in bm])
     S, _, W = hist.shape
-    out = torch.empty((S, 3, hw), dtype=torch.float32, device=hist.device)
-    stream = torch.cuda.current_stream(hist.device).cuda_stream
-    rc = (lib or _build.load()).pool_floor(hist.data_ptr(), out.data_ptr(), S, W, hw, len(geo), packed, stream)
+    with _build.on_device(hist.device):
+        out = torch.empty((S, 3, hw), dtype=torch.float32, device=hist.device)
+        stream = torch.cuda.current_stream(hist.device).cuda_stream
+        rc = (lib or _build.load()).pool_floor(hist.data_ptr(), out.data_ptr(), S, W, hw, len(geo), packed, stream)
     LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"pool_floor launch failed: cudaError {rc}")

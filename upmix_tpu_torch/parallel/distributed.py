@@ -27,6 +27,7 @@ ranks on one device).  `parallel/pod_check.py` is the proof harness.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import os
 import sys
@@ -117,15 +118,17 @@ def init_distributed(
         if world is None or rank is None:
             raise ValueError("the process count and id come from num_processes and process_id, "
                              "or from WORLD_SIZE and RANK")
-        if backend == "nccl":
-            torch.cuda.set_device(local[0])
+        # NCCL binds the group to this process's first card (barriers run
+        # there); the caller's current device is left as it was.
+        bound = {"device_id": local[0]} if backend == "nccl" else {}
         dist.init_process_group(backend, init_method=init_method, timeout=TIMEOUT,
-                                world_size=int(world), rank=int(rank))
+                                world_size=int(world), rank=int(rank), **bound)
         atexit.register(_shutdown)
-    elif dist.get_backend() == "nccl":
-        torch.cuda.set_device(local[0])
     gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, [str(d) for d in local])
+    # Object collectives under NCCL stage on the current device: make it
+    # this process's first card for the gather alone.
+    with torch.cuda.device(local[0]) if dist.get_backend() == "nccl" else contextlib.nullcontext():
+        dist.all_gather_object(gathered, [str(d) for d in local])
     _GLOBAL_DEVICES = [(p, torch.device(d)) for p, names in enumerate(gathered) for d in names]
     _INIT_INFO = {
         "process_index": dist.get_rank(),

@@ -11,8 +11,10 @@ live group.  Run ONE copy per process:
         [--files a.wav b.wav ...] [--report out.json]
 
 or under torchrun without --coordinator (its environment names the
-group).  Each process holds K mesh entries of `--device` (repeats of one
-device run as rows of one launch).  Each process performs, in order:
+group).  Each process holds K mesh entries of `--device`: with a bare
+`cuda`, K distinct cards (`local_entries`); a named device is repeated,
+and its entries run as rows of one launch.  Each process performs, in
+order:
 
 1. ``init_distributed()``: brings up the group; after it, `make_mesh()`
    builds over every process's entries.
@@ -80,6 +82,26 @@ def _float64_lcr(L, R, cfg, device):
     return torch.stack(build_offline_fn(cfg, len(L), chunk=0, device=device)(Ld, Rd)).cpu().numpy()
 
 
+def local_entries(device: str, count: int) -> list:
+    """This process's `count` mesh entries of `device`.  A bare "cuda"
+    spans `count` distinct cards, the block of LOCAL_RANK (cuda:LOCAL_RANK
+    * count onwards), as a JAX process holds its local chips: one process
+    over four cards is `--local-devices 4`, and under torchrun each rank
+    takes its own card.  A named device (cuda:k, cpu) is repeated; its
+    entries run as rows of one launch."""
+    import os
+
+    import torch
+
+    if device != "cuda":
+        return [device] * count
+    first = int(os.environ.get("LOCAL_RANK", 0)) * count
+    if first + count > torch.cuda.device_count():
+        raise ValueError(f"--local-devices {count} of bare cuda needs cards {first} .. {first + count - 1}, "
+                         f"{torch.cuda.device_count()} visible; name a device (cuda:0) to repeat one card")
+    return [f"cuda:{first + i}" for i in range(count)]
+
+
 def run_pod_check(
     coordinator: str | None = None,
     num_processes: int | None = None,
@@ -97,7 +119,8 @@ def run_pod_check(
     """Run the four-step check (see module docstring).
 
     `device`, `local_devices` and `backend` go to `init_distributed` (K
-    entries of `device`); once the group is up they change nothing.
+    entries of `device`, `local_entries`); once the group is up they
+    change nothing.
     Returns the report dict; raises AssertionError on any failed gate so
     launchers see a non-zero exit.
     """
@@ -113,7 +136,7 @@ def run_pod_check(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
-        local_device_ids=[device] * local_devices,
+        local_device_ids=local_entries(device, local_devices),
         backend=backend,
     )
     report: dict = {"topology": info, "backend": dist.get_backend()}
@@ -129,7 +152,7 @@ def run_pod_check(
 
     # -- 2. cross-process collective -------------------------------------
     base = np.arange(n_glob * 8, dtype=np.float32).reshape(n_glob, 8)
-    on = torch.device("cuda", torch.cuda.current_device()) if report["backend"] == "nccl" else torch.device("cpu")
+    on = first if report["backend"] == "nccl" else torch.device("cpu")
     part = torch.stack([torch.as_tensor(base[k], device=mesh.devices.flat[k]).sum().to(on) for k in mine]).sum()
     dist.all_reduce(part)
     want_sum = float(base.sum())
@@ -202,7 +225,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="this process's device (cpu for the plain versions; bare cuda is cuda:LOCAL_RANK)")
     ap.add_argument("--local-devices", type=int, default=1,
-                    help="mesh entries of --device this process holds")
+                    help="mesh entries of --device this process holds (bare cuda: that many distinct cards)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="default: nccl for CUDA devices, gloo for the CPU")
     args = ap.parse_args(argv)

@@ -698,7 +698,7 @@ class StreamServer:
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(self._device))
         return host, done
 
     @staticmethod

@@ -48,23 +48,25 @@ __all__ = ["tune_pool", "tune_offline"]
 
 
 class _Clock:
-    """Seconds of the work between start() and stop(): CUDA events on a
-    CUDA device, the host's clock elsewhere."""
+    """Seconds of the work between start() and stop(): CUDA events on the
+    current stream of a CUDA device (the card that does the work, whichever
+    device is current), the host's clock elsewhere."""
 
     def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
 
     def start(self):
         if self.cuda:
             self._a = torch.cuda.Event(enable_timing=True)
             self._b = torch.cuda.Event(enable_timing=True)
-            self._a.record()
+            self._a.record(torch.cuda.current_stream(self.device))
         else:
             self._t0 = time.perf_counter()
 
     def stop(self) -> float:
         if self.cuda:
-            self._b.record()
+            self._b.record(torch.cuda.current_stream(self.device))
             self._b.synchronize()
             return self._a.elapsed_time(self._b) / 1e3
         return time.perf_counter() - self._t0

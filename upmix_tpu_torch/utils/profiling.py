@@ -74,6 +74,59 @@ class RealtimeMeter:
         return self.audio_s / self.wall_s if self.wall_s > 0 else float("inf")
 
 
+def kernel_rows_by_device(fn, iters: int = 1, match=None, warm: bool = True):
+    """({device index: kernel launches}, rows) of `iters` calls of fn
+    under torch.profiler, after one call outside it (none when not
+    `warm`); rows are (device
+    index, kernel name, start us, end us) of every kernel on a card, in
+    start order (copies and fills left out), or of those whose name
+    holds one of the strings `match`.  The index is the card the kernel
+    ran on, whatever tensors it was handed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    if warm:
+        fn()
+        sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    rows = sorted(
+        ((e.device_index, e.name, e.time_range.start, e.time_range.end)
+         for e in prof.events()
+         if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))
+         and (match is None or any(m in e.name for m in match))),
+        key=lambda r: r[2],
+    )
+    counts = {}
+    for dev, *_ in rows:
+        counts[dev] = counts.get(dev, 0) + 1
+    return dict(sorted(counts.items())), rows
+
+
+def overlap_share(rows) -> float:
+    """Share of the span from the first kernel's start to the last one's
+    end (rows of `kernel_rows_by_device`) during which kernels of two or
+    more devices run at once."""
+    if not rows:
+        return 0.0
+    marks = sorted([(s, 1, d) for d, _, s, _ in rows] + [(e, -1, d) for d, _, _, e in rows])
+    active, both, prev = {}, 0.0, marks[0][0]
+    for at, step, dev in marks:
+        if sum(1 for n in active.values() if n > 0) >= 2:
+            both += at - prev
+        active[dev] = active.get(dev, 0) + step
+        prev = at
+    span = max(e for *_, e in rows) - min(s for _, _, s, _ in rows)
+    return both / span if span > 0 else 0.0
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler over the block (CPU, and CUDA where a card is
