@@ -2108,13 +2108,24 @@ def cards_ms(fn, cards, loops: int = 5) -> float:
     return best
 
 
+def overlap_share(rows) -> float:
+    """Share of the span from the first row's start to the last one's end
+    (rows (card, name, start, end) of `kernel_rows_by_device`) during
+    which rows of two or more cards run at once: the benchmark's
+    `benchmark/trace.py::overlap_share`, 0 for no rows."""
+    from benchmark.trace import Row
+    from benchmark.trace import overlap_share as share
+
+    return share([Row(d, name, s, e, "kernel") for d, name, s, e in rows]) or 0.0
+
+
 def rows_on(fn, match, warm: bool = True):
     """({card: launches of the kernels named by `match`}, overlap share,
     {card: busy ms}) of one call of fn, from torch.profiler: the share of
     the kernels' span during which kernels of two or more cards run, and
     each card's kernel time, over every kernel's rows of a second call
     (none when not `warm`: fn runs once)."""
-    from upmix_tpu_torch.utils.profiling import kernel_rows_by_device, overlap_share
+    from upmix_tpu_torch.utils.profiling import kernel_rows_by_device
 
     counts, _ = kernel_rows_by_device(fn, match=match, warm=warm)
     _, rows = kernel_rows_by_device(fn, warm=False) if warm else (None, [])
@@ -2133,7 +2144,6 @@ def body_overlap(fn, cards, pool: bool = False) -> float:
     origin.  A body's start event fires when the card starts the body."""
     from upmix_tpu_torch.models import streaming
     from upmix_tpu_torch.parallel import sharded
-    from upmix_tpu_torch.utils.profiling import overlap_share
 
     spans = []
 

@@ -1184,3 +1184,98 @@ def test_devices_aot_offline_loaded_onto_card_1(cards, tmp_path):
     for a, b in zip(got, aot.load(path, device="cuda:0").process(x[0], x[1])):
         assert torch.equal(a.cpu(), b.cpu())
     assert set(_rows(lambda: art.process(x[0], x[1]), OMNI_ROWS)) == {1}
+
+
+def _profiled_spans(fn):
+    """The program's spans (utils/tracing.py) of fn under torch.profiler,
+    after one call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from upmix_tpu_torch.utils import tracing
+
+    fn()
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    out = tracing.spans()
+    tracing.clear()
+    return out
+
+
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+def test_spans_count_the_launches(cuda, ola):
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+
+    p = CudaStreamPool(UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048), 2048, 16, device=cuda,
+                       ola=ola)
+    up = Upmixer(UpmixConfig.make(BENCH_EDGES, sr=44100.0), device=cuda)
+    rng = np.random.default_rng(8)
+    b = rng.standard_normal((2, 16, 2048)).astype(np.float32)
+    x = rng.standard_normal((2, 2**19)).astype(np.float32)
+    counters = (lambda: (omnibus.LAUNCHES, pool.LAUNCHES + pool.SPECTRAL_LAUNCHES))
+
+    def calls():
+        before = counters()
+        p.push_blocks(b[0], b[1])
+        up.process(x[0], x[1])
+        moved.append([a - z for a, z in zip(counters(), before)])
+
+    moved = []
+    roots = {s.name: s.attrs["launches"] for s in _profiled_spans(calls) if s.parent is None}
+    assert roots == {"offline.process": moved[-1][0], "pool.push": moved[-1][1]}
+    assert roots["offline.process"] == 6  # one a bucket, two for 65536
+    assert roots["pool.push"] > 0 and (ola == "spectral" or roots["pool.push"] == 4)  # K3: one a bucket
+
+
+def test_exported_spans_open_before_their_kernels(cuda, tmp_path):
+    # The exported trace maps the spans onto the profiler's clock: each
+    # `pool.kernels` span opens before the first K3 row of its push, and
+    # every K3 launch (the runtime call the profiler links to the row)
+    # starts inside one.
+    import json
+    import os
+
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.utils.profiling import trace
+
+    p = CudaStreamPool(UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048), 2048, 64, device=cuda)
+    blocks = np.random.default_rng(9).standard_normal((4, 2, 64, 2048)).astype(np.float32)
+    p.push_blocks(blocks[0, 0], blocks[0, 1])
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        for b in blocks:
+            p.push_blocks(b[0], b[1])
+        torch.cuda.synchronize()
+    (path,) = [os.path.join(r, f) for r, _, files in os.walk(tmp_path) for f in files]
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "upmix_tpu_torch" and e["name"] == "pool.kernels"),
+                   key=lambda e: e["ts"])
+    rows = sorted((e for e in events if e.get("cat") == "kernel" and "PoolSink" in e["name"]), key=lambda e: e["ts"])
+    assert len(spans) == 4 and len(rows) == 4 * 4
+    for i, s in enumerate(spans):
+        assert s["ts"] < rows[4 * i]["ts"], (s, rows[4 * i])
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    for r in rows:
+        launch = launches[r["args"]["correlation"]]
+        assert any(s["ts"] <= launch["ts"] <= s["ts"] + s["dur"] for s in spans), (launch, spans)
+
+
+def test_devices_pool_spans_carry_each_card(cards):
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.ops import pool
+    from upmix_tpu_torch.parallel import make_mesh
+
+    S, hw = 16 * len(cards), 2048
+    p = CudaStreamPool(UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=hw), hw, S,
+                       mesh=make_mesh({"data": len(cards)}))
+    b = np.random.default_rng(10).standard_normal((2, S, hw)).astype(np.float32)
+    spans = _profiled_spans(lambda: p.push_blocks(b[0], b[1]))
+    for name in ("pool.scatter", "pool.step", "pool.gather"):
+        assert sorted(s.card for s in spans if s.name == name) == list(range(len(cards))), name
+    (root,) = [s for s in spans if s.parent is None]
+    assert root.attrs["launches"] == len(cards) * sum(pool.launches_per_bucket(pb.block) for pb in p.plan.buckets)

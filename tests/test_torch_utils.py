@@ -37,12 +37,22 @@ def test_time_fn():
 
 
 def test_trace_writes_profile(tmp_path):
+    from upmix_tpu_torch.config import UpmixConfig
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+
+    pool = CudaStreamPool(UpmixConfig.streaming([0.0, 400.0], sr=8000.0, hw_block_size=256), 256, 2, device="cpu")
+    x = np.zeros((2, 256), np.float32)
     with trace(str(tmp_path)):
         (torch.ones(128) * 2).sum()
+        pool.push_blocks(x, x)
     found = [f for _root, _dirs, files in os.walk(tmp_path) for f in files]
     assert found, "trace produced no files"
     with open(os.path.join(tmp_path, found[0])) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    # the program's spans of the push (utils/tracing.py), on a track of their own
+    spans = [e for e in events if e.get("cat") == "upmix_tpu_torch"]
+    assert sorted(e["name"] for e in spans) == ["pool.kernels", "pool.push", "pool.shift", "pool.stage", "pool.step"]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in spans)
 
 
 def test_package_exports():

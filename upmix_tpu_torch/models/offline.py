@@ -55,6 +55,7 @@ from upmix_tpu_torch.ops.omnibus import (
     omnibus_lcr_batch,
 )
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
+from upmix_tpu_torch.utils.tracing import root, span
 
 CHUNK_SAMPLES = 2**21
 
@@ -199,15 +200,18 @@ def build_offline_rows_fn(
         if oplan is None:  # every bucket's gains are zero
             return torch.zeros((batch, 3, n_samples), dtype=torch.float32, device=device)
         width = chunk + oplan.halo
-        xp = torch.zeros((batch, 2, n_pad + oplan.halo), dtype=torch.float32, device=device)
-        xp[..., :n_samples] = x
-        segs = xp.unfold(-1, width, chunk).transpose(1, 2).reshape(batch * n_seg, 2, width).contiguous()
-        main, spill = omnibus_lcr_batch(segs, oplan)
-        main = main.unflatten(0, (batch, n_seg))
-        # Spill carry: segment i's tail lands on segment i + 1's head
-        # (chunk >= halo, so it reaches no further).
-        main[:, 1:, :, : oplan.halo] += spill.unflatten(0, (batch, n_seg))[:, :-1]
-        return main.transpose(1, 2).reshape(batch, 3, n_pad)[..., :n_samples]
+        with span("offline.segment"):
+            xp = torch.zeros((batch, 2, n_pad + oplan.halo), dtype=torch.float32, device=device)
+            xp[..., :n_samples] = x
+            segs = xp.unfold(-1, width, chunk).transpose(1, 2).reshape(batch * n_seg, 2, width).contiguous()
+        with span("offline.kernels"):
+            main, spill = omnibus_lcr_batch(segs, oplan)
+        with span("offline.spill"):
+            main = main.unflatten(0, (batch, n_seg))
+            # Spill carry: segment i's tail lands on segment i + 1's head
+            # (chunk >= halo, so it reaches no further).
+            main[:, 1:, :, : oplan.halo] += spill.unflatten(0, (batch, n_seg))[:, :-1]
+            return main.transpose(1, 2).reshape(batch, 3, n_pad)[..., :n_samples]
 
     return fn
 
@@ -246,7 +250,8 @@ def build_offline_fn(
         plans = _plan_buckets(config, n_samples)
 
         def fn(L: torch.Tensor, R: torch.Tensor):
-            y = _whole_file_rows(plans, torch.stack([L, R]), n_samples)
+            with span("offline.kernels"):
+                y = _whole_file_rows(plans, torch.stack([L, R]), n_samples)
             return y[0], y[1], y[2]
 
         return fn
@@ -286,19 +291,24 @@ class Upmixer:
             torch.backends.cudnn.allow_tf32 = False
 
     def _program(self, n_padded: int):
-        fn = self._cache.get(n_padded)
-        if fn is not None:
-            self._cache.move_to_end(n_padded)
+        with span("offline.program") as s:
+            fn = self._cache.get(n_padded)
+            if fn is not None:
+                self._cache.move_to_end(n_padded)
+                s.set(built=False, evicted=0)
+                return fn
+            if self.kernel_path and self._buckets is None:
+                self._buckets = plans_from_numpy(_plan_buckets(self.config, 1), self.device)
+            fn = build_offline_fn(
+                self.config, n_padded, chunk=self.chunk, device=self.device, buckets=self._buckets
+            )
+            self._cache[n_padded] = fn
+            evicted = 0
+            while len(self._cache) > self.max_programs:
+                self._cache.popitem(last=False)
+                evicted += 1
+            s.set(built=True, evicted=evicted)
             return fn
-        if self.kernel_path and self._buckets is None:
-            self._buckets = plans_from_numpy(_plan_buckets(self.config, 1), self.device)
-        fn = build_offline_fn(
-            self.config, n_padded, chunk=self.chunk, device=self.device, buckets=self._buckets
-        )
-        self._cache[n_padded] = fn
-        while len(self._cache) > self.max_programs:
-            self._cache.popitem(last=False)
-        return fn
 
     def process(self, L, R):
         """Stereo in (numpy arrays or tensors) -> (C, Ls, Rs), each a
@@ -310,16 +320,20 @@ class Upmixer:
             raise ValueError(f"channel length mismatch: {n} vs {len(R)}")
         g = self.pad_granularity
         n_padded = -(-n // g) * g
-        L = torch.as_tensor(L, dtype=torch.float32, device=self.device)
-        R = torch.as_tensor(R, dtype=torch.float32, device=self.device)
-        if n_padded != n:
-            L = tnf.pad(L, (0, n_padded - n))
-            R = tnf.pad(R, (0, n_padded - n))
-        c, ls, rs = self._program(n_padded)(L, R)
-        return c[:n], ls[:n], rs[:n]
+        with root("offline.process", samples=n):
+            with span("offline.stage_in"):
+                L = torch.as_tensor(L, dtype=torch.float32, device=self.device)
+                R = torch.as_tensor(R, dtype=torch.float32, device=self.device)
+                if n_padded != n:
+                    L = tnf.pad(L, (0, n_padded - n))
+                    R = tnf.pad(R, (0, n_padded - n))
+            c, ls, rs = self._program(n_padded)(L, R)
+            return c[:n], ls[:n], rs[:n]
 
     def process_np(self, L, R):
-        return tuple(t.cpu().numpy() for t in self.process(L, R))
+        stems = self.process(L, R)
+        with root("offline.to_host", samples=len(L)):
+            return tuple(t.cpu().numpy() for t in stems)
 
 
 def upmix_offline(L, R, config: UpmixConfig, device="cuda"):

@@ -51,6 +51,7 @@ from upmix_tpu_torch.ops.pool import (
     unpack_spectral_carry,
 )
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
+from upmix_tpu_torch.utils.tracing import root, span
 
 # Readiness latency at the reference's fixed 75% overlap (K = block/hop
 # = 4; bela/upmix.cpp:232-237).  Other overlaps give K blocks.
@@ -163,13 +164,15 @@ def _batch_step(plan, hw: int, state: dict, x: torch.Tensor):
     the CPU."""
     window = state["history"].shape[-1]
     hops = x.shape[-1] // hw
-    hist = torch.cat([state["history"][..., hw:], x.to(state["history"].dtype)], dim=-1)
+    with span("pool.shift"):
+        hist = torch.cat([state["history"][..., hw:], x.to(state["history"].dtype)], dim=-1)
     ola = dict(state["ola"])
     if plan is None:  # every bucket is dead: silence
         out = hist.new_zeros((x.shape[0], 3, hops * hw))
     else:
         keys = [str(b.block) for b in plan.buckets]
-        out, new = pool_step_lcr(hist, state["t"] + 1, [ola[k] for k in keys], plan, hops)
+        with span("pool.kernels"):
+            out, new = pool_step_lcr(hist, state["t"] + 1, [ola[k] for k in keys], plan, hops)
         ola.update(zip(keys, new))
     return {"history": hist[..., hist.shape[-1] - window :], "t": state["t"] + hops, "ola": ola}, out
 
@@ -442,23 +445,30 @@ class _StreamPool:
         hops*hw] on self.device, stream order)."""
         hw = self.hw_block_size
         if len(self._parts) == 1:
-            return _batch_step(self._parts[0].plan, hw, state, x)
+            with span("pool.step", card=self.device):
+                return _batch_step(self._parts[0].plan, hw, state, x)
         news, outs = [], []
         for part, index, st in zip(self._parts, self._index, state):
-            new, out = _batch_step(part.plan, hw, st, x.index_select(0, index).to(part.device, non_blocking=True))
+            with span("pool.scatter", card=part.device):
+                xs = x.index_select(0, index).to(part.device, non_blocking=True)
+            with span("pool.step", card=part.device):
+                new, out = _batch_step(part.plan, hw, st, xs)
             news.append(new)
             outs.append(out)
         full = x.new_empty((self.n_streams, 3, x.shape[-1]))
-        for index, out in zip(self._index, outs):
-            full[index] = out.to(self.device, non_blocking=True)
+        for part, index, out in zip(self._parts, self._index, outs):
+            with span("pool.gather", card=part.device):
+                full[index] = out.to(self.device, non_blocking=True)
         return tuple(news), full
 
     def push_blocks(self, in_l, in_r):
         """One hardware block for every stream: in_l, in_r [S, hw] ->
         (C, Ls, Rs), each [S, hw]."""
-        x = _blocks(in_l, in_r, self.device, (self.n_streams, self.hw_block_size), "push_blocks")
-        self.state, out = self._step(self.state, x)
-        return out[:, 0], out[:, 1], out[:, 2]
+        with root("pool.push", streams=self.n_streams, hops=1):
+            with span("pool.stage"):
+                x = _blocks(in_l, in_r, self.device, (self.n_streams, self.hw_block_size), "push_blocks")
+            self.state, out = self._step(self.state, x)
+            return out[:, 0], out[:, 1], out[:, 2]
 
     def make_sustained_runner(self, n_blocks: int, hops: int = 1):
         """(run, fresh): run(state, blocks) with device-resident blocks
@@ -645,9 +655,11 @@ class CudaStreamPool(_StreamPool):
                 f"push_blocks_multi expects two [{self.n_streams}, k*{hw}] channel arrays; got width {width}"
             )
         self._check_aot_hops(width // hw)
-        x = _blocks(in_l, in_r, self.device, (self.n_streams, width), "push_blocks_multi")
-        self.state, out = self._step(self.state, x)
-        return out[:, 0], out[:, 1], out[:, 2]
+        with root("pool.push", streams=self.n_streams, hops=width // hw):
+            with span("pool.stage"):
+                x = _blocks(in_l, in_r, self.device, (self.n_streams, width), "push_blocks_multi")
+            self.state, out = self._step(self.state, x)
+            return out[:, 0], out[:, 1], out[:, 2]
 
     def _export(self, st):
         hw, nq = self.hw_block_size, self.warmup_blocks

@@ -3,8 +3,9 @@
 The port's copy of `upmix_tpu/utils/profiling.py`: `RealtimeMeter` is
 the same class; `time_fn` waits for the card (torch.cuda.synchronize on
 the device of the tensors it is given or returns) where the JAX version
-blocks on its arrays; `trace` writes a torch.profiler trace in place of
-a jax.profiler one.  torch loads on first use.
+blocks on its arrays; `trace` writes a torch.profiler trace, with the
+program's own spans, in place of a jax.profiler one.  torch loads on
+first use.
 """
 
 from __future__ import annotations
@@ -110,37 +111,66 @@ def kernel_rows_by_device(fn, iters: int = 1, match=None, warm: bool = True):
     return dict(sorted(counts.items())), rows
 
 
-def overlap_share(rows) -> float:
-    """Share of the span from the first kernel's start to the last one's
-    end (rows of `kernel_rows_by_device`) during which kernels of two or
-    more devices run at once."""
-    if not rows:
-        return 0.0
-    marks = sorted([(s, 1, d) for d, _, s, _ in rows] + [(e, -1, d) for d, _, _, e in rows])
-    active, both, prev = {}, 0.0, marks[0][0]
-    for at, step, dev in marks:
-        if sum(1 for n in active.values() if n > 0) >= 2:
-            both += at - prev
-        active[dev] = active.get(dev, 0) + step
-        prev = at
-    span = max(e for *_, e in rows) - min(s for _, _, s, _ in rows)
-    return both / span if span > 0 else 0.0
+SPAN_TRACK = 1 << 30  # the trace's thread id of the program's spans (`utils/tracing.py`)
+
+
+def _realtime_offset_ns() -> int:
+    """time.time_ns() - time.perf_counter_ns(), from the closest of a few
+    paired readings."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+def _write_spans(path: str, records) -> None:
+    """Add the program's spans to the Chrome trace at `path`: a host track
+    of their own on the trace's timeline.  The profiler stamps its events
+    on the wall clock (CLOCK_REALTIME, in microseconds after the trace's
+    `baseTimeNanoseconds` where it gives one) and the spans on
+    perf_counter, so each span moves by the clocks' difference."""
+    import json
+    import os
+
+    with open(path) as f:
+        data = json.load(f)
+    shift = _realtime_offset_ns() - int(data.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TRACK,
+               "args": {"name": "upmix_tpu_torch spans"}}]
+    for s in records:
+        events.append({"ph": "X", "cat": "upmix_tpu_torch", "name": s.name, "pid": pid, "tid": SPAN_TRACK,
+                       "ts": (s.start_ns + shift) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"id": s.id, "parent": s.parent, "call": s.call, "card": s.card, **s.attrs}})
+    data["traceEvents"] = data.get("traceEvents", []) + events
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler over the block (CPU, and CUDA where a card is
     present); the trace is written under `log_dir` as a Chrome trace
-    (view in chrome://tracing or Perfetto)."""
+    (view in chrome://tracing or Perfetto), with the program's spans
+    recorded in the block (`utils/tracing.py`) on a track of their own."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from upmix_tpu_torch.utils import tracing
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    start = time.perf_counter_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path, [s for s in tracing.spans() if s.start_ns >= start])

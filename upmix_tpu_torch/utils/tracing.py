@@ -1,0 +1,179 @@
+"""The program's spans: where a call into the port spends its host time.
+
+`root(name, **attrs)` opens the span of one call into the program
+(`offline.process`, `offline.to_host`, `pool.push`); `span(name,
+card=None, **attrs)` opens a span inside it.  Spans record only while a
+torch.profiler records: a root asks once
+(`torch.autograd._profiler_enabled()`), and the spans inside it follow
+its answer through a thread-local, so a call with no profiler pays that
+one check, and a read of a module global and a null context a span.  A
+span outside any root records nothing.  Nothing here adds a profiler
+event: a `record_function` range would also put a row on the device's
+timeline, which a reader of the trace would take for device work.
+
+Each record is a `Span`: its name, start and end on
+`time.perf_counter_ns()`, its id, its parent's id (None for a root), the
+id of its root (every span of one call shares it), the CUDA index of the
+card it is for (or None) and its attributes.  A root's attributes hold
+`launches`: the kernels the ops modules launched inside it (the change
+of their launch counters).  At most LIMIT records are kept in memory
+(one more for each other thread that records at the same moment at the
+limit); the spans past it are counted by `dropped()`.  `spans()` reads
+the records, `clear()` empties them.  `utils/profiling.py::trace` writes
+them into the Chrome trace it exports.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from typing import NamedTuple
+
+import torch
+
+LIMIT = 1 << 20
+
+_records: list = []
+_dropped = 0
+_recording = 0  # recording roots open, on every thread
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_ops = None  # the ops modules whose launch counters a root reads
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    id: int
+    parent: int | None
+    call: int  # the id of the root span
+    card: int | None
+    attrs: dict
+
+
+class _Thread(threading.local):
+    open = None  # the innermost recording span open on this thread
+
+
+_thread = _Thread()
+
+
+class _Null:
+    """The context of a span that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_NULL = _Null()
+
+
+def _launches() -> int:
+    global _ops
+    if _ops is None:
+        from upmix_tpu_torch.ops import fused, omnibus, pool
+
+        _ops = (omnibus, fused, pool)
+    omnibus, fused, pool = _ops
+    # pool.EDGE_LAUNCHES are counted among pool.SPECTRAL_LAUNCHES
+    return omnibus.LAUNCHES + fused.LAUNCHES + pool.LAUNCHES + pool.SPECTRAL_LAUNCHES
+
+
+def _card(device: torch.device) -> int | None:
+    """The CUDA index of `device`; None for another kind of device."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+class _Open:
+    """A recording span: opened by `with`, recorded when it closes.  Its
+    start and end leave the recorder's own bookkeeping out."""
+
+    __slots__ = ("name", "card", "attrs", "outer", "root", "start", "id", "call", "launches")
+
+    def __init__(self, name: str, card, attrs: dict, outer, root: bool):
+        self.name, self.attrs, self.outer, self.root = name, attrs, outer, root  # a root counts its launches
+        self.card = None if card is None else _card(card)
+
+    def set(self, **attrs):
+        """Attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        global _recording
+        self.id = next(_ids)
+        if self.outer is None:
+            with _lock:
+                _recording += 1
+            self.call = self.id
+        else:
+            self.call = self.outer.call
+        if self.root:
+            self.launches = _launches()
+        _thread.open = self
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped, _recording
+        end = time.perf_counter_ns()
+        outer = _thread.open = self.outer
+        if self.root:
+            self.attrs["launches"] = _launches() - self.launches
+        record = tuple.__new__(Span, (self.name, self.start, end, self.id, None if outer is None else outer.id,
+                                      self.call, self.card, self.attrs))
+        if len(_records) < LIMIT:  # list.append holds the interpreter lock
+            _records.append(record)
+        else:
+            with _lock:
+                _dropped += 1
+        if outer is None:
+            with _lock:
+                _recording -= 1
+        return False
+
+
+def root(name: str, **attrs):
+    """The span of one call into the program: it records while a
+    torch.profiler records, and counts the kernels launched inside it.
+    Inside a recording call it is a span of that call."""
+    outer = _thread.open if _recording else None
+    if outer is None and not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Open(name, None, attrs, outer, True)
+
+
+def span(name: str, card=None, **attrs):
+    """A span inside the call open on this thread, for the device `card`
+    (recorded as its CUDA index).  Records only where that call records."""
+    outer = _thread.open if _recording else None
+    return _NULL if outer is None else _Open(name, card, attrs, outer, False)
+
+
+def spans() -> list:
+    """Every record kept, in the order the spans closed."""
+    with _lock:
+        return list(_records)
+
+
+def dropped() -> int:
+    """Spans not kept since the last `clear()`: the store was full."""
+    return _dropped
+
+
+def clear() -> None:
+    global _dropped
+    with _lock:
+        _records.clear()
+        _dropped = 0
