@@ -251,7 +251,8 @@ between 5 and 6, 22-24, 27, 28 and 25 after 8, then 14-18 and 26):
      `CudaStreamPool` on {"data": N}, 2048 streams a card, both OLA modes,
      hops 1 and 4, within 1e-5 of the unsharded pool on cuda:0, a snapshot
      resumed on an unsharded pool, ms a block of the sustained runner beside
-     phases 8 and 23, the step's scatter and gather timed alone; 6 a
+     phases 8 and 23, the pool's own scatter and gather (`_scatter`,
+     `_gather`) timed alone; 6 a
      stream-server session on that pool (`--pool-mesh data=N`), frames
      bit for bit the pool fed directly; 7 the offline artifact loaded onto
      cuda:1, bit for bit; 8 `pod_check` at world size 1 over the cards.
@@ -2475,18 +2476,11 @@ def cards_pool(smi: str, cards):
             ms = cards_ms(lambda: run(state, slabs), cards) / POOL_BLOCKS
             host = enqueue_ms(lambda: run(state, slabs), cards) / POOL_BLOCKS
             bodies = body_overlap(lambda: run(state, slabs), cards, pool=True)
-            # The step's input scatter and output gather alone.
+            # The pool's own input scatter and output gather alone.
             x = slabs[0].transpose(0, 1)  # the step's input [S, 2, hops * hw] on cuda:0
             outs = [torch.empty((len(p.rows), 3, step), device=p.device) for p in shard._parts]
-            full = x.new_empty((S, 3, step))
-            scatter_ms = cards_ms(lambda: [x.index_select(0, idx).to(p.device, non_blocking=True)
-                                           for p, idx in zip(shard._parts, shard._index)], cards)
-
-            def gather():
-                for idx, o in zip(shard._index, outs):
-                    full[idx] = o.to(zero, non_blocking=True)
-
-            gather_ms = cards_ms(gather, cards)
+            scatter_ms = cards_ms(lambda: shard._scatter(x), cards)
+            gather_ms = cards_ms(lambda: shard._gather(outs, x), cards)
             one = MEASURED.get(f"{ola} {hops}", float("nan"))
             print(f"cards [{smi}] 5 pool ola={ola} hops={hops}: S={S} on {{'data': {n}}} ({POOL_STREAMS} a card): "
                   f"launches by card in {POOL_BLOCKS} blocks {counts}; max |mesh - unsharded pool on cuda:0| "
@@ -2500,7 +2494,7 @@ def cards_pool(smi: str, cards):
             check_rows(f"phase 28 group 5 ({ola}, hops {hops})", counts, cards)
             if not diff < CARDS_DIFF_BAR or not resumed < CARDS_DIFF_BAR:
                 fail(f"phase 28 group 5: the mesh pool ({ola}, hops {hops}) differs from the unsharded pool")
-            del shard, plain, again, run, state, slabs, outs, full
+            del shard, plain, again, run, state, slabs, outs
             torch.cuda.empty_cache()
 
 

@@ -1132,6 +1132,34 @@ def test_devices_pool_over_distinct_cards(cards, ola):
     assert sorted(rows) == list(range(len(cards))) and len(set(rows.values())) == 1
 
 
+def test_devices_pool_cards_step_together(cards):
+    # Every card's input leaves card 0 before card 0 steps, so the other
+    # cards' K3 runs beside card 0's, not after it: at 2048 streams a
+    # card, each other card's first K3 row of a traced block begins before
+    # card 0's last one ends.  Each card's rows are a one-card pool of its
+    # 2048 streams on cuda:0 bit for bit (the same rows a launch).
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.parallel import make_mesh
+    from upmix_tpu_torch.utils.profiling import kernel_rows_by_device
+
+    cfg = UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048)
+    local, hw, n = 2048, 2048, len(cards)
+    mesh_pool = CudaStreamPool(cfg, hw, local * n, mesh=make_mesh({"data": n}))
+    ones = [CudaStreamPool(cfg, hw, local, device="cuda:0") for _ in range(n)]
+    x = torch.randn((3, 2, local * n, hw), device="cuda:0", generator=torch.Generator("cuda:0").manual_seed(20))
+    got = [torch.stack(mesh_pool.push_blocks(b[0], b[1])) for b in x[:2]]
+    _, rows = kernel_rows_by_device(lambda: got.append(torch.stack(mesh_pool.push_blocks(x[2, 0], x[2, 1]))),
+                                    match=POOL_ROWS, warm=False)
+    for b, g in zip(x, got):
+        want = [torch.stack(o.push_blocks(b[0, k * local : (k + 1) * local], b[1, k * local : (k + 1) * local]))
+                for k, o in enumerate(ones)]
+        assert g.device == torch.device("cuda", 0) and torch.equal(g, torch.cat(want, dim=1))
+    last_end = max(end for dev, _, _, end in rows if dev == 0)
+    for k in range(1, n):
+        first = min(start for dev, _, start, _ in rows if dev == k)
+        assert first < last_end, (k, first, last_end, rows)
+
+
 def test_devices_stream_pool_on_card_1(cards):
     from upmix_tpu_torch.models.streaming import make_stream_pool
 
@@ -1277,5 +1305,6 @@ def test_devices_pool_spans_carry_each_card(cards):
     spans = _profiled_spans(lambda: p.push_blocks(b[0], b[1]))
     for name in ("pool.scatter", "pool.step", "pool.gather"):
         assert sorted(s.card for s in spans if s.name == name) == list(range(len(cards))), name
+    assert {s.attrs["path"] for s in spans if s.name in ("pool.scatter", "pool.gather")} == {"slice"}
     (root,) = [s for s in spans if s.parent is None]
     assert root.attrs["launches"] == len(cards) * sum(pool.launches_per_bucket(pb.block) for pb in p.plan.buckets)

@@ -141,6 +141,31 @@ def test_mesh_pool_matches_unsharded(kind, ola):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("push", ["push_blocks", "push_blocks_multi"])
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+@pytest.mark.parametrize("devices,path", [(["cpu", "cpu", "cpu:0", "cpu:0"], "slice"),
+                                          (["cpu", "cpu:0", "cpu", "cpu:0"], "index")])
+def test_mesh_pool_exchange_paths(devices, path, ola, push):
+    # A part whose rows are one range (two shards side by side on a
+    # device) moves as a slice, one copy each way; a part of shards apart
+    # moves by an index.  Either way the sharded pool is the unsharded
+    # pool bit for bit, through a reset of rows on both parts.
+    cfg = _cfg()
+    S, hops, n_blocks = 16, 1 if push == "push_blocks" else 2, 6
+    shard = CudaStreamPool(cfg, HW, S, device="cpu", ola=ola, mesh=make_mesh({"data": 4}, devices=devices))
+    assert ["index" if rows is None else "slice" for rows in shard._slices] == [path] * 2
+    plain = CudaStreamPool(cfg, HW, S, device="cpu", ola=ola)
+    blocks = (_blocks(n_blocks * hops, S, 21).reshape(n_blocks, hops, S, 2, HW).transpose(0, 2, 3, 1, 4)
+              .reshape(n_blocks, S, 2, hops * HW))
+    for t, b in enumerate(blocks):
+        if t == 3:
+            for p in (plain, shard):
+                p.reset_streams([1, 6, 13])  # rows of both parts, on either mesh
+        want, got = (_stack(getattr(p, push)(b[:, 0], b[:, 1])) for p in (plain, shard))
+        np.testing.assert_array_equal(want, got)
+    _assert_tree_equal(plain.snapshot(), shard.snapshot())
+
+
 @pytest.mark.parametrize("kind", ["repeated", "distinct"])
 def test_batch_pool_on_a_mesh_matches_unsharded(kind):
     cfg = _cfg()

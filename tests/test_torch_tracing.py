@@ -107,15 +107,20 @@ def test_pool_span_tree():
 
 def test_mesh_pool_spans_each_part():
     # "cpu" and "cpu:0" are two devices to the pool: each part is
-    # scattered, stepped and gathered apart, as over two cards.
+    # scattered, stepped and gathered apart, as over two cards.  Every
+    # input is sent before any part steps; each part's rows are one range,
+    # so each moves as a slice.
     pool = CudaStreamPool(POOL, HW, S, mesh=make_mesh({"data": 2}, devices=["cpu", "cpu:0"]))
     b = _blocks(1)[0]
     _profiled(lambda: pool.push_blocks(b[0], b[1]))
     ((root, rs),) = _calls(tracing.spans())
-    assert _children(rs, root) == ["pool.stage", "pool.scatter", "pool.step", "pool.scatter", "pool.step",
+    assert _children(rs, root) == ["pool.stage", "pool.scatter", "pool.scatter", "pool.step", "pool.step",
                                    "pool.gather", "pool.gather"]
     for step in (r for r in rs if r.name == "pool.step"):
         assert _children(rs, step) == ["pool.shift", "pool.kernels"]
+    for r in rs:
+        if r.name in ("pool.scatter", "pool.gather"):
+            assert r.attrs == {"path": "slice"}, r
 
 
 def test_offline_span_tree():

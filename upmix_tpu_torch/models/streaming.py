@@ -347,6 +347,13 @@ def _mesh_devices(mesh, need_data: bool) -> list:
     return [torch.device(d) for d in _device_grid(mesh, "data", None)[:, 0]]
 
 
+def _row_slice(rows) -> slice | None:
+    """rows as a slice where they are one ascending range, else None."""
+    if rows is None or not np.array_equal(rows, np.arange(rows[0], rows[0] + len(rows))):
+        return None
+    return slice(int(rows[0]), int(rows[0]) + len(rows))
+
+
 @dataclass(frozen=True, eq=False)
 class _Part:
     """The streams of a pool on one device: `rows` (global stream indices,
@@ -413,6 +420,8 @@ class _StreamPool:
             self._where[rows] = np.stack([np.full(len(rows), p), np.arange(len(rows))], axis=1)
         self._index = [None if part.rows is None else torch.as_tensor(part.rows, device=self.device)
                        for part in self._parts]
+        self._slices = [_row_slice(part.rows) for part in self._parts]
+        self._order = (*range(1, len(self._parts)), 0)  # the first device's part last
         self._ola_blocks = {str(b): b for b in bucket_bands(config.bands)}
         self.state = self._fresh_state()
 
@@ -442,24 +451,49 @@ class _StreamPool:
 
     def _step(self, state, x):
         """x [S, 2, hops*hw] on self.device -> (new state, out [S, 3,
-        hops*hw] on self.device, stream order)."""
+        hops*hw] on self.device, stream order).
+
+        A copy between two cards runs on the source card's current stream,
+        behind whatever is queued there (PyTorch's two-way barrier), so
+        every part's input leaves the first device before any part steps,
+        and the first device steps last: no card's input waits for its
+        step.  The gathers follow that step."""
         hw = self.hw_block_size
         if len(self._parts) == 1:
             with span("pool.step", card=self.device):
                 return _batch_step(self._parts[0].plan, hw, state, x)
-        news, outs = [], []
-        for part, index, st in zip(self._parts, self._index, state):
-            with span("pool.scatter", card=part.device):
-                xs = x.index_select(0, index).to(part.device, non_blocking=True)
-            with span("pool.step", card=part.device):
-                new, out = _batch_step(part.plan, hw, st, xs)
-            news.append(new)
-            outs.append(out)
-        full = x.new_empty((self.n_streams, 3, x.shape[-1]))
-        for part, index, out in zip(self._parts, self._index, outs):
-            with span("pool.gather", card=part.device):
-                full[index] = out.to(self.device, non_blocking=True)
-        return tuple(news), full
+        xs = self._scatter(x)
+        news, outs = [None] * len(self._parts), [None] * len(self._parts)
+        for p in self._order:
+            with span("pool.step", card=self._parts[p].device):
+                news[p], outs[p] = _batch_step(self._parts[p].plan, hw, state[p], xs[p])
+        return tuple(news), self._gather(outs, x)
+
+    def _scatter(self, x) -> list:
+        """Each part's rows of x [S, ...] on self.device, on the part's
+        device: one copy of a slice where the rows are one range, else an
+        index-select and its copy."""
+        xs = [None] * len(self._parts)
+        for p in self._order:
+            part, rows = self._parts[p], self._slices[p]
+            with span("pool.scatter", card=part.device, path="index" if rows is None else "slice"):
+                rows_x = x.index_select(0, self._index[p]) if rows is None else x[rows]
+                xs[p] = rows_x.to(part.device, non_blocking=True)
+        return xs
+
+    def _gather(self, outs: list, x) -> torch.Tensor:
+        """The parts' outputs [rows, 3, width] -> [S, 3, width] on
+        self.device (x's), stream order: one copy into a slice where a
+        part's rows are one range, else a copy and an index-put."""
+        full = x.new_empty((self.n_streams, 3, outs[0].shape[-1]))
+        for p in self._order:
+            part, rows = self._parts[p], self._slices[p]
+            with span("pool.gather", card=part.device, path="index" if rows is None else "slice"):
+                if rows is None:
+                    full[self._index[p]] = outs[p].to(self.device, non_blocking=True)
+                else:
+                    full[rows].copy_(outs[p], non_blocking=True)
+        return full
 
     def push_blocks(self, in_l, in_r):
         """One hardware block for every stream: in_l, in_r [S, hw] ->
