@@ -15,10 +15,7 @@ from tiny import ROOT
 CELLS = tiny.cells()
 
 
-@pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("workload", CELLS)
-def test_dry_run(workload, trace):
-    r = tiny.result(workload, trace=trace)
+def check_dry(r, trace):
     assert r["correct"] is True and r["attempted"] >= 1 and r["failed"] == 0
     assert list(r)[-1] == "checks"
     assert set(r["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
@@ -27,6 +24,34 @@ def test_dry_run(workload, trace):
         assert "setup_s" not in r["metrics"]
     else:
         assert "setup_s" in r["metrics"] and len(r["metrics"]) == 2
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("workload", CELLS)
+def test_dry_run(workload, trace):
+    check_dry(tiny.result(workload, trace=trace), trace)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_new_cell_runs_dry(monkeypatch, trace):
+    """A cell entered in the spec alone, its traffic patched in memory,
+    runs dry with every metric the cell it is entered like reports."""
+    from benchmark import run
+    from benchmark.drivers import pool
+
+    bench = tiny.joined(tiny.spec(), tiny.NEW, tiny.LIKE)
+    olas, release = [], pool.Session.release
+
+    def spy(self):
+        olas.append(self.pool.ola)
+        release(self)
+
+    monkeypatch.setattr(pool.Session, "release", spy)
+    r = tiny.result(tiny.NEW, trace=trace, bench=bench,
+                    traffic_patch=run.merged(tiny.patch(tiny.NEW, bench), tiny.NEW_PATCH))
+    check_dry(r, trace)
+    assert olas == ["spectral"]
+    assert set(r["metrics"]) == set(tiny.result(tiny.LIKE, trace=trace)["metrics"])
 
 
 def test_no_cuda_no_result():

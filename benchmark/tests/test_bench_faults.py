@@ -4,13 +4,10 @@ and sees `correct` come out false: once for each fault the cell can have.
 And the control, the reference in TF32 put in the program's place, fails
 the cell's limit at this size too."""
 
-import json
-
 import pytest
 import torch
 
 import tiny
-from tiny import ROOT
 import upmix_tpu_torch.models.offline as offline
 import upmix_tpu_torch.models.streaming as streaming
 
@@ -95,14 +92,18 @@ def test_pool_faults_fail(monkeypatch, workload, fault):
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in SPEC["workloads"]])
-def test_control_fails_the_limit(workload, capsys):
-    from benchmark import control
+def test_control_fails_the_limit(workload):
+    line = tiny.control(workload, bench=SPEC)
+    limit = tiny.traffic(workload, SPEC)["check"]["limits"]["max_err"]
+    assert line["program"]["max_err"] <= limit < line["control"]["max_err"]
 
-    calls = {"offline_song": 0, "offline_clips": 20}.get(workload, 40)
-    assert control.main(["--workload", workload, "--seeds", "7", "--calls", str(calls)], devices=tiny.devices(workload),
-                        traffic_patch=tiny.PATCHES[workload], spec=SPEC) == 0
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    name = {w["name"]: w["traffic"] for w in SPEC["workloads"]}[workload]
-    traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{name}.json").read_text())
-    limit = traffic["check"]["limits"]["max_err"]
+
+def test_new_cell_control_fails_the_limit():
+    """The same for a cell entered in the spec alone (pool_2048's traffic
+    on the spectral OLA, patched in memory)."""
+    from benchmark import run
+
+    bench = tiny.joined(SPEC, tiny.NEW, tiny.LIKE)
+    line = tiny.control(tiny.NEW, bench=bench, traffic_patch=run.merged(tiny.patch(tiny.NEW, bench), tiny.NEW_PATCH))
+    limit = tiny.traffic(tiny.NEW, bench)["check"]["limits"]["max_err"]
     assert line["program"]["max_err"] <= limit < line["control"]["max_err"]

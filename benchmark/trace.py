@@ -117,8 +117,7 @@ def union_seconds(intervals) -> float:
 
 def overlap_share(rows) -> float | None:
     """Share of the span from the first kernel row's start to the last
-    one's end during which rows of two or more cards run at once (a
-    frozen copy of upmix_tpu_torch/utils/profiling.py::overlap_share)."""
+    one's end during which rows of two or more cards run at once."""
     if not rows:
         return None
     marks = sorted([(r.start, 1, r.card) for r in rows] + [(r.end, -1, r.card) for r in rows])
