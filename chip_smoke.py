@@ -1518,8 +1518,8 @@ def spectral_phases(smi: str, dev) -> dict:
     k3s_launches, edge_launches = pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
     print(f"spectral pool e2e: CudaStreamPool(ola='spectral'), {POOL_BLOCKS} blocks x {S} streams, K3s launches "
           f"{k3s_launches} (want {POOL_BLOCKS * per_block}), of them the edge product {edge_launches} (want "
-          f"{POOL_BLOCKS}), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
-    if k3s_launches != POOL_BLOCKS * per_block or edge_launches != POOL_BLOCKS or pool.LAUNCHES:
+          f"{2 * POOL_BLOCKS}: its gather and product), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
+    if k3s_launches != POOL_BLOCKS * per_block or edge_launches != 2 * POOL_BLOCKS or pool.LAUNCHES:
         fail(f"the spectral pool launched K3s {k3s_launches} times (the edge product {edge_launches}) and K3 "
              f"{pool.LAUNCHES} times")
     hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)

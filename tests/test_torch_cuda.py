@@ -444,7 +444,7 @@ def test_edge_product_matches_plain_float64(cuda, S, hops, hw):
         got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
         again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
         torch.cuda.synchronize()
-        assert (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0] + 2, before[1] + 4)
+        assert (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0] + 4, before[1] + 4)
         assert torch.equal(got, again)
         ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
         assert bool((got[ref == 0] == 0).all())
@@ -490,7 +490,7 @@ def test_edge_product_never_hands_work_to_a_plain_version(cuda):
     finally:
         for n in names:
             setattr(pool, n, real[n])
-    assert not calls and pool.EDGE_LAUNCHES == before + 1
+    assert not calls and pool.EDGE_LAUNCHES == before + 2
 
 
 def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
@@ -1252,10 +1252,50 @@ def test_spans_count_the_launches(cuda, ola):
         moved.append([a - z for a, z in zip(counters(), before)])
 
     moved = []
-    roots = {s.name: s.attrs["launches"] for s in _profiled_spans(calls) if s.parent is None}
+    spans = _profiled_spans(calls)
+    roots = {s.name: s.attrs["launches"] for s in spans if s.parent is None}
     assert roots == {"offline.process": moved[-1][0], "pool.push": moved[-1][1]}
     assert roots["offline.process"] == 6  # one a bucket, two for 65536
     assert roots["pool.push"] > 0 and (ola == "spectral" or roots["pool.push"] == 4)  # K3: one a bucket
+    (push,) = [s for s in spans if s.name == "pool.push"]
+    # K3s's edge product: a gather and a product for its one launch group
+    assert push.attrs["edge_launches"] == (2 if ola == "spectral" else 0)
+
+
+@pytest.mark.parametrize("ola", ["time", "spectral"])
+def test_spectral_spans_split_k3s(cuda, ola, tmp_path):
+    # Inside each `pool.kernels` span K3s's three steps have spans of their
+    # own, on the pool's card, in the exported trace too; the time pool's
+    # kernels span holds none.
+    import json
+    import os
+
+    from upmix_tpu_torch.models.streaming import CudaStreamPool
+    from upmix_tpu_torch.utils.profiling import trace
+
+    p = CudaStreamPool(UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048), 2048, 64, device=cuda,
+                       ola=ola)
+    b = np.random.default_rng(11).standard_normal((2, 64, 2048)).astype(np.float32)
+    spans = _profiled_spans(lambda: p.push_blocks(b[0], b[1]))
+    (kernels,) = [s for s in spans if s.name == "pool.kernels"]
+    inner = sorted((s for s in spans if s.parent == kernels.id), key=lambda s: s.start_ns)
+    if ola == "time":
+        assert inner == []
+    else:
+        routes = p.plan.spectral_routes(1)
+        assert [(s.name, s.card) for s in inner] == [("pool.forward", 0), ("pool.edge", 0), ("pool.inverse", 0)]
+        assert [s.attrs for s in inner] == [
+            {"buckets": 4},
+            {"buckets": 2, "frames": sum(sum(g.n_edge) for g in routes.groups)},
+            {"buckets": sum(1 for _, whole in routes.frames if whole)}]
+    with trace(str(tmp_path)):
+        p.push_blocks(b[0], b[1])
+        torch.cuda.synchronize()
+    (path,) = [os.path.join(r, f) for r, _, files in os.walk(tmp_path) for f in files]
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "upmix_tpu_torch"}
+    stages = {"pool.forward", "pool.edge", "pool.inverse"}
+    assert names & stages == (stages if ola == "spectral" else set())
 
 
 def test_exported_spans_open_before_their_kernels(cuda, tmp_path):

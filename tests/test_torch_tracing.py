@@ -99,7 +99,8 @@ def test_pool_span_tree():
     calls = _calls(tracing.spans())
     assert [root.name for root, _ in calls] == ["pool.push"] * 3
     for (root, rs), hops in zip(calls, (1, 1, 3)):
-        assert root.attrs == {"streams": S, "hops": hops, "launches": 0}  # the plain versions launch nothing
+        # the plain versions launch nothing, the edge product least of all
+        assert root.attrs == {"streams": S, "hops": hops, "launches": 0, "edge_launches": 0}
         assert _children(rs, root) == ["pool.stage", "pool.step"]
         (step,) = [r for r in rs if r.name == "pool.step"]
         assert _children(rs, step) == ["pool.shift", "pool.kernels"] and step.card is None
@@ -121,6 +122,62 @@ def test_mesh_pool_spans_each_part():
     for r in rs:
         if r.name in ("pool.scatter", "pool.gather"):
             assert r.attrs == {"path": "slice"}, r
+
+
+def _plain_k3s(monkeypatch):
+    """Route a CPU pool's spectral step through the card's three-step
+    path (`ops/pool.py::_spectral_cuda`, its spans and its launch counts),
+    each step's kernels replaced by its plain version; the edge step
+    counts a gather and a product for each launch group, as on the card."""
+    from upmix_tpu_torch.ops import pool as ops
+
+    def edge(carries, specs, t, plan, hops, routes):
+        for _ in routes.groups:
+            ops._launched_edge(0, "pool_spectral_edge_gather")
+            ops._launched_edge(0, "pool_spectral_edge")
+        return ops.spectral_edge_plain(carries, specs, t, plan, hops)
+
+    def whole(carries, specs, t, plan, hops, routes, out):
+        got = ops.spectral_whole_plain(carries, specs, t, plan, hops)
+        return got if out is None else out + got
+
+    monkeypatch.setattr(ops, "pool_step_spectral_plain", ops._spectral_cuda)
+    monkeypatch.setattr(ops, "_forward_cuda", ops.spectral_forward_plain)
+    monkeypatch.setattr(ops, "_edge_cuda", edge)
+    monkeypatch.setattr(ops, "_whole_cuda", whole)
+
+
+def test_spectral_pool_spans_split_k3s(monkeypatch):
+    # K3s's forward, edge product and inverse each in a span inside
+    # `pool.kernels`; the root counts the edge product's launches.  The
+    # time pool keeps its spans, with no edge launch.
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    time_pool = CudaStreamPool(cfg, 2048, S, device="cpu")
+    spectral = CudaStreamPool(cfg, 2048, S, device="cpu", ola="spectral")
+    plain = CudaStreamPool(cfg, 2048, S, device="cpu", ola="spectral")
+    routes = spectral.plan.spectral_routes(1)
+    assert [g.buckets for g in routes.groups] == [(0, 1)]
+    blocks = np.random.default_rng(3).standard_normal((5, 2, S, 2048)).astype(np.float32) * 0.3
+    _plain_k3s(monkeypatch)
+    got, _ = _profiled(lambda: [torch.stack(spectral.push_blocks(b[0], b[1])) for b in blocks]
+                       + [torch.stack(time_pool.push_blocks(b[0], b[1])) for b in blocks[:1]])
+    calls = _calls(tracing.spans())
+    monkeypatch.undo()
+    for out, b in zip(got, blocks):  # the three steps compute the spectral dataflow
+        assert torch.allclose(out, torch.stack(plain.push_blocks(b[0], b[1])), rtol=0, atol=1e-6)
+    assert len(calls) == 6
+    for root, rs in calls[:5]:
+        assert root.attrs == {"streams": S, "hops": 1, "launches": 2, "edge_launches": 2}
+        (kernels,) = [r for r in rs if r.name == "pool.kernels"]
+        assert _children(rs, kernels) == ["pool.forward", "pool.edge", "pool.inverse"]
+        steps = {r.name: r for r in rs if r.parent == kernels.id}
+        assert steps["pool.forward"].attrs == {"buckets": 4}
+        assert steps["pool.edge"].attrs == {"buckets": 2, "frames": sum(routes.groups[0].n_edge)}
+        assert steps["pool.inverse"].attrs == {"buckets": 2}
+        assert {r.card for r in steps.values()} == {None}  # a CPU pool names no card
+    root, rs = calls[5]
+    assert root.attrs == {"streams": S, "hops": 1, "launches": 0, "edge_launches": 0}
+    assert [r.name for r in rs] == ["pool.stage", "pool.shift", "pool.kernels", "pool.step", "pool.push"]
 
 
 def test_offline_span_tree():

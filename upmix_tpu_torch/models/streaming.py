@@ -498,7 +498,7 @@ class _StreamPool:
     def push_blocks(self, in_l, in_r):
         """One hardware block for every stream: in_l, in_r [S, hw] ->
         (C, Ls, Rs), each [S, hw]."""
-        with root("pool.push", streams=self.n_streams, hops=1):
+        with root("pool.push", edges=True, streams=self.n_streams, hops=1):
             with span("pool.stage"):
                 x = _blocks(in_l, in_r, self.device, (self.n_streams, self.hw_block_size), "push_blocks")
             self.state, out = self._step(self.state, x)
@@ -689,7 +689,7 @@ class CudaStreamPool(_StreamPool):
                 f"push_blocks_multi expects two [{self.n_streams}, k*{hw}] channel arrays; got width {width}"
             )
         self._check_aot_hops(width // hw)
-        with root("pool.push", streams=self.n_streams, hops=width // hw):
+        with root("pool.push", edges=True, streams=self.n_streams, hops=width // hw):
             with span("pool.stage"):
                 x = _blocks(in_l, in_r, self.device, (self.n_streams, width), "push_blocks_multi")
             self.state, out = self._step(self.state, x)

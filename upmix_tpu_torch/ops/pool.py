@@ -103,11 +103,12 @@ from upmix_tpu_torch.ops.omnibus import (
     launch_geometry,
     make_wide_tables,
 )
+from upmix_tpu_torch.utils.tracing import span
 
 # CUDA kernel launches made by pool_step_lcr: LAUNCHES by a time plan
 # (K3, launches_per_bucket each), SPECTRAL_LAUNCHES by a spectral plan
 # (K3s, spectral_launches a call), of which EDGE_LAUNCHES are the edge
-# product's.
+# product's (its gather and its product, two a launch group).
 LAUNCHES = 0
 SPECTRAL_LAUNCHES = 0
 EDGE_LAUNCHES = 0
@@ -265,12 +266,17 @@ class SpectralRoutes:
     """A spectral plan's routes at one `hops`: per bucket its (edge, whole)
     frames (`PoolBucket.spectral_frames`), the edge product's launch
     groups, the kernel launches of a call, and why the product cannot run
-    where a bucket it takes has no split weight on a CUDA device."""
+    where a bucket it takes has no split weight on a CUDA device; for the
+    steps' spans, the buckets the product takes, their edge frames in a
+    stream's call, and the buckets with whole frames."""
 
     frames: tuple
     groups: tuple  # _EdgeGroup
     launches: int
     weight_error: str | None
+    edge_buckets: int
+    edge_frames: int
+    whole_buckets: int
 
 
 @dataclass(frozen=True, eq=False)
@@ -319,9 +325,10 @@ def _spectral_routes(plan: PoolPlan, hops: int) -> SpectralRoutes:
                                                 for v in (b.block, b.hop, b.kept, kp, e)])
         weights = None if error else (ctypes.c_void_p * len(idx))(*[b.edge_weight.data_ptr() for b in bs])
         groups.append(_EdgeGroup(idx, n_edge, depth, weights, geo, None if error else bs[0].edge_weight.device))
-    launches = (sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * len(groups)
-                + sum(1 for _, whole in frames if whole))
-    return SpectralRoutes(frames, tuple(groups), launches, error)
+    whole = sum(1 for _, w in frames if w)
+    launches = sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * len(groups) + whole
+    return SpectralRoutes(frames, tuple(groups), launches, error, len(takes), sum(len(frames[i][0]) for i in takes),
+                          whole)
 
 
 def check_ola(ola: str) -> None:
@@ -555,13 +562,23 @@ def spectral_launches(plan: PoolPlan, hops: int) -> int:
 
 
 def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    """K3s's three steps, each in a span of its card with the buckets it
+    takes: `pool.forward`, `pool.edge` (where the product takes a bucket;
+    `frames`, the edge frames of a stream's call) and `pool.inverse`."""
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     t32 = t.to(device=hist.device, dtype=torch.int32).contiguous()
     routes = plan.spectral_routes(hops)
-    specs, new = _forward_cuda(hist, t32, carries, plan, hops)
-    out = _edge_cuda(carries, specs, t32, plan, hops, routes) if routes.groups else None
-    return _whole_cuda(carries, specs, t32, plan, hops, routes, out), new
+    card = hist.device
+    with span("pool.forward", card=card, buckets=len(plan.buckets)):
+        specs, new = _forward_cuda(hist, t32, carries, plan, hops)
+    out = None
+    if routes.groups:
+        with span("pool.edge", card=card, buckets=routes.edge_buckets, frames=routes.edge_frames):
+            out = _edge_cuda(carries, specs, t32, plan, hops, routes)
+    with span("pool.inverse", card=card, buckets=routes.whole_buckets):
+        out = _whole_cuda(carries, specs, t32, plan, hops, routes, out)
+    return out, new
 
 
 def _spectral_device(carries, specs, t, plan: PoolPlan, hops: int, out=None) -> torch.device:
@@ -694,7 +711,7 @@ def _edge_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRou
                     (ctypes.c_void_p * n)(*[carries[i].data_ptr() for i in group.buckets]),
                     (ctypes.c_void_p * n)(*[specs[i].data_ptr() for i in group.buckets]),
                     group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0), stream)
-            _launched_spectral(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
+            _launched_edge(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
             _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
     return out
 

@@ -16,7 +16,9 @@ Each record is a `Span`: its name, start and end on
 id of its root (every span of one call shares it), the CUDA index of the
 card it is for (or None) and its attributes.  A root's attributes hold
 `launches`: the kernels the ops modules launched inside it (the change
-of their launch counters).  At most LIMIT records are kept in memory
+of their launch counters); a `pool.push` root also holds
+`edge_launches`, those of K3s's edge product among them (0 where the
+product does not run).  At most LIMIT records are kept in memory
 (one more for each other thread that records at the same moment at the
 limit); the spans past it are counted by `dropped()`.  `spans()` reads
 the records, `clear()` empties them.  `utils/profiling.py::trace` writes
@@ -78,7 +80,8 @@ class _Null:
 _NULL = _Null()
 
 
-def _launches() -> int:
+def _counters() -> tuple:
+    """(launches, edge launches) the ops modules have made so far."""
     global _ops
     if _ops is None:
         from upmix_tpu_torch.ops import fused, omnibus, pool
@@ -86,7 +89,7 @@ def _launches() -> int:
         _ops = (omnibus, fused, pool)
     omnibus, fused, pool = _ops
     # pool.EDGE_LAUNCHES are counted among pool.SPECTRAL_LAUNCHES
-    return omnibus.LAUNCHES + fused.LAUNCHES + pool.LAUNCHES + pool.SPECTRAL_LAUNCHES
+    return omnibus.LAUNCHES + fused.LAUNCHES + pool.LAUNCHES + pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
 
 
 def _card(device: torch.device) -> int | None:
@@ -100,10 +103,11 @@ class _Open:
     """A recording span: opened by `with`, recorded when it closes.  Its
     start and end leave the recorder's own bookkeeping out."""
 
-    __slots__ = ("name", "card", "attrs", "outer", "root", "start", "id", "call", "launches")
+    __slots__ = ("name", "card", "attrs", "outer", "root", "edges", "start", "id", "call", "counts")
 
-    def __init__(self, name: str, card, attrs: dict, outer, root: bool):
+    def __init__(self, name: str, card, attrs: dict, outer, root: bool, edges: bool = False):
         self.name, self.attrs, self.outer, self.root = name, attrs, outer, root  # a root counts its launches
+        self.edges = edges  # and, for a pool call, the edge product's
         self.card = None if card is None else _card(card)
 
     def set(self, **attrs):
@@ -120,7 +124,7 @@ class _Open:
         else:
             self.call = self.outer.call
         if self.root:
-            self.launches = _launches()
+            self.counts = _counters()
         _thread.open = self
         self.start = time.perf_counter_ns()
         return self
@@ -130,7 +134,10 @@ class _Open:
         end = time.perf_counter_ns()
         outer = _thread.open = self.outer
         if self.root:
-            self.attrs["launches"] = _launches() - self.launches
+            launches, edges = _counters()
+            self.attrs["launches"] = launches - self.counts[0]
+            if self.edges:
+                self.attrs["edge_launches"] = edges - self.counts[1]
         record = tuple.__new__(Span, (self.name, self.start, end, self.id, None if outer is None else outer.id,
                                       self.call, self.card, self.attrs))
         if len(_records) < LIMIT:  # list.append holds the interpreter lock
@@ -144,14 +151,15 @@ class _Open:
         return False
 
 
-def root(name: str, **attrs):
+def root(name: str, edges: bool = False, **attrs):
     """The span of one call into the program: it records while a
-    torch.profiler records, and counts the kernels launched inside it.
-    Inside a recording call it is a span of that call."""
+    torch.profiler records, and counts the kernels launched inside it
+    (with `edges`, also the edge product's, as `edge_launches`).  Inside
+    a recording call it is a span of that call."""
     outer = _thread.open if _recording else None
     if outer is None and not torch.autograd._profiler_enabled():
         return _NULL
-    return _Open(name, None, attrs, outer, True)
+    return _Open(name, None, attrs, outer, True, edges)
 
 
 def span(name: str, card=None, **attrs):
