@@ -1381,9 +1381,9 @@ def spectral_phases(smi: str, dev) -> dict:
         spectral_edge_plain,
         spectral_forward,
         spectral_launches,
-        spectral_pass,
         spectral_whole,
     )
+    from upmix_tpu_torch.ops.fftplan import reg_round
 
     # 22. K3s parity against its float64 plain version, and against K3;
     # its edge product alone, each bucket's edge frames forced onto it.
@@ -1655,10 +1655,10 @@ def spectral_phases(smi: str, dev) -> dict:
     # FFTs' FLOP / their ms), counted as `pool.takes_edge_product` counts
     # them, where every frame is an edge frame; the plan as built against
     # every bucket on the product and every bucket on the FFTs.  At hw
-    # 2048 with 2048, 128 and 16 streams, at 8192, and for one band
-    # keeping every bin of its 16384-point frames.
+    # 2048 with 8192 (a card's capacity), 2048, 128 and 16 streams, at
+    # 8192, and for one band keeping every bin of its 16384-point frames.
     every_bin = UpmixConfig.streaming([0.0], sr=8000.0, hw_block_size=4096)
-    for r_cfg, r_hw, r_s in ((cfg, hw, S), (cfg, hw, 128), (cfg, hw, 16),
+    for r_cfg, r_hw, r_s in ((cfg, hw, 4 * S), (cfg, hw, S), (cfg, hw, 128), (cfg, hw, 16),
                              (UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=4 * hw), 4 * hw, S // 4),
                              (every_bin, 4096, S // 4)):
         r_plan = make_pool_plan(r_cfg, r_hw, r_s, device=dev, ola="spectral")
@@ -1699,16 +1699,17 @@ def spectral_phases(smi: str, dev) -> dict:
 
     def design(b):
         """(FFT FLOP, tensor-core FLOP, bytes) of K3s's own work on bucket
-        b at hops 1 and its launch geometry: G frames a pass forward (zero
-        frames included); the edge product's three split products for
-        every row and sample its frames reach; per stream the whole
-        frames inverted (C + i Ls one transform, the Rs of two frames
-        another); 5 N log2 N a complex FFT; frames read, the new spectra
-        written and read, the gathered operand written and read, the
-        carries, the output read and written."""
-        G, F, Kr = spectral_pass(b.block), b.passes, b.overlap
+        b at hops 1 and its launch geometry: every new frame forward (a
+        team of the register core each); the edge product's three split
+        products for every row and sample its frames reach; per stream
+        the whole frames inverted, reg_round of them at a time (C + i Ls
+        one transform, the Rs of two frames another); 5 N log2 N a
+        complex FFT; frames read, the new spectra written and read, the
+        gathered operand written and read, the carries, the output read
+        and written."""
+        G, F, Kr = reg_round(b.block), b.passes, b.overlap
         edge, whole = b.spectral_frames(1)
-        fwd = -(-F // G) * G
+        fwd = F
         nw = len(whole)
         inv = sum(nf + -(-nf // 2) for nf in [min(G, nw - i) for i in range(0, nw, G)])
         fft = S * (fwd + inv) * 5 * b.block * np.log2(b.block)
@@ -1721,7 +1722,7 @@ def spectral_phases(smi: str, dev) -> dict:
     d = [design(b) for b in plan.buckets]
     d_fft, d_mma, d_bytes = (sum(x[i] for x in d) for i in range(3))
     d_ms = max(d_fft / FP32_FLOPS + d_mma / BF16_FLOPS, d_bytes / HBM_BYTES_PER_S) * 1e3
-    print(f"design [{smi}]: K3s FFTs in shared memory {d_fft:.3e} FLOP, edge product {d_mma:.3e} FLOP on the tensor "
+    print(f"design [{smi}]: K3s FFTs in registers {d_fft:.3e} FLOP, edge product {d_mma:.3e} FLOP on the tensor "
           f"cores ({(d_fft + d_mma / 3) / k3s_flop:.2f}x the function's FLOP counting the product's logical ones), "
           f"{d_bytes / 1e9:.3f} GB -> {d_ms:.3f} ms; K3s at {d_ms / k3s_ms:.1%} of it", flush=True)
     parts, k3s_lib_ms = [], 0.0

@@ -397,6 +397,87 @@ def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
         assert torch.equal(got[:, others], want[:, others])
 
 
+@pytest.mark.parametrize("inverse", [0, 1])
+@pytest.mark.parametrize("log2n", range(6, 15))
+def test_register_fft_core_matches_torch_fft_float64(cuda, log2n, inverse):
+    # csrc/fft_reg.cuh through the two kernels' own transforms
+    # (pool_spectral_reg_fft), B = 64 .. 16384, against torch.fft in
+    # float64: the forward of complex frames (a window of ones), the
+    # unnormalised inverse of two real signals' half spectra packed as u +
+    # i v with every bin kept; float32 rounding alone (about 137 dB on the
+    # host): >= 120 dB.  A count that leaves a block's last teams idle.
+    from upmix_tpu_torch.ops import _build, pool
+    from upmix_tpu_torch.ops.fftplan import reg_twiddles
+
+    n = 1 << log2n
+    count = 2 * max(1, 256 // max(1, n // 16)) + 1
+    gen = torch.Generator(cuda).manual_seed(log2n)
+    planes = torch.randn((count, 2, n), device=cuda, dtype=torch.float64, generator=gen)
+    if inverse:
+        half = torch.fft.rfft(planes, dim=-1)  # [count, 2, n / 2 + 1]: U, V
+        x = torch.view_as_real(half).float().contiguous()
+        half_f = torch.view_as_complex(x.double())
+        # the reference from the float32 half spectra the kernel reads
+        ref = torch.fft.irfft(half_f[:, 0], n=n) * n + 1j * torch.fft.irfft(half_f[:, 1], n=n) * n
+    else:
+        x = planes.float().contiguous()
+        ref = torch.fft.fft(torch.complex(x[:, 0].double(), x[:, 1].double()), dim=-1)
+    y = torch.full((count, n, 2), float("nan"), device=cuda)
+    ones = torch.ones(n, device=cuda)
+    tw = torch.as_tensor(reg_twiddles(n), device=cuda)
+    with _build.on_device(cuda):
+        lib = _build.load()
+        pool.load_reg_roots(lib, cuda)
+        rc = lib.pool_spectral_reg_fft(x.data_ptr(), y.data_ptr(), ones.data_ptr(), tw.data_ptr(), n, count, inverse,
+                                       torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert _snr(torch.view_as_real(ref), y.double()) >= 120.0
+
+
+@pytest.mark.parametrize("S,hops", [(16, 1), (16, 4), (2048, 1), (2048, 4), (8192, 1), (8192, 4)])
+def test_spectral_pool_on_the_register_core(cuda, S, hops):
+    # CudaStreamPool(ola="spectral") of the Bela configuration on K3s's
+    # register-core FFTs against its float64 plain version, every block
+    # through push_blocks (hops 1) or push_blocks_multi (hops 4), with the
+    # frames its spans count on the core: every one of them.  Two pools
+    # fed the same blocks agree bit for bit, and a stream's output does not
+    # depend on the rows beside it: the first 16 rows of the step at S
+    # rows equal the step of those 16 rows alone.
+    from upmix_tpu_torch.models.streaming import make_stream_pool
+    from upmix_tpu_torch.ops.pool import pool_step_lcr, pool_step_spectral_plain
+
+    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
+    hw = 2048
+    pools = [make_stream_pool(cfg, hw, S, device=cuda, ola="spectral") for _ in range(2)]
+    plan = pools[0].plan
+    routes = plan.spectral_routes(hops)
+    assert (routes.forward_reg, routes.inverse_reg) == (routes.forward_frames, routes.inverse_frames) != (0, 0)
+    K = plan.warmup
+    gen = torch.Generator(cuda).manual_seed(S + hops)
+    calls = K + 1
+    blocks = torch.randn((calls, 2, S, hops * hw), device=cuda, generator=gen)
+    hist = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=cuda)
+    carries = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=cuda) for b in plan.buckets]
+    for i, b in enumerate(blocks):
+        push = [p.push_blocks if hops == 1 else p.push_blocks_multi for p in pools]
+        out, again = (torch.stack(f(b[0], b[1])) for f in push)
+        assert torch.equal(out, again)
+        h = torch.cat([hist, b.transpose(0, 1).double()], dim=-1)
+        t = torch.full((S,), i * hops + 1, dtype=torch.int32, device=cuda)
+        ref, carries = pool_step_spectral_plain(h, t, carries, plan, hops)
+        hist = h[..., hops * hw :]
+        if bool((ref != 0).any()):
+            assert _snr(ref.transpose(0, 1), out) >= 80.0
+        del h, ref
+    x = torch.randn((S, 2, (K - 1 + hops) * hw), device=cuda, generator=gen)
+    t = torch.full((S,), K + 1, dtype=torch.int32, device=cuda)
+    c = [torch.randn(b.spectral_carry_shape(S), device=cuda, generator=gen) for b in plan.buckets]
+    whole, _ = pool_step_lcr(x, t, c, plan, hops)
+    few, _ = pool_step_lcr(x[:16].contiguous(), t[:16], [ci[:16].contiguous() for ci in c], plan, hops)
+    assert torch.equal(whole[:16], few)
+
+
 def _edge_everywhere(plan):
     """The spectral plan with every bucket whose frames overlap sending its
     edge frames to the product, with its split weight."""
@@ -1284,10 +1365,11 @@ def test_spectral_spans_split_k3s(cuda, ola, tmp_path):
     else:
         routes = p.plan.spectral_routes(1)
         assert [(s.name, s.card) for s in inner] == [("pool.forward", 0), ("pool.edge", 0), ("pool.inverse", 0)]
+        # the FFT frames of a stream's call, all of them on the register core
         assert [s.attrs for s in inner] == [
-            {"buckets": 4},
+            {"buckets": 4, "fft_frames": 43, "reg_frames": 43},
             {"buckets": 2, "frames": sum(sum(g.n_edge) for g in routes.groups)},
-            {"buckets": sum(1 for _, whole in routes.frames if whole)}]
+            {"buckets": sum(1 for _, whole in routes.frames if whole), "fft_frames": 46, "reg_frames": 46}]
     with trace(str(tmp_path)):
         p.push_blocks(b[0], b[1])
         torch.cuda.synchronize()

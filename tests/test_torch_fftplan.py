@@ -34,8 +34,13 @@ from upmix_tpu_torch.ops.fftplan import (
     WIDE_TILE,
     digit_positions,
     inverse_bins,
+    REG_RADIX,
     pass_twiddles,
     radices,
+    reg_radices,
+    reg_round,
+    reg_threads,
+    reg_twiddles,
     wide_split,
 )
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
@@ -390,3 +395,89 @@ def test_two_stage_split_matches_jax_banded():
         U[0, 0, :, pos1[row]] += acc
     y = (fft_inverse(U, _cplx(b.twiddles)).transpose(-1, -2).flatten(-2) / b.block).real[0, 0]
     assert snr_db(y_jax, y.numpy()) >= 100.0
+
+
+# csrc/fft_reg.cuh, the register core of K3s's two FFT kernels.
+
+
+def reg_fft(z: torch.Tensor, tw: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """csrc/fft_reg.cuh's transform over the last axis, stage by stage from
+    its twiddle table: per stage of radix P after NS points, virtual
+    thread v reads x[v + r n / P], takes the twiddle at [(r - 1) NS + v mod
+    NS] of its stage's part of the table, the P-point DFT by radix-2
+    butterflies whose twiddles are the table's w_16^k (w_16^(4 + k) = -i
+    w_16^k), and writes output k at (v / NS) NS P + v mod NS + k NS.
+    Conjugate twiddles for the inverse; natural order in and out."""
+    n = z.shape[-1]
+    w16 = [tw[k] for k in range(4)]
+    w16 += [-1j * w for w in w16]
+    if inverse:
+        w16, tw = [w.conj() for w in w16], tw.conj()
+    ns, at = 1, 4
+    for P in reg_radices(n):
+        v = torch.arange(n // P)
+        x = [z[..., v + r * (n // P)] for r in range(P)]
+        if ns > 1:
+            x = [x[0]] + [x[r] * tw[at + (r - 1) * ns + v % ns] for r in range(1, P)]
+            at += (P - 1) * ns
+        L = P
+        while L >= 2:  # radix-2 passes in place: x[s] ends as output bin brev(s)
+            for b0 in range(0, P, L):
+                for i in range(L // 2):
+                    a, c = x[b0 + i], x[b0 + i + L // 2]
+                    x[b0 + i], x[b0 + i + L // 2] = a + c, (a - c) * w16[i * (16 // L)]
+            L //= 2
+        bits = P.bit_length() - 1
+        out = torch.empty_like(z)
+        for k in range(P):
+            out[..., (v // ns) * ns * P + v % ns + k * ns] = x[int(format(k, f"0{bits}b")[::-1] or "0", 2)]
+        z, ns = out, ns * P
+    return z
+
+
+def test_register_core_sizes():
+    # Every power of two up to FFT_MAX has its stages (16s, then what is
+    # left), a team of n / 16 threads holding 16 values (n below 16: one
+    # thread, n values), and a table the size the kernel's offsets give.
+    for log2n in range(FFT_MAX.bit_length()):
+        n = 1 << log2n
+        r = reg_radices(n)
+        assert int(np.prod(r)) == n and all(p in (2, 4, 8, 16) for p in r)
+        assert r[:-1] == [REG_RADIX] * (len(r) - 1) and len(r) == (0 if n == 1 else -(-log2n // 4))
+        assert reg_threads(n) * min(n, REG_RADIX) == n
+        ns = np.cumprod([1] + r)[:-1]
+        assert len(reg_twiddles(n)) == 4 + sum((p - 1) * m for p, m in zip(r[1:], ns[1:]))
+    assert reg_radices(8192) == [16, 16, 16, 2] and reg_threads(8192) == 512
+    # the inverse kernel's rounds: 21 frames of 256 points (32 teams of 16
+    # threads), 5 of 1024 (8 teams), one of 8192 (one team: C + i Ls, then Rs)
+    assert (reg_round(256), reg_round(1024), reg_round(8192), reg_round(16384)) == (21, 5, 1, 1)
+
+
+@pytest.mark.parametrize("log2n", range(15))
+def test_register_twiddles_are_float64_rounded_once(log2n):
+    # The table against numpy float64, entry by entry, within float32's
+    # rounding (half an ulp of 1), in the layout the kernel reads.
+    n = 1 << log2n
+    tw = reg_twiddles(n)
+    assert tw.dtype == np.float32
+    parts, ns = [np.exp(-2j * np.pi * np.arange(4) / 16)], 1
+    for i, p in enumerate(reg_radices(n)):
+        if i:
+            m = np.arange(ns)
+            parts += [np.exp(-2j * np.pi * m * r / (ns * p)) for r in range(1, p)]
+        ns *= p
+    want = np.concatenate(parts)
+    assert np.abs(tw[:, 0] - want.real).max() <= 2.0**-24 and np.abs(tw[:, 1] - want.imag).max() <= 2.0**-24
+
+
+@pytest.mark.parametrize("log2n", range(15))
+def test_register_core_statement(log2n):
+    # The core's stages from its float32 table against torch.fft in
+    # float64, both ways: only the table's rounding separates them.
+    n = 1 << log2n
+    gen = torch.Generator().manual_seed(log2n)
+    z = torch.complex(torch.randn((2, n), generator=gen, dtype=torch.float64),
+                      torch.randn((2, n), generator=gen, dtype=torch.float64))
+    tw = _cplx(reg_twiddles(n))
+    assert _csnr(torch.fft.fft(z).numpy(), reg_fft(z, tw).numpy()) >= 120.0
+    assert _csnr((torch.fft.ifft(z) * n).numpy(), reg_fft(z, tw, inverse=True).numpy()) >= 120.0

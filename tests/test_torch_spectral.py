@@ -28,6 +28,7 @@ from upmix_tpu.ops.pallas_pool import pool_step_lcr as jax_pool_step_lcr
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
 from upmix_tpu_torch.ops import pool
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, pass_twiddles, reg_twiddles
 from upmix_tpu_torch.ops.pool import (
     EDGE_DEPTH,
     make_edge_weight,
@@ -563,6 +564,28 @@ def test_edge_routing_table_of_the_serving_config():
                          ola="spectral")
     assert not one.buckets[0].edge_product
     assert one.buckets[0].spectral_frames(1) == ((), rng(-3, 1))
+
+
+@pytest.mark.parametrize("hw,hops,counts", [(2048, 1, (43, 43, 46, 46)), (2048, 4, (172, 172, 172, 172)),
+                                             (8192, 1, (169, 168, 177, 177)), (8192, 4, (676, 672, 682, 681))])
+def test_register_core_frames_of_the_serving_config(hw, hops, counts):
+    # The FFT frames of a stream's call in K3s's forward and inverse steps
+    # (the `pool.forward` and `pool.inverse` spans' `fft_frames`) and those
+    # the register core takes (`reg_frames`): every bucket up to FFT_MAX
+    # points.  At hw 2048 the Bela buckets' 1 + 2 + 8 + 32 new frames a
+    # block go forward, and the 1024 and 256 buckets' 11 + 35 frames
+    # inverse (at hops 4 every bucket has whole frames: 1 + 5 + 35 + 131);
+    # at hw 8192 the 32768 bucket's frames (1 a block forward, 0 or 1
+    # inverse) take the split.  A spectral plan's buckets up to FFT_MAX
+    # points carry the core's twiddles, a time plan's fft.cuh's.
+    plan = _serve_plan(hw, 2)
+    r = plan.spectral_routes(hops)
+    assert (r.forward_frames, r.forward_reg, r.inverse_frames, r.inverse_reg) == counts
+    for b in plan.buckets:
+        assert b.twiddles is None if b.block > FFT_MAX else torch.equal(b.twiddles, torch.as_tensor(reg_twiddles(b.block)))
+    cfg = UpmixConfig.streaming(SERVE_EDGES, sr=SERVE_SR, hw_block_size=hw)
+    for b in make_pool_plan(cfg, hw, 2, device="cpu").buckets:
+        assert b.twiddles is None if b.block > FFT_MAX else torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block)))
 
 
 def test_spectral_steps_run_where_the_spectra_lie():

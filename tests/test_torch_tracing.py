@@ -171,9 +171,10 @@ def test_spectral_pool_spans_split_k3s(monkeypatch):
         (kernels,) = [r for r in rs if r.name == "pool.kernels"]
         assert _children(rs, kernels) == ["pool.forward", "pool.edge", "pool.inverse"]
         steps = {r.name: r for r in rs if r.parent == kernels.id}
-        assert steps["pool.forward"].attrs == {"buckets": 4}
+        # the FFT frames of a stream's call, all of them on the register core
+        assert steps["pool.forward"].attrs == {"buckets": 4, "fft_frames": 43, "reg_frames": 43}
         assert steps["pool.edge"].attrs == {"buckets": 2, "frames": sum(routes.groups[0].n_edge)}
-        assert steps["pool.inverse"].attrs == {"buckets": 2}
+        assert steps["pool.inverse"].attrs == {"buckets": 2, "fft_frames": 46, "reg_frames": 46}
         assert {r.card for r in steps.values()} == {None}  # a CPU pool names no card
     root, rs = calls[5]
     assert root.attrs == {"streams": S, "hops": 1, "launches": 0, "edge_launches": 0}

@@ -21,13 +21,17 @@
 //     - 1 virtual frames (the carry as it was when no hop is ready).
 //
 // Design (ops/pool.py states each step's plain version):
-//   1. spectral_forward_kernel, block (group of G frames, stream): window,
-//      packed-stereo FFT and mask (fft.cuh's unpack_mask) of the new
-//      frames into spec [S, 3, F, K] float2, and the new carry: its new
-//      frames from the same values, its older ones copied from the carry.
-//      Over FFT_MAX points the split's wide_forward_kernel (pool.cu's
-//      pool_wide_forward) writes partials and spectral_mask_kernel sums
-//      and masks them into spec and the carry.
+//   1. spectral_forward_kernel: window, packed-stereo FFT and mask
+//      (fft.cuh's unpack_mask) of the new frames into spec [S, 3, F, K]
+//      float2, and the new carry: its new frames from the same values, its
+//      older ones copied from the carry.  The FFTs are fft_reg.cuh's, held
+//      in registers: a block of at least REG_FORWARD_THREADS threads runs
+//      one frame a team of B / 16 threads, the (stream, frame) pairs in
+//      turn, each thread loading its 16 windowed samples straight from the
+//      history; a team waits only on its own barriers, and skips a frame
+//      of a not-ready hop.  Over FFT_MAX points the split's wide_forward_kernel
+//      (pool.cu's pool_wide_forward) writes partials and
+//      spectral_mask_kernel sums and masks them into spec and the carry.
 //   2. The edge product, for the buckets the plan sends to it
 //      (ops/pool.py::takes_edge_product: those whose every frame of a
 //      one-block call is an edge frame, the 8192 and 4096 buckets at hw
@@ -55,10 +59,14 @@
 //      by selection, so a NaN in a not-ready carry stays in its row.
 //   3. spectral_inverse_kernel, one block per stream (as pool.cu's K3):
 //      the rest, "whole frames" (inside the output), and every frame of a
-//      bucket the product does not take, G at a time in frame order: the
-//      Hermitian-packed inverse FFT of C + i Ls and of the Rs of two
-//      frames, then fft.cuh's FrameOla adds each output sample's frames in
-//      frame order, onto the product's output.  Over FFT_MAX points,
+//      bucket the product does not take, a round of frames at a time in
+//      frame order: the Hermitian-packed inverse FFTs (fft_reg.cuh's) of
+//      C + i Ls of each frame and of the Rs of two frames, a team each,
+//      the kept bins read from the spectra straight into its registers (no
+//      zeroed buffer), then each output sample's frames of the round added
+//      in frame order onto the product's output, as fft.cuh's FrameOla
+//      adds them (ola_round: the three outputs in one pass, a thread's
+//      reads of four positions in flight together).  Over FFT_MAX points,
 //      fft.cuh's wide_inverse_kernel with a SpectralState as its source.
 // Every output element is owned by one block of each launch and added to
 // in a fixed order (the product's buckets, frames and stages in order, no
@@ -69,9 +77,16 @@
 // sample and frame (5.8e10 FLOP a block at S = 2048, hw 2048, hops 1,
 // where the inverse FFTs it replaces were 1.0e10), but on the tensor
 // cores: it is bound by issuing them (mma.sync, three per product) and
-// by its shared-memory fragment loads; the FFT kernels by their shared-
-// memory passes.  The new spectra and the gathered operand go through
-// device memory between the launches.
+// by its shared-memory fragment loads.  The FFT kernels keep each frame
+// in registers and pass it through shared memory once a stage of 16 (two
+// barriers of its team a stage, where fft.cuh's core takes one pass and
+// one barrier of the block every radix 4); at 64 registers a thread (two
+// blocks of 512 threads an SM) each transform and overlap-add is a call
+// of its own, so that the caller's state waits on the stack and does not
+// spill the FFT's registers.  The forward is bound by the history it reads
+// and the spectra it writes, the inverse by its overlap-add's reads and
+// writes of the output.  The new spectra and the gathered operand go
+// through device memory between the launches.
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
@@ -81,6 +96,7 @@
 #include <cstdint>
 
 #include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
@@ -133,10 +149,12 @@ __device__ __forceinline__ float2* carry_slot(float2* carry_out, const SpectralS
 }
 
 // The new carry's slots that hold frames from before this call's first
-// ready hop, copied from the carry (by the stream's first block).
-__device__ void copy_old_slots(float2* carry_out, const SpectralState& st, int s) {
+// ready hop, copied from the carry by threads lane, lane + stride, ..
+// (those of the stream's first frame).
+__device__ void copy_old_slots(float2* carry_out, const SpectralState& st, int s, int lane, int stride) {
   const int f0 = st.first_new(s), n = st.Kr - 1;
-  for (int idx = threadIdx.x; idx < 3 * n * st.K; idx += blockDim.x) {
+  if (st.F - n >= f0) return;  // every slot holds a new frame
+  for (int idx = lane; idx < 3 * n * st.K; idx += stride) {
     const int o = idx / (n * st.K);
     const int r = idx - o * n * st.K;
     const int slot = r / st.K;
@@ -157,46 +175,90 @@ __device__ __forceinline__ void store_frame(float2* spec, float2* carry_out, con
   }
 }
 
-// Step 1.  Block (frame group, stream s): frames f = blockIdx.x * G + g of
-// the history x [S, 2, width]; those of ready hops are windowed, packed,
-// transformed and masked.
-__global__ void __launch_bounds__(FFT_THREADS)
-spectral_forward_kernel(const float* __restrict__ x, long long width, SpectralState st, float2* __restrict__ spec,
-                        float2* __restrict__ carry_out, BucketArgs a, int G) {
+// Threads a block of the two FFT kernels: at least these, and one team of
+// a transform (ops/fftplan.py::REG_FORWARD_THREADS, REG_INVERSE_THREADS).
+constexpr int REG_FORWARD_THREADS = 256;
+constexpr int REG_INVERSE_THREADS = 512;
+constexpr int REG_MAX_LOG2 = 14;  // FFT_MAX points: a team of 1024 threads
+
+inline int reg_block(int log2n, int least) { return max(least, log2n < 4 ? 1 : 1 << (log2n - 4)); }
+
+// One forward transform: thread j of team `team` loads its samples j +
+// slot T of the frame at xs (L) and xs + width (R), windowed by aw and
+// packed as L + i R, and fft_reg.cuh's forward leaves the frame's
+// spectrum in natural order at the team's part of buf.  A call, so that
+// the caller's state waits on the stack and leaves the transform its
+// registers.
+template <int LOG2N>
+__device__ __noinline__ void forward_transform(const float* __restrict__ xs, long long width,
+                                               const float* __restrict__ aw, const float2* __restrict__ tw) {
+  using G = RegGeo<LOG2N>;
   extern __shared__ float4 smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);  // [G * B]
-  const int s = blockIdx.y;
-  if (blockIdx.x == 0) copy_old_slots(carry_out, st, s);
-  const int fb = blockIdx.x * G;
-  const int f_lo = max(fb, st.first_new(s)), f_hi = min(fb + G, st.F);
-  if (f_lo >= f_hi) return;  // the whole group is in not-ready hops: never read
-  const float* xs = x + (long long)s * 2 * width;
-  const int B = a.B;
-  for (int idx = threadIdx.x; idx < G * B; idx += blockDim.x) {
-    const int g = idx >> a.logB;
-    const int n = idx & (B - 1);
-    const int f = fb + g;
-    float2 z = make_float2(0.f, 0.f);
-    if (f >= f_lo && f < f_hi) {
-      const float w = a.aw[n];
-      const long long off = (long long)f * a.H + n;
-      z = make_float2(w * xs[off], w * xs[width + off]);
-    }
-    buf[idx] = z;
+  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
+  float2 v[G::R];
+#pragma unroll
+  for (int slot = 0; slot < G::R; ++slot) {
+    const int n = j + slot * G::T;
+    const float wn = __ldg(aw + n);
+    v[slot] = make_float2(wn * xs[n], wn * xs[width + n]);
   }
-  __syncthreads();
-  fft_forward(buf, a.logB, G, a.tw);
-  for (int idx = threadIdx.x; idx < G * a.K; idx += blockDim.x) {
-    const int g = idx / a.K;
-    const int j = idx - g * a.K;
-    const int f = fb + g;
-    if (f < f_lo || f >= f_hi) continue;
-    const int k = a.lo + j;
-    const float2* t = buf + (g << a.logB);
+  reg_fft<LOG2N, false>(v, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
+}
+
+// Step 1 on 2^LOG2N points.  Team i of block b takes the g-th (stream,
+// frame) pair, g = b * teams + i, frame f = g mod F of stream s = g / F; a
+// frame of a not-ready hop is never read, transformed nor stored.
+template <int LOG2N>
+__device__ __forceinline__ void forward_frames(const float* __restrict__ x, long long width, const SpectralState& st,
+                                               float2* __restrict__ spec, float2* __restrict__ carry_out,
+                                               const BucketArgs& a, int S) {
+  using G = RegGeo<LOG2N>;
+  extern __shared__ float4 smem[];
+  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
+  const long long g = (long long)blockIdx.x * (blockDim.x / G::T) + team;
+  const int s = (int)(g / st.F), f = (int)(g - (long long)s * st.F);
+  if (s >= S) return;
+  if (f == 0) copy_old_slots(carry_out, st, s, j, G::T);
+  if (f < st.first_new(s)) return;
+  forward_transform<LOG2N>(x + (long long)s * 2 * width + (long long)f * a.H, width, a.aw, a.tw);
+  reg_sync<G::T>(team);
+  const float2* z = reinterpret_cast<const float2*>(smem) + team * G::PADDED;  // [N]
+  for (int jj = j; jj < a.K; jj += G::T) {
+    const int k = a.lo + jj;
     float2 m[3];
-    unpack_mask(t[fft_pos(k, a.logB)], t[fft_pos((B - k) & (B - 1), a.logB)], a, j, m);
-    store_frame(spec, carry_out, st, s, f, j, m);
+    unpack_mask(z[k], z[(G::N - k) & (G::N - 1)], a, jj, m);
+    store_frame(spec, carry_out, st, s, f, jj, m);
   }
+}
+
+#define REG_CASES(CALL) \
+  switch (a.logB) {     \
+    case 0: CALL(0); break;   \
+    case 1: CALL(1); break;   \
+    case 2: CALL(2); break;   \
+    case 3: CALL(3); break;   \
+    case 4: CALL(4); break;   \
+    case 5: CALL(5); break;   \
+    case 6: CALL(6); break;   \
+    case 7: CALL(7); break;   \
+    case 8: CALL(8); break;   \
+    case 9: CALL(9); break;   \
+    case 10: CALL(10); break; \
+    case 11: CALL(11); break; \
+    case 12: CALL(12); break; \
+    case 13: CALL(13); break; \
+    case 14: CALL(14); break; \
+    default: break;           \
+  }
+
+// Step 1.  Frames of the history x [S, 2, width], frame f at f * H: those
+// of ready hops windowed, packed, transformed and masked (forward_frames).
+__global__ void __launch_bounds__(1024)
+spectral_forward_kernel(const float* __restrict__ x, long long width, SpectralState st, float2* __restrict__ spec,
+                        float2* __restrict__ carry_out, BucketArgs a, int S) {
+#define REG_FORWARD(L) forward_frames<L>(x, width, st, spec, carry_out, a, S)
+  REG_CASES(REG_FORWARD)
+#undef REG_FORWARD
 }
 
 constexpr int MASK_THREADS = 256;
@@ -208,7 +270,7 @@ __global__ void __launch_bounds__(MASK_THREADS)
 spectral_mask_kernel(const float2* __restrict__ part, SpectralState st, float2* __restrict__ spec,
                      float2* __restrict__ carry_out, BucketArgs a, int groups) {
   const int s = blockIdx.y;
-  if (blockIdx.x == 0) copy_old_slots(carry_out, st, s);
+  if (blockIdx.x == 0) copy_old_slots(carry_out, st, s, threadIdx.x, MASK_THREADS);
   const int idx = blockIdx.x * MASK_THREADS + threadIdx.x;
   if (idx >= st.F * a.K) return;
   const int f = idx / a.K;
@@ -219,50 +281,186 @@ spectral_mask_kernel(const float2* __restrict__ part, SpectralState st, float2* 
   store_frame(spec, carry_out, st, s, f, j, m);
 }
 
-// Step 3.  Block (hop block, stream s) owns output hops [q0, q0 +
-// T) of the n_hops = F; the frames in [sink.v_lo, v_hi) that reach them, G
-// at a time in frame order: C + i Ls in one transform a frame, the Rs of
-// frames 2t and 2t + 1 in transform t.
-__global__ void __launch_bounds__(FFT_THREADS)
-spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n_hops, int T, int G, int v_hi) {
+// The spectra of transform t of a round of nf frames from fb: t < nf
+// takes u, v = C, Ls of frame fb + t, t >= nf the Rs of frames fb + 2 (t -
+// nf) and the next (v null past the round).
+__device__ __forceinline__ void round_spectra(const SpectralState& st, int s, int fb, int nf, int t, const float2*& u,
+                                              const float2*& v) {
+  if (t < nf) {
+    u = st.frame(s, 0, fb + t);
+    v = st.frame(s, 1, fb + t);
+  } else {
+    const int f = fb + 2 * (t - nf);
+    u = st.frame(s, 2, f);
+    v = f + 1 < fb + nf ? st.frame(s, 2, f + 1) : nullptr;
+  }
+}
+
+// One inverse transform of a round: thread j of team `team` takes bins j +
+// slot T of the Hermitian-packed W = u + i v (kept bins lo .. lo + K - 1
+// of u and v; v null is zeros): W[k] at each kept bin k, its mirror at B -
+// k (only the real parts at DC and Nyquist, as irfft reads them), zeros
+// elsewhere by selection; then fft_reg.cuh's inverse leaves the samples
+// in natural order at the team's part of buf.  A call, so that the
+// round's state waits on the stack and leaves the transform its registers.
+template <int LOG2N>
+__device__ __noinline__ void inverse_transform(const float2* u, const float2* v, int lo, int K,
+                                               const float2* __restrict__ tw) {
+  using G = RegGeo<LOG2N>;
   extern __shared__ float4 smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);  // [G * B]
+  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
+  float2 x[G::R];
+#pragma unroll
+  for (int slot = 0; slot < G::R; ++slot) {
+    const int k = j + slot * G::T, km = G::N - k;
+    const bool kept = (unsigned)(k - lo) < (unsigned)K;
+    const bool mirror = !kept && 2 * k > G::N && (unsigned)(km - lo) < (unsigned)K;
+    const int i = kept ? k - lo : mirror ? km - lo : 0;  // every read in bounds: the loads go together
+    const float2 p = u[i], q0 = (v != nullptr ? v : u)[i];
+    const float2 q = v != nullptr ? q0 : make_float2(0.f, 0.f);
+    x[slot] = kept ? ((k == 0 || 2 * k == G::N) ? make_float2(p.x, q.x) : make_float2(p.x - q.y, p.y + q.x))
+                   : mirror ? make_float2(p.x + q.y, q.x - p.y) : make_float2(0.f, 0.f);
+  }
+  reg_fft<LOG2N, true>(x, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
+}
+
+// The overlap-add of a round's frames fb .. fb + nf - 1 (frame v at v H)
+// into positions [first, last) of a stream's outputs (output o at out + o
+// row): with `cl` C and Ls from the C + i Ls transforms at cls (transform
+// g at g * PADDED), with `rr` Rs from the Rs transforms at rs (frames 2t
+// and 2t + 1 in transform t).  At each position p each output's sum over
+// the frames in frame order of sample p - vH, synthesis-windowed and
+// scaled by 1/N, is added to the output, as fft.cuh's FrameOla adds it.
+// A thread takes OLA_SPAN positions at a time and reads all their outputs
+// before it writes any, so that the reads are in flight together; a call,
+// whose registers the caller's state does not crowd.
+constexpr int OLA_SPAN = 4;
+
+template <int LOG2N>
+__device__ __noinline__ void ola_round(float* out, long long row, long long first, long long last,
+                                       const float2* cls, const float2* rs, bool cl, bool rr, int fb, int nf, int H,
+                                       const float* __restrict__ sw) {
+  constexpr int N = RegGeo<LOG2N>::N, PADDED = RegGeo<LOG2N>::PADDED;
+  const int Kf = N / H;
+  const int d0 = (int)(first - (long long)fb * H), span = (int)max(0LL, last - first);
+  const float inv = 1.0f / (float)N;
+  for (int i0 = threadIdx.x; i0 < span; i0 += OLA_SPAN * blockDim.x) {
+    float sum[OLA_SPAN][3], old[OLA_SPAN][3];
+#pragma unroll
+    for (int u = 0; u < OLA_SPAN; ++u) {
+      const int d = d0 + i0 + u * blockDim.x;  // p - fb H
+      const int qq = d / H, r = d - qq * H;
+      const int g_lo = max(0, qq - Kf + 1), g_hi = min(nf - 1, qq);
+      sum[u][0] = sum[u][1] = sum[u][2] = 0.f;
+      for (int g = g_lo; g <= g_hi && i0 + u * (int)blockDim.x < span; ++g) {
+        const int n = (qq - g) * H + r;
+        const float w = sw[n] * inv;
+        if (cl) {
+          const float2 v = cls[g * PADDED + n];
+          sum[u][0] += v.x * w;
+          sum[u][1] += v.y * w;
+        }
+        if (rr) {
+          const float2 v = rs[(g >> 1) * PADDED + n];
+          sum[u][2] += ((g & 1) ? v.y : v.x) * w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < OLA_SPAN; ++u) {
+      const int i = i0 + u * blockDim.x;
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        if (i < span && (o < 2 ? cl : rr)) old[u][o] = out[o * row + first + i];
+    }
+#pragma unroll
+    for (int u = 0; u < OLA_SPAN; ++u) {
+      const int i = i0 + u * blockDim.x;
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        if (i < span && (o < 2 ? cl : rr)) out[o * row + first + i] = old[u][o] + sum[u][o];
+    }
+  }
+}
+
+// Step 3 on 2^LOG2N points.  Block (hop block, stream s) owns output hops
+// [q0, q0 + T) of the n_hops; the frames in [sink.v_lo, v_hi) that reach
+// them, `round` at a time in frame order, round + ceil(round / 2) <= teams
+// transforms (with one team, the C + i Ls and the Rs transform in turn):
+// team t < nf the C + i Ls of frame fb + t, the next ones the Rs of frames
+// fb + 2 (t - nf) and the next; then each output sample's frames of the
+// round added in frame order (ola_round).
+template <int LOG2N>
+__device__ __forceinline__ void inverse_frames(const SpectralState& st, const SpectralSink& sink, const BucketArgs& a,
+                                               int n_hops, int T, int v_hi) {
+  using G = RegGeo<LOG2N>;
+  extern __shared__ float4 smem[];
+  const float2* buf = reinterpret_cast<const float2*>(smem);  // [teams][PADDED]: samples at [0, N) of each
   const int s = blockIdx.y;
-  const int B = a.B;
   const int q0 = blockIdx.x * T;
   const int q1 = min(q0 + T, n_hops);
   const long long p0 = (long long)q0 * a.H, p1 = (long long)q1 * a.H;
   for (long long p = p0 + threadIdx.x; p < p1; p += blockDim.x) sink.init(s, p);
-  __syncthreads();
-  const int f_begin = max(q0 - (B / a.H - 1), sink.first_frame(s));
+  const int f_begin = max(q0 - (G::N / a.H - 1), sink.first_frame(s));
   const int f_end = min(q1, v_hi);
-  const FrameOla<SpectralSink> ola{buf, sink, a, s, f_begin, f_end, max(p0, st.lowest(s)), p1};
-  for (int fb = f_begin; fb < f_end; fb += G) {
-    const int nf = min(G, f_end - fb);
-    for (int pass = 0; pass < 2; ++pass) {
-      // pass 0: C + i Ls of each frame; pass 1: the Rs of frames 2t, 2t + 1.
-      const int nt = pass == 0 ? nf : (nf + 1) >> 1;
-      for (int idx = threadIdx.x; idx < nt * B; idx += blockDim.x) buf[idx] = make_float2(0.f, 0.f);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nt * a.K; idx += blockDim.x) {
-        const int tt = idx / a.K;
-        const int j = idx - tt * a.K;
-        const int k = a.lo + j;
-        float2 u, v;
-        if (pass == 0) {
-          u = st.frame(s, 0, fb + tt)[j];
-          v = st.frame(s, 1, fb + tt)[j];
-        } else {
-          u = st.frame(s, 2, fb + 2 * tt)[j];
-          v = 2 * tt + 1 < nf ? st.frame(s, 2, fb + 2 * tt + 1)[j] : make_float2(0.f, 0.f);
-        }
-        put_pair(buf + (tt << a.logB), k, fft_pos(k, a.logB), fft_pos((B - k) & (B - 1), a.logB), u, v, B);
+  const int teams = blockDim.x / G::T;
+  const int round = max(1, 2 * teams / 3);
+  const long long lo_p = max(p0, st.lowest(s));
+  for (int fb = f_begin; fb < f_end; fb += round) {
+    const int nf = min(round, f_end - fb), nt = nf + (nf + 1) / 2;
+    for (int t0 = 0; t0 < nt; t0 += teams) {  // one pass, or two with one team
+      const int t = t0 + (int)threadIdx.x / G::T;
+      if (t < nt) {  // a team with no transform waits at the block's barrier
+        const float2 *u, *v;
+        round_spectra(st, s, fb, nf, t, u, v);
+        inverse_transform<LOG2N>(u, v, a.lo, a.K, a.tw);
       }
       __syncthreads();
-      fft_inverse(buf, a.logB, nt, a.tw);
-      ola(pass == 0 ? 0 : 2, fb, nf);
+      // this pass's C + i Ls transforms, its Rs ones, at the positions in [lo_p, p1) the round reaches
+      ola_round<LOG2N>(sink.at(s, 0, 0), sink.row, max(lo_p, (long long)fb * a.H),
+                       min(p1, (long long)(fb + nf - 1) * a.H + G::N), buf, buf + (nf - t0) * G::PADDED, t0 == 0,
+                       t0 <= nf && nt <= t0 + teams, fb, nf, a.H, a.sw);
+      __syncthreads();
     }
   }
+}
+
+// Step 3: the whole frames of one bucket into out (inverse_frames).
+__global__ void __launch_bounds__(1024)
+spectral_inverse_kernel(SpectralState st, SpectralSink sink, BucketArgs a, int n_hops, int T, int v_hi) {
+#define REG_INVERSE(L) inverse_frames<L>(st, sink, a, n_hops, T, v_hi)
+  REG_CASES(REG_INVERSE)
+#undef REG_INVERSE
+}
+
+// A test of the core through the two kernels' own transforms: count
+// transforms of 2^log2n points a team each.  Forward: x [count, 2, N] the
+// real and imaginary planes of each input (frames of a history of width
+// N, windowed by aw, ones for a plain FFT); inverse: x [count, 2, N / 2 +
+// 1] float2 the half spectra U, V of two real signals, every bin kept, so
+// that the output is N (u + i v).  y [count, N] float2 in natural order.
+__global__ void __launch_bounds__(1024)
+spectral_reg_fft_kernel(const float* __restrict__ x, float2* __restrict__ y, const float* __restrict__ aw,
+                        const float2* __restrict__ tw, int count, int inverse, BucketArgs a) {
+#define REG_TEST(L)                                                                                    \
+  do {                                                                                                 \
+    using G = RegGeo<L>;                                                                               \
+    extern __shared__ float4 smem[];                                                                   \
+    const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;                                       \
+    const long long t = (long long)blockIdx.x * (blockDim.x / G::T) + team;                            \
+    if (t >= count) return;                                                                            \
+    if (inverse) {                                                                                     \
+      const float2* u = reinterpret_cast<const float2*>(x) + t * 2 * (G::N / 2 + 1);                   \
+      inverse_transform<L>(u, u + G::N / 2 + 1, 0, G::N / 2 + 1, tw);                                  \
+    } else {                                                                                           \
+      forward_transform<L>(x + t * 2 * G::N, G::N, aw, tw);                                            \
+    }                                                                                                  \
+    reg_sync<G::T>(team);                                                                              \
+    const float2* z = reinterpret_cast<const float2*>(smem) + team * G::PADDED;                        \
+    for (int n = j; n < G::N; n += G::T) y[t * G::N + n] = z[n];                                      \
+  } while (0)
+  REG_CASES(REG_TEST)
+#undef REG_TEST
 }
 
 // ---------------------------------------------------------------------------
@@ -630,20 +828,50 @@ SpectralState spectral_state(const float* carry, const float* spec, const int* t
 extern "C" {
 
 // carry, carry_out: [S, 3, Kr - 1, K, 2]; spec: [S, 3, F, K, 2] with F =
-// hops * hw / H; hist: [S, 2, width]; t: [S] int32; G frames a block.
+// hops * hw / H; hist: [S, 2, width]; t: [S] int32; tw: the register
+// core's twiddles (ops/fftplan.py::reg_twiddles(B)), B <= FFT_MAX.
 int pool_spectral_forward(const float* hist, const int* t, const float* carry, float* spec, float* carry_out,
                           const float* aw, const float* gains, const float* tw, int S, int B, int H, int K, int lo,
-                          int nb, int hw, int hops, int warmup, int G, long long width, void* stream) {
+                          int nb, int hw, int hops, int warmup, long long width, void* stream) {
   const int F = hops * (hw / H);
   const SpectralState st = spectral_state(carry, spec, t, F, K, B, H, hw, hops, warmup);
   const BucketArgs a = bucket_args(aw, nullptr, gains, tw, B, H, K, lo, nb);
-  const size_t smem = sizeof(float2) * (size_t)G * B;
+  if (a.logB > REG_MAX_LOG2 || (1 << a.logB) != B) return (int)cudaErrorInvalidValue;
+  const int threads = reg_block(a.logB, REG_FORWARD_THREADS), team = max(1, B / REG_R);
+  const size_t smem = sizeof(float2) * (size_t)(threads / team) * (B + B / 16);
   const cudaError_t err =
       cudaFuncSetAttribute(spectral_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((F + G - 1) / G, S, 1);
-  spectral_forward_kernel<<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      hist, width, st, reinterpret_cast<float2*>(spec), reinterpret_cast<float2*>(carry_out), a, G);
+  const long long pairs = (long long)S * F, per = threads / team;
+  const dim3 grid((unsigned)((pairs + per - 1) / per), 1, 1);
+  spectral_forward_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      hist, width, st, reinterpret_cast<float2*>(spec), reinterpret_cast<float2*>(carry_out), a, S);
+  return (int)cudaGetLastError();
+}
+
+// The register core's butterfly twiddles w_16^0..3 (the head of
+// ops/fftplan.py::reg_twiddles, float32 [4, 2] in host memory) into the
+// current device's constant memory: once a device, before the two FFT
+// kernels' first launch there.
+int pool_spectral_roots(const float* w16) {
+  return (int)cudaMemcpyToSymbol(reg_w16, w16, sizeof(float2) * 4);
+}
+
+// The register core through the kernels' transforms (a test): count
+// transforms of B <= FFT_MAX points, x and y as spectral_reg_fft_kernel
+// takes them; aw: [B] the forward's window.
+int pool_spectral_reg_fft(const float* x, float* y, const float* aw, const float* tw, int B, int count, int inverse,
+                          void* stream) {
+  const BucketArgs a = bucket_args(nullptr, nullptr, nullptr, tw, B, 1, 0, 0, 0);
+  if (a.logB > REG_MAX_LOG2 || (1 << a.logB) != B || count < 1) return (int)cudaErrorInvalidValue;
+  const int threads = reg_block(a.logB, REG_FORWARD_THREADS), team = max(1, B / REG_R);
+  const size_t smem = sizeof(float2) * (size_t)(threads / team) * (B + B / 16);
+  const cudaError_t err =
+      cudaFuncSetAttribute(spectral_reg_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int per = threads / team;
+  spectral_reg_fft_kernel<<<(count + per - 1) / per, threads, smem, (cudaStream_t)stream>>>(
+      x, reinterpret_cast<float2*>(y), aw, reinterpret_cast<const float2*>(tw), count, inverse, a);
   return (int)cudaGetLastError();
 }
 
@@ -705,20 +933,23 @@ int pool_spectral_edge(const void* const* w, void* const* abuf, const float* con
 }
 
 // out: [S, 3, hops * hw], written (accumulate = 0) or added into by the
-// frames [v_lo, v_hi); one block per stream.
+// frames [v_lo, v_hi); one block per stream; tw: reg_twiddles(B), B <=
+// FFT_MAX.
 int pool_spectral_inverse(const float* carry, const float* spec, const int* t, float* out, const float* sw,
-                          const float* tw, int S, int B, int H, int K, int lo, int hw, int hops, int warmup, int G,
+                          const float* tw, int S, int B, int H, int K, int lo, int hw, int hops, int warmup,
                           int v_lo, int v_hi, int accumulate, void* stream) {
   const int F = hops * (hw / H);
   const SpectralState st = spectral_state(carry, spec, t, F, K, B, H, hw, hops, warmup);
   const SpectralSink sink{out, st, (long long)hops * hw, accumulate, v_lo};
   const BucketArgs a = bucket_args(nullptr, sw, nullptr, tw, B, H, K, lo, 0);
-  const size_t smem = sizeof(float2) * (size_t)G * B;
+  if (a.logB > REG_MAX_LOG2 || (1 << a.logB) != B) return (int)cudaErrorInvalidValue;
+  const int threads = reg_block(a.logB, REG_INVERSE_THREADS), team = max(1, B / REG_R);
+  const size_t smem = sizeof(float2) * (size_t)(threads / team) * (B + B / 16);
   const cudaError_t err =
       cudaFuncSetAttribute(spectral_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(1, S, 1);
-  spectral_inverse_kernel<<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(st, sink, a, F, F, G, v_hi);
+  spectral_inverse_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(st, sink, a, F, F, v_hi);
   return (int)cudaGetLastError();
 }
 

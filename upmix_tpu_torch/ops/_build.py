@@ -152,11 +152,13 @@ def load() -> ctypes.CDLL:
     lib.pool_bucket.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ll, i, p]
     lib.pool_wide_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ll, p]
     lib.pool_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
-    lib.pool_spectral_forward.argtypes = [p] * 8 + [i] * 10 + [ll, p]
+    lib.pool_spectral_forward.argtypes = [p] * 8 + [i] * 9 + [ll, p]
+    lib.pool_spectral_reg_fft.argtypes = [p, p, p, p, i, i, i, p]
+    lib.pool_spectral_roots.argtypes = [p]
     lib.pool_spectral_mask.argtypes = [p] * 6 + [i] * 10 + [p]
     lib.pool_spectral_edge_gather.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
     lib.pool_spectral_edge.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-    lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 12 + [p]
+    lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.pool_spectral_wide_inverse.argtypes = [p] * 11 + [i] * 15 + [p]
     lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
     lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, i, p]
@@ -167,7 +169,7 @@ def load() -> ctypes.CDLL:
     for fn in (lib.omni_bucket, lib.omni_wide_forward, lib.omni_wide_inverse, lib.pool_bucket,
                lib.pool_wide_forward, lib.pool_wide_inverse, lib.pool_spectral_forward, lib.pool_spectral_mask,
                lib.pool_spectral_edge_gather, lib.pool_spectral_edge, lib.pool_spectral_inverse,
-               lib.pool_spectral_wide_inverse, lib.pool_floor,
+               lib.pool_spectral_wide_inverse, lib.pool_spectral_reg_fft, lib.pool_spectral_roots, lib.pool_floor,
                lib.dot_chain, lib.dot_chain_clusters, lib.dot_chain_resident, lib.overhead_probe, lib.empty_launch):
         fn.restype = ctypes.c_int
     _lib = lib

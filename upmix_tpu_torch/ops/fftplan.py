@@ -21,6 +21,13 @@ N1 c, a direct sum over the columns with the combined twiddle
 w_B^(k b); the inverse computes stage-2 rows only where a bin lands
 (`rows`, `row_ptr`, `entries`), WIDE_KT kept bins at a time (`tile_ptr`),
 and runs N1-point inverse FFTs over the columns.
+
+The pool's spectral OLA (csrc/pool_spectral.cu's forward and inverse FFT
+kernels) runs another core, csrc/fft_reg.cuh, for blocks up to FFT_MAX
+points: each transform held in registers by a team of n / REG_RADIX
+threads, REG_RADIX values a thread, through the Stockham stages of
+`reg_radices`, bins and samples in natural order both ways, with its own
+twiddle table (`reg_twiddles`).
 """
 
 from __future__ import annotations
@@ -76,6 +83,49 @@ def pass_twiddles(n: int) -> np.ndarray:
         parts += [k * u / L for k in (1, 2, 3)]
         L //= 4
     ang = 2.0 * np.pi * np.concatenate(parts) if parts else np.zeros(0)
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+REG_RADIX = 16  # values a thread of csrc/fft_reg.cuh holds: the radix of every stage but the last
+REG_FORWARD_THREADS = 256  # least threads a block of spectral_forward_kernel (a team of n / 16 when more)
+REG_INVERSE_THREADS = 512  # least threads a block of spectral_inverse_kernel, one block a stream
+
+
+def reg_radices(n: int) -> list:
+    """The stages of csrc/fft_reg.cuh's n-point transform, in order:
+    radix 16 for every four bits of log2 n, then the 2, 4 or 8 points
+    left; one stage of n points below 16, none for one point."""
+    log2n = int(n).bit_length() - 1
+    if n < REG_RADIX:
+        return [n] if n > 1 else []
+    return [REG_RADIX] * (log2n // 4) + ([1 << (log2n % 4)] if log2n % 4 else [])
+
+
+def reg_threads(n: int) -> int:
+    """Threads of one n-point transform of csrc/fft_reg.cuh (a team)."""
+    return max(1, n // REG_RADIX)
+
+
+def reg_round(n: int) -> int:
+    """Frames spectral_inverse_kernel's block inverts at a time: nf with
+    nf + ceil(nf / 2) transforms (C + i Ls of each, the Rs of each pair)
+    for its teams, or one (its C + i Ls, then its Rs) with one team."""
+    teams = max(REG_INVERSE_THREADS, reg_threads(n)) // reg_threads(n)
+    return max(1, 2 * teams // 3)
+
+
+def reg_twiddles(n: int) -> np.ndarray:
+    """[T, 2] float32, csrc/fft_reg.cuh's twiddles of an n-point transform
+    from float64: w_16^k = exp(-2 pi i k / 16) for k < 4 (its
+    butterflies'), then for each stage after the first, of radix P after
+    NS points of the earlier stages, exp(-2 pi i m r / (NS P)) at [(r - 1)
+    NS + m], r = 1 .. P - 1, m < NS."""
+    parts, ns = [np.arange(4) / 16], 1
+    for i, p in enumerate(reg_radices(n)):
+        if i:
+            parts += [r * np.arange(ns) / (ns * p) for r in range(1, p)]
+        ns *= p
+    ang = 2.0 * np.pi * np.concatenate(parts)
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
 
 

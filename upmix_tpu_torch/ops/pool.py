@@ -43,7 +43,9 @@ hardware block of 8192 samples at the streaming configs' 4 x hw cap;
 
   1. `spectral_forward`: per bucket the new frames' forward FFTs and
      mask into [S, 3, F, K] spectra and the new carry (the split's
-     forward and a mask pass for a bucket over FFT_MAX points);
+     forward and a mask pass for a bucket over FFT_MAX points).  Up to
+     FFT_MAX points the FFTs of steps 1 and 3 run `csrc/fft_reg.cuh`'s
+     core, each frame held in registers (its twiddles `reg_twiddles`);
   2. `spectral_edge`: the frames whose span [vH, vH + B) the call's
      output [0, hops * hw) cuts ("edge frames", `PoolBucket.
      spectral_frames`) reach only a sliver of it, so they go through a
@@ -93,11 +95,10 @@ import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.ops.dftmm import make_direct_plan
-from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, reg_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
 from upmix_tpu_torch.ops.omnibus import (
-    FRAME_TILE,
     WideTables,
     check_kernel_tables,
     launch_geometry,
@@ -129,11 +130,11 @@ EDGE_DEPTH = 32
 # lines, PERF.md).
 EDGE_RATE_RATIO = 44
 
-
-def spectral_pass(block: int) -> int:
-    """Frames one thread block of the spectral kernels transforms at a
-    time (FRAME_TILE complex values, at least one frame)."""
-    return max(1, FRAME_TILE // block)
+# The register core's butterfly twiddles w_16^0..3 (the head of every
+# `reg_twiddles` table), copied into each device's constant memory once
+# per kernel library (`load_reg_roots`).
+_REG_ROOTS = np.ascontiguousarray(reg_twiddles(1)[:4])
+_roots_loaded = set()  # (library path, CUDA device index)
 
 
 def edge_frames(block: int, hop: int, frames: int) -> tuple:
@@ -205,7 +206,11 @@ class PoolBucket:
     and the FFT kernels' tables.  A plan built for the CPU's plain
     version leaves out the tables of a block over FFT_MAX (`twiddles` and
     `wide` None), as `omnibus.make_bucket` does: the plain version runs
-    any block.  A spectral plan's bucket whose edge frames the product
+    any block.  `twiddles` are those of the FFT core that runs the
+    bucket: `fftplan.pass_twiddles` (fft.cuh's, K3's and the two-stage
+    split's), or `fftplan.reg_twiddles` for a spectral plan's bucket up to
+    FFT_MAX points (fft_reg.cuh's, K3s's forward and inverse kernels).  A
+    spectral plan's bucket whose edge frames the product
     takes (`edge_product`) carries the product's weight on a CUDA device
     (`edge_weight`, `make_edge_weight`); the plain versions need none."""
 
@@ -216,7 +221,7 @@ class PoolBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    twiddles: torch.Tensor | None  # fftplan.pass_twiddles of the kernel's FFT (B, or N1 when split)
+    twiddles: torch.Tensor | None  # the kernel's FFT's: pass_twiddles (B, or N1 when split) or reg_twiddles (B)
     wide: WideTables | None  # the two-stage split, for B > FFT_MAX
     edge_product: bool = False  # spectral: the edge frames go to the product, else every frame to the FFTs
     edge_weight: torch.Tensor | None = None  # [2, B, Kp] split (split_edge_weight), a CUDA plan's
@@ -268,7 +273,10 @@ class SpectralRoutes:
     groups, the kernel launches of a call, and why the product cannot run
     where a bucket it takes has no split weight on a CUDA device; for the
     steps' spans, the buckets the product takes, their edge frames in a
-    stream's call, and the buckets with whole frames."""
+    stream's call, the buckets with whole frames, and the FFT frames of a
+    stream's call in the forward and inverse steps with those the
+    register core takes (every bucket up to FFT_MAX points; the split
+    takes the rest)."""
 
     frames: tuple
     groups: tuple  # _EdgeGroup
@@ -277,6 +285,10 @@ class SpectralRoutes:
     edge_buckets: int
     edge_frames: int
     whole_buckets: int
+    forward_frames: int
+    forward_reg: int
+    inverse_frames: int
+    inverse_reg: int
 
 
 @dataclass(frozen=True, eq=False)
@@ -327,8 +339,12 @@ def _spectral_routes(plan: PoolPlan, hops: int) -> SpectralRoutes:
         groups.append(_EdgeGroup(idx, n_edge, depth, weights, geo, None if error else bs[0].edge_weight.device))
     whole = sum(1 for _, w in frames if w)
     launches = sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * len(groups) + whole
+    reg = [b.block <= FFT_MAX for b in plan.buckets]
+    fwd = [hops * b.passes for b in plan.buckets]
+    inv = [len(w) for _, w in frames]
     return SpectralRoutes(frames, tuple(groups), launches, error, len(takes), sum(len(frames[i][0]) for i in takes),
-                          whole)
+                          whole, sum(fwd), sum(n for n, r in zip(fwd, reg) if r), sum(inv),
+                          sum(n for n, r in zip(inv, reg) if r))
 
 
 def check_ola(ola: str) -> None:
@@ -368,6 +384,7 @@ def _plan_on(records, hw: int, warmup: int, n_streams: int, device: torch.device
                                                         p.synthesis_window)).to(device)
         wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device) if device.type == "cuda" else None
         n_fft = p.block_size if p.block_size <= FFT_MAX else (wide.n1 if wide is not None else 0)
+        tw = reg_twiddles if ola == "spectral" and p.block_size <= FFT_MAX else pass_twiddles
         buckets.append(
             PoolBucket(
                 block=p.block_size,
@@ -377,7 +394,7 @@ def _plan_on(records, hw: int, warmup: int, n_streams: int, device: torch.device
                 analysis_window=dev(p.analysis_window),
                 synthesis_window=dev(p.synthesis_window),
                 gains=dev(p.gains[:, lo : hi + 1]),
-                twiddles=dev(pass_twiddles(n_fft)) if n_fft else None,
+                twiddles=dev(tw(n_fft)) if n_fft else None,
                 wide=wide,
                 edge_product=edge,
                 edge_weight=weight,
@@ -553,6 +570,19 @@ def pool_step_lcr_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: Pool
     return out, tuple(new)
 
 
+def load_reg_roots(lib, device) -> None:
+    """Copy the register core's butterfly twiddles into `device`'s constant
+    memory (csrc/pool_spectral.cu::pool_spectral_roots), once for each
+    library and device; call with `device` current (`_build.on_device`)."""
+    dev = torch.device(device)
+    key = (lib._name, torch.cuda.current_device() if dev.index is None else dev.index)
+    if key not in _roots_loaded:
+        rc = lib.pool_spectral_roots(_REG_ROOTS.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"pool_spectral_roots failed: cudaError {rc}")
+        _roots_loaded.add(key)
+
+
 def spectral_launches(plan: PoolPlan, hops: int) -> int:
     """Kernel launches of one spectral call (K3s): per bucket its forward
     (two over FFT_MAX points: the split's forward and a mask pass), the
@@ -564,19 +594,23 @@ def spectral_launches(plan: PoolPlan, hops: int) -> int:
 def _spectral_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     """K3s's three steps, each in a span of its card with the buckets it
     takes: `pool.forward`, `pool.edge` (where the product takes a bucket;
-    `frames`, the edge frames of a stream's call) and `pool.inverse`."""
+    `frames`, the edge frames of a stream's call) and `pool.inverse`;
+    the forward's and the inverse's with `fft_frames`, the FFT frames of
+    a stream's call, and `reg_frames`, those the register core takes."""
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     t32 = t.to(device=hist.device, dtype=torch.int32).contiguous()
     routes = plan.spectral_routes(hops)
     card = hist.device
-    with span("pool.forward", card=card, buckets=len(plan.buckets)):
+    with span("pool.forward", card=card, buckets=len(plan.buckets), fft_frames=routes.forward_frames,
+              reg_frames=routes.forward_reg):
         specs, new = _forward_cuda(hist, t32, carries, plan, hops)
     out = None
     if routes.groups:
         with span("pool.edge", card=card, buckets=routes.edge_buckets, frames=routes.edge_frames):
             out = _edge_cuda(carries, specs, t32, plan, hops, routes)
-    with span("pool.inverse", card=card, buckets=routes.whole_buckets):
+    with span("pool.inverse", card=card, buckets=routes.whole_buckets, fft_frames=routes.inverse_frames,
+              reg_frames=routes.inverse_reg):
         out = _whole_cuda(carries, specs, t32, plan, hops, routes, out)
     return out, new
 
@@ -633,6 +667,7 @@ def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
     dev, hw, nq = hist.device, plan.hw, plan.warmup
     with _build.on_device(dev):
         lib = _build.load()
+        load_reg_roots(lib, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         specs, new = [], []
         for b, carry in zip(plan.buckets, carries):
@@ -645,7 +680,7 @@ def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
                 _launched_spectral(
                     lib.pool_spectral_forward(
                         hist.data_ptr(), t.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
-                        b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, spectral_pass(B), width, stream,
+                        b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, width, stream,
                     ),
                     "pool_spectral_forward",
                 )
@@ -738,6 +773,7 @@ def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRo
     S, hw, nq = t.shape[0], plan.hw, plan.warmup
     with _build.on_device(t.device):
         lib = _build.load()
+        load_reg_roots(lib, t.device)
         accumulate = out is not None
         if out is None:
             # The first launch writes every position; with no launch (every
@@ -755,7 +791,7 @@ def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRo
                 _launched_spectral(
                     lib.pool_spectral_inverse(
                         *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq,
-                        spectral_pass(B), *span, int(accumulate), stream,
+                        *span, int(accumulate), stream,
                     ),
                     "pool_spectral_inverse",
                 )
