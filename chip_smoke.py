@@ -270,6 +270,8 @@ import time
 import numpy as np
 import torch
 
+from upmix_tpu_torch.utils import tracing
+
 SR = 44100.0
 BAND_EDGES = [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0]
 MAX_BLOCK = 65536
@@ -487,7 +489,7 @@ def main():
         build_offline_fn,
         plans_from_numpy,
     )
-    from upmix_tpu_torch.ops import _build, omnibus
+    from upmix_tpu_torch.ops import _build
     from upmix_tpu_torch.ops.omnibus import (
         launches_per_bucket,
         make_omnibus_plan,
@@ -563,9 +565,9 @@ def main():
     R = audio.standard_normal(N_SAMPLES).astype(np.float32)
     up = Upmixer(cfg, device="cuda")
     want = sum(launches_per_bucket(b.block) for b in plan.buckets)
-    omnibus.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     outs = up.process_np(L, R)
-    launches = omnibus.LAUNCHES
+    launches = tracing.launches("K1")
     print(f"e2e: Upmixer.process_np on {N_SAMPLES} samples, kernel launches {launches} (want {want})", flush=True)
     if launches != want:
         fail(f"the main path launched the omnibus kernels {launches} times, not {want}")
@@ -700,7 +702,6 @@ def sharded_phases(smi: str, dev) -> dict:
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models import BatchUpmixer, Upmixer
     from upmix_tpu_torch.models.offline import build_offline_fn, plans_from_numpy
-    from upmix_tpu_torch.ops import fused, omnibus, pool, pool_floor
     from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain
     from upmix_tpu_torch.ops.omnibus import (
         launch_geometry,
@@ -761,10 +762,10 @@ def sharded_phases(smi: str, dev) -> dict:
                             dtype=torch.float32, device=dev)
     su.process_batch(audio)  # device plans built once, outside the count
     torch.cuda.synchronize()
-    omnibus.LAUNCHES = fused.LAUNCHES = pool.LAUNCHES = pool_floor.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     y = su.process_batch(audio)
     torch.cuda.synchronize()
-    k2_launches, k1_launches = fused.LAUNCHES, omnibus.LAUNCHES
+    k2_launches, k1_launches = tracing.launches("K2"), tracing.launches("K1")
     print(f"sharded e2e: ShardedUpmixer.process_batch on {SHARD_FILES} x {SHARD_SAMPLES} samples: "
           f"fused kernel launches {k2_launches}, omnibus launches {k1_launches}", flush=True)
     want_k1 = sum(launches_per_bucket(b.block) for b in omni_plan.buckets)
@@ -873,7 +874,6 @@ def geometry_phases(smi: str, dev, path_rtf: float, shard_rtf: float):
     from upmix_tpu_torch.models import Upmixer
     from upmix_tpu_torch.models.offline import build_offline_fn
     from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
-    from upmix_tpu_torch.ops import fused, omnibus, pool
     from upmix_tpu_torch.ops.pool import pool_step_lcr_plain
     from upmix_tpu_torch.ops.windows import register_window_vector
     from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh, sequence_plan
@@ -889,10 +889,10 @@ def geometry_phases(smi: str, dev, path_rtf: float, shard_rtf: float):
         >= 60 dB against the float64 whole-file path at bench.py's probe
         slices; its realtime factor."""
         up = Upmixer(cfg, device=dev)
-        omnibus.LAUNCHES = fused.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         outs = up.process(L, R)
         torch.cuda.synchronize()
-        k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+        k1, k2 = tracing.launches("K1"), tracing.launches("K2")
         if outs[0].shape != (N_SAMPLES,) or not all(bool(torch.isfinite(o).all()) for o in outs):
             fail(f"{label}: output shape {tuple(outs[0].shape)} or non-finite values")
         ref = build_offline_fn(cfg, N_SAMPLES, chunk=0, device=dev)(L.double(), R.double())
@@ -932,10 +932,10 @@ def geometry_phases(smi: str, dev, path_rtf: float, shard_rtf: float):
     chunk = sequence_plan(cfg, SHARD_SAMPLES, SHARD_MESH["seq"]).chunk
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((SHARD_FILES, 2, SHARD_SAMPLES)),
                         dtype=torch.float32, device=dev)
-    omnibus.LAUNCHES = fused.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     y = su.process_batch(x)
     torch.cuda.synchronize()
-    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    k1, k2 = tracing.launches("K1"), tracing.launches("K2")
     up = Upmixer(cfg, device=dev)
     e2e, edge_err = float("inf"), 0.0
     for i in range(SHARD_FILES):
@@ -967,10 +967,10 @@ def geometry_phases(smi: str, dev, path_rtf: float, shard_rtf: float):
         fail(f"make_stream_pool with a custom window gave {type(sp).__name__}, not CudaStreamPool")
     plan = sp.plan
     blocks = torch.randn((POOL_BLOCKS, 2, S, hw), device=dev, generator=torch.Generator(dev).manual_seed(3))
-    pool.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     outs = torch.stack([torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks])  # [T, 3, S, hw]
     torch.cuda.synchronize()
-    k3 = pool.LAUNCHES
+    k3 = tracing.launches("K3")
     got = outs.permute(2, 1, 0, 3).reshape(S, 3, -1)
     K, warm = plan.warmup, (plan.warmup - 1) * hw
     silent = not bool((got[..., :warm] != 0).any())
@@ -998,7 +998,7 @@ def pool_phases(smi: str, dev) -> list:
 
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
-    from upmix_tpu_torch.ops import omnibus, pool, pool_floor
+    from upmix_tpu_torch.ops import pool_floor
     from upmix_tpu_torch.ops.omnibus import launch_geometry
     from upmix_tpu_torch.ops.pool import launches_per_bucket, make_pool_plan, pool_step_lcr, pool_step_lcr_plain
     from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor_plain
@@ -1082,15 +1082,15 @@ def pool_phases(smi: str, dev) -> list:
     sp = make_stream_pool(cfg, hw, S)
     if type(sp) is not CudaStreamPool:
         fail(f"make_stream_pool gave {type(sp).__name__}, not CudaStreamPool")
-    omnibus.LAUNCHES = pool.LAUNCHES = pool_floor.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
     torch.cuda.synchronize()
-    k3_launches = pool.LAUNCHES
+    k3_launches = tracing.launches("K3")
     print(f"pool e2e: CudaStreamPool, {POOL_BLOCKS} blocks x {S} streams, pool kernel launches "
-          f"{k3_launches} (want {POOL_BLOCKS * per_block}), omnibus launches {omnibus.LAUNCHES}", flush=True)
-    if k3_launches != POOL_BLOCKS * per_block or omnibus.LAUNCHES:
+          f"{k3_launches} (want {POOL_BLOCKS * per_block}), omnibus launches {tracing.launches('K1')}", flush=True)
+    if k3_launches != POOL_BLOCKS * per_block or tracing.launches("K1"):
         fail(f"the serving pool launched K3 {k3_launches} times (want {POOL_BLOCKS * per_block}) "
-             f"and K1 {omnibus.LAUNCHES} times (want 0)")
+             f"and K1 {tracing.launches('K1')} times (want 0)")
     hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)
     carries64 = [torch.zeros((S, 3, b.block), dtype=torch.float64, device=dev) for b in plan.buckets]
     e2e = float("inf")
@@ -1138,23 +1138,23 @@ def pool_phases(smi: str, dev) -> list:
     # runs them: the probe scan, history shift then K6, over the same blocks.
     k6_launches = {}
     for mode in ("copy", "frame"):
-        pool_floor.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         h = torch.zeros((S, 2, (K - 1) * hw), device=dev)
         for blk in blocks:
             full = torch.cat([h, blk.transpose(0, 1)], dim=-1)
             pool_floor.pool_floor(full, hw, mode, plan)
             h = full[..., hw:]
         torch.cuda.synchronize()
-        k6_launches[mode] = pool_floor.LAUNCHES
+        k6_launches[mode] = tracing.launches("K6")
         print(f"floor probe run ({mode}): {POOL_BLOCKS} blocks, floor kernel launches {k6_launches[mode]}", flush=True)
         if k6_launches[mode] == 0:
             fail(f"the floor probe ({mode}) launched no floor kernel")
     # The single-stream engine on the card goes through the pool kernel too.
-    pool.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     sig = blocks[:, :, 0].permute(1, 0, 2).reshape(2, POOL_BLOCKS * hw)  # stream 0's blocks
     one = torch.stack(StreamingUpmixer(cfg, hw).process_signal(sig[0], sig[1]))
     torch.cuda.synchronize()
-    one_launches = pool.LAUNCHES
+    one_launches = tracing.launches("K3")
     h = torch.cat([sig.new_zeros((2, (K - 1) * hw)), sig], dim=-1)[None].double()
     ref, _ = pool_step_lcr_plain(h, torch.ones(1, dtype=torch.int32, device=dev),
                                  [h.new_zeros((1, 3, b.block)) for b in plan.buckets], plan, POOL_BLOCKS)
@@ -1372,7 +1372,6 @@ def spectral_phases(smi: str, dev) -> dict:
 
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import (
         make_pool_plan,
         pool_step_lcr,
@@ -1476,8 +1475,7 @@ def spectral_phases(smi: str, dev) -> dict:
     # config's 8192 and 4096 records alone, hops 1): spectral_whole
     # launches nothing, and its out=None result must be exact zeros, not
     # memory the caching allocator hands back unwritten (NaN-filled first).
-    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
-    from upmix_tpu_torch.ops.pool import plan_from_stream_buckets
+    from upmix_tpu_torch.ops.pool import _plan_stream_buckets, plan_from_stream_buckets
 
     cfg_p = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
     records = [r for r in _plan_stream_buckets(cfg_p, POOL_HW) if r.block_size in (8192, 4096)]
@@ -1488,10 +1486,10 @@ def spectral_phases(smi: str, dev) -> dict:
     specs = [torch.randn((POOL_STREAMS, 3, b.passes, b.kept, 2), device=dev, generator=gen) for b in edge_plan.buckets]
     t = torch.full((POOL_STREAMS,), 9, dtype=torch.int32, device=dev)
     torch.full((POOL_STREAMS, 3, POOL_HW), float("nan"), device=dev)  # freed at once, its block reused below
-    before = pool.SPECTRAL_LAUNCHES
+    before = tracing.launches("K3s")
     out = spectral_whole(carries, specs, t, edge_plan)
     torch.cuda.synchronize()
-    launched, nonzero = pool.SPECTRAL_LAUNCHES - before, int(torch.count_nonzero(out))
+    launched, nonzero = tracing.launches("K3s") - before, int(torch.count_nonzero(out))
     print(f"K3s spectral_whole(out=None) on an all-edge plan (buckets {[b.block for b in edge_plan.buckets]}, "
           f"S={POOL_STREAMS}, every frame on the edge product {all_edge}): {launched} launches, {nonzero} nonzero "
           "values (want exact zeros)", flush=True)
@@ -1512,16 +1510,16 @@ def spectral_phases(smi: str, dev) -> dict:
     routes = ", ".join(f"B={b.block}: {len(b.spectral_frames(1)[0])} edge frames on the product, "
                        f"{len(b.spectral_frames(1)[1])} whole on the FFTs" for b in plan.buckets)
     print(f"spectral pool plan (hops 1): {routes}; {per_block} launches a block", flush=True)
-    pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = pool.EDGE_LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
     torch.cuda.synchronize()
-    k3s_launches, edge_launches = pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
+    k3s_launches, edge_launches = tracing.launches("K3s"), tracing.launches("K3s.edge")
     print(f"spectral pool e2e: CudaStreamPool(ola='spectral'), {POOL_BLOCKS} blocks x {S} streams, K3s launches "
           f"{k3s_launches} (want {POOL_BLOCKS * per_block}), of them the edge product {edge_launches} (want "
-          f"{2 * POOL_BLOCKS}: its gather and product), K3 launches {pool.LAUNCHES} (want 0)", flush=True)
-    if k3s_launches != POOL_BLOCKS * per_block or edge_launches != 2 * POOL_BLOCKS or pool.LAUNCHES:
+          f"{2 * POOL_BLOCKS}: its gather and product), K3 launches {tracing.launches('K3')} (want 0)", flush=True)
+    if k3s_launches != POOL_BLOCKS * per_block or edge_launches != 2 * POOL_BLOCKS or tracing.launches("K3"):
         fail(f"the spectral pool launched K3s {k3s_launches} times (the edge product {edge_launches}) and K3 "
-             f"{pool.LAUNCHES} times")
+             f"{tracing.launches('K3')} times")
     hist64 = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=dev)
     carries64 = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=dev) for b in plan.buckets]
     e2e = float("inf")
@@ -1786,7 +1784,6 @@ def mesh_phases(smi: str, dev):
 
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.parallel import make_mesh
     from upmix_tpu_torch.serve_stream import StreamSession, run_stream_server
 
@@ -1799,9 +1796,9 @@ def mesh_phases(smi: str, dev):
         plain = CudaStreamPool(cfg, hw, S, device=dev, ola=ola)
         launches, same = 0, True
         for b in blocks:
-            before = pool.SPECTRAL_LAUNCHES if ola == "spectral" else pool.LAUNCHES
+            before = tracing.launches("K3s") if ola == "spectral" else tracing.launches("K3")
             got = torch.stack(shard.push_blocks(b[0], b[1]))
-            launches += (pool.SPECTRAL_LAUNCHES if ola == "spectral" else pool.LAUNCHES) - before
+            launches += (tracing.launches("K3s") if ola == "spectral" else tracing.launches("K3")) - before
             same &= bool(torch.equal(got, torch.stack(plain.push_blocks(b[0], b[1]))))
         snaps_same = all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in
                          zip(shard.snapshot()["histL"], plain.snapshot()["histL"]))
@@ -1823,7 +1820,7 @@ def mesh_phases(smi: str, dev):
     skip = (CudaStreamPool(cfg, hw, 1, device=dev).warmup_blocks - 1) * hw
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/sessions.npz"
-        pool.SPECTRAL_LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         srv = run_stream_server(0, mesh=mesh, **kw)
         try:
             if srv.pool.mesh is None or srv.pool.ola != "spectral":
@@ -1848,9 +1845,9 @@ def mesh_phases(smi: str, dev):
     same = bool(np.array_equal(got, ref))
     print(f"mesh server [{smi}]: {SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks on a data=2 mesh pool "
           f"(spectral), checkpointed at block {SERVER_CUT} ({saved} sessions) and resumed on an unsharded server "
-          f"({unsharded}); K3s launches {pool.SPECTRAL_LAUNCHES}; frames equal the pool fed directly bit for bit: "
+          f"({unsharded}); K3s launches {tracing.launches('K3s')}; frames equal the pool fed directly bit for bit: "
           f"{same} (max abs err {float(np.abs(got - ref).max()):.3g})", flush=True)
-    if saved != SERVER_CLIENTS or not unsharded or not same or pool.SPECTRAL_LAUNCHES == 0:
+    if saved != SERVER_CLIENTS or not unsharded or not same or tracing.launches("K3s") == 0:
         fail("the mesh pool's server session did not resume bit for bit on an unsharded server")
 
 
@@ -1874,9 +1871,9 @@ import torch
 import torch.distributed as dist
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import build_offline_fn
-from upmix_tpu_torch.ops import fused, omnibus
 from upmix_tpu_torch.parallel import Shard, build_sharded_offline_fn, init_distributed, make_mesh, run_pod_check
 from upmix_tpu_torch.parallel import sharded
+from upmix_tpu_torch.utils import tracing
 
 a = json.loads(sys.argv[1])
 dev = torch.device(a["device"])
@@ -1889,10 +1886,10 @@ fn, plan = build_sharded_offline_fn(cfg, n, make_mesh(a["mesh"]))
 assert plan.n_padded == n, plan
 fn(audio)  # the device plans are built on the first call
 sync()
-omnibus.LAUNCHES = fused.LAUNCHES = 0
+tracing.LAUNCHES.clear()
 out = fn(audio)
 sync()
-k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+k1, k2 = tracing.launches("K1"), tracing.launches("K2")
 if isinstance(out, torch.Tensor):  # this process holds every entry
     out = [Shard((slice(0, files), slice(None), slice(0, n)), out)]
 phase13 = np.load(a["ref"], mmap_mode="r")
@@ -2239,7 +2236,7 @@ def cards_child(smi: str, measured: dict):
     over up to four distinct cards."""
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.offline import Upmixer
-    from upmix_tpu_torch.ops import _build, omnibus
+    from upmix_tpu_torch.ops import _build
 
     MEASURED.update(measured)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2256,14 +2253,14 @@ def cards_child(smi: str, measured: dict):
     side = torch.cuda.Stream(device=zero)
     before = torch.cuda.current_device()
     with torch.cuda.stream(side):
-        omnibus.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         got = Upmixer(cfg, device=zero).process_np(L, R)
         kept = torch.cuda.current_device() == before and torch.cuda.current_stream(zero) == side
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
     print(f"cards [{smi}]: Upmixer(device=cuda:0) under a non-default current stream: K1 launches "
-          f"{omnibus.LAUNCHES}, bit for bit the default stream's {same}; current device and stream kept {kept}",
+          f"{tracing.launches('K1')}, bit for bit the default stream's {same}; current device and stream kept {kept}",
           flush=True)
-    if not same or not kept or omnibus.LAUNCHES == 0:
+    if not same or not kept or tracing.launches("K1") == 0:
         fail("phase 28: Upmixer under a non-default stream differs, or the guard changed the current device")
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
@@ -2505,7 +2502,6 @@ def cards_server(smi: str, cards):
     from upmix_tpu_torch.cli import build_mesh
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.serve_stream import StreamSession, run_stream_server
 
     cfg = UpmixConfig.streaming(POOL_EDGES, sr=POOL_SR, hw_block_size=POOL_HW)
@@ -2519,7 +2515,7 @@ def cards_server(smi: str, cards):
         on = [p.device for p in srv.pool._parts]
         sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(SERVER_CLIENTS)]
         got = {}
-        pool.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         counts, _, _ = rows_on(lambda: got.setdefault("frames", _serve_clients(
             sessions, x, 0, SERVER_BLOCKS, SERVER_BLOCKS * hw, True)), POOL_ROWS, warm=False)
         for s in sessions:
@@ -2661,13 +2657,12 @@ def probe_phases(smi: str, dev) -> list:
     # The probe's own run through its entry points: check (every variant's
     # SNR against float64 after 64 x 10 applies, the script's check line)
     # and bench (the script's interleaved min-of-visits at M = 512 and 4224).
-    int8_dot.LAUNCHES = 0
-    int8_dot.LAUNCHES_BY_VARIANT = {}
+    tracing.LAUNCHES.clear()
     snrs = int8_dot.check(VARIANTS, device=dev)
     int8_dot.bench(VARIANTS)
     torch.cuda.synchronize()
-    k4_launches = int8_dot.LAUNCHES
-    by_variant = dict(int8_dot.LAUNCHES_BY_VARIANT)
+    k4_launches = tracing.launches("K4")
+    by_variant = {v: tracing.launches(f"K4.{v}") for v in VARIANTS}
     print(f"K4 run: check + bench, dot-chain kernel launches {k4_launches} ({by_variant})", flush=True)
     if k4_launches == 0 or any(by_variant.get(v, 0) == 0 for v in VARIANTS):
         fail("the dot-chain probe's run launched no kernel for some variant")
@@ -2764,10 +2759,10 @@ def probe_phases(smi: str, dev) -> list:
         if not same:
             fail(f"overhead probe kernel differs from its plain version at {c}")
     del out, spill, ref_out, ref_spill
-    op.LAUNCHES = 0
+    tracing.LAUNCHES.clear()
     script_rows = op.run_configs()
     torch.cuda.synchronize()
-    k5_launches = op.LAUNCHES
+    k5_launches = tracing.launches("K5")
     print(f"K5 run: the probe's six configurations, kernel launches {k5_launches}", flush=True)
     if k5_launches == 0:
         fail("the overhead probe's run launched no kernel")
@@ -2866,7 +2861,7 @@ def app_phases(smi: str, dev, path_rtf: float):
     from upmix_tpu_torch.io import read_wav, write_wav
     from upmix_tpu_torch.models.offline import Upmixer
     from upmix_tpu_torch.models.offline import _plan_buckets, plans_from_numpy
-    from upmix_tpu_torch.ops import omnibus, pool
+    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.omnibus import launches_per_bucket
 
     cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
@@ -2886,12 +2881,12 @@ def app_phases(smi: str, dev, path_rtf: float):
         edges = ",".join(str(int(e)) for e in BAND_EDGES)
 
         # Offline: split stems, two files (the second runs on warm plans).
-        omnibus.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         stdout = io.StringIO()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main([str(work / "song.wav"), str(work / "again.wav"), "--out-dir", str(work / "out"),
                            "--export-mode", "split", "--band-edges", edges, "--meter"])
-        launches = omnibus.LAUNCHES
+        launches = tracing.launches("K1")
         lines = stdout.getvalue().splitlines()
         meters = [ln for ln in lines if "x realtime" in ln]
         print(f"app e2e: cli.main offline split on 2 x {N_SAMPLES} samples: rc {rc}, omnibus launches "
@@ -2909,7 +2904,7 @@ def app_phases(smi: str, dev, path_rtf: float):
         built_in = []
         real_nvcc = _build._nvcc
         _build._nvcc = lambda: built_in.append(_build.BUILD_DIR) or real_nvcc()
-        omnibus.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(io.StringIO()):
@@ -2921,10 +2916,10 @@ def app_phases(smi: str, dev, path_rtf: float):
         restored = _build.BUILD_DIR == cached_dir and _build._lib is cached_lib
         gone = bool(built_in) and not built_in[0].exists()
         print(f"app e2e: --no-compile-cache: rc {rc_fresh}, built into {built_in} (cached {cached_dir}), "
-              f"nvcc {_build.build_seconds:.2f} s, omnibus launches {omnibus.LAUNCHES} (want {per_file}), "
+              f"nvcc {_build.build_seconds:.2f} s, omnibus launches {tracing.launches('K1')} (want {per_file}), "
               f"{fresh_s:.2f} s for the run; after it the cached directory and library back: {restored}, "
               f"the temporary directory removed: {gone}", flush=True)
-        if (rc_fresh or omnibus.LAUNCHES != per_file or len(built_in) != 1 or built_in[0] == cached_dir
+        if (rc_fresh or tracing.launches("K1") != per_file or len(built_in) != 1 or built_in[0] == cached_dir
                 or not restored or not gone):
             fail("--no-compile-cache did not build afresh into a temporary directory for the call alone, "
                  "or did not launch K1")
@@ -2943,20 +2938,20 @@ def app_phases(smi: str, dev, path_rtf: float):
         # Streaming and pipe on a short WAV of the stream server's config.
         n = 16 * POOL_HW
         write_wav(work / "short.wav", np.stack([L[:n], R[:n]], 1), int(POOL_SR))
-        pool.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = cli.main([str(work / "short.wav"), "--streaming", "--out-dir", str(work / "stream")])
-        stream_launches = pool.LAUNCHES
+        stream_launches = tracing.launches("K3")
         raw = np.stack([L[:n], R[:n]], 1).astype("<f4").tobytes()
         src, dst = _Pipe(raw), _Pipe()
         saved = sys.stdin, sys.stdout
-        pool.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         try:
             sys.stdin, sys.stdout = src, dst
             rc_pipe = cli.main(["-", "--pipe", "--sr", str(int(POOL_SR))])
         finally:
             sys.stdin, sys.stdout = saved
-        pipe_launches = pool.LAUNCHES
+        pipe_launches = tracing.launches("K3")
         out = np.frombuffer(dst.buffer.getvalue(), dtype="<f4").reshape(-1, 2)
         print(f"app e2e: --streaming on {n} samples rc {rc}, pool kernel launches {stream_launches}; --pipe rc "
               f"{rc_pipe}, {out.shape[0]} frames out of {n} in, pool kernel launches {pipe_launches}, finite "
@@ -2973,7 +2968,7 @@ def app_phases(smi: str, dev, path_rtf: float):
                           json.dumps({"in": str(work / "song.wav"), "out_dir": str(work / "jobs")}),
                           json.dumps({"in": str(work / "short.wav"), "out_dir": str(work / "jobs")})]) + "\n"
         saved = sys.stdin
-        omnibus.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         stdout = io.StringIO()
         try:
             sys.stdin = io.StringIO(jobs)
@@ -2982,10 +2977,10 @@ def app_phases(smi: str, dev, path_rtf: float):
         finally:
             sys.stdin = saved
         resps = [json.loads(ln) for ln in stdout.getvalue().splitlines()]
-        print(f"app e2e: --serve rc {rc}, omnibus launches {omnibus.LAUNCHES}, responses "
+        print(f"app e2e: --serve rc {rc}, omnibus launches {tracing.launches('K1')}, responses "
               + json.dumps([{k: r[k] for k in r if k in ("ok", "pong", "audio_seconds", "wall_s")} for r in resps]),
               flush=True)
-        if rc or len(resps) != 3 or not all(r["ok"] for r in resps) or omnibus.LAUNCHES == 0:
+        if rc or len(resps) != 3 or not all(r["ok"] for r in resps) or tracing.launches("K1") == 0:
             fail("--serve did not answer the ping and both jobs")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3011,7 +3006,8 @@ import json, sys, time
 t0 = time.perf_counter()
 import torch
 from upmix_tpu_torch import aot
-from upmix_tpu_torch.ops import _build, omnibus
+from upmix_tpu_torch.ops import _build
+from upmix_tpu_torch.utils import tracing
 t1 = time.perf_counter()
 art = aot.load(sys.argv[1])
 torch.cuda.synchronize()
@@ -3025,7 +3021,7 @@ for _ in range(2):
     torch.cuda.synchronize()
     times.append(time.perf_counter() - t3)
 print(json.dumps({"import_s": t1 - t0, "load_s": t2 - t1, "nvcc_s": _build.build_seconds, "first_ms": times[0] * 1e3,
-                  "second_ms": times[1] * 1e3, "launches": omnibus.LAUNCHES}))
+                  "second_ms": times[1] * 1e3, "launches": tracing.launches("K1")}))
 """
 
 
@@ -3041,7 +3037,6 @@ def aot_phases(smi: str, dev):
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.offline import Upmixer, _plan_buckets, plans_from_numpy
     from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
-    from upmix_tpu_torch.ops import omnibus, pool
     from upmix_tpu_torch.ops.omnibus import launches_per_bucket
 
     work = Path(__file__).resolve().parent / "upmix_tpu_torch" / "_build" / "aot_smoke"
@@ -3065,9 +3060,9 @@ def aot_phases(smi: str, dev):
         rng = np.random.default_rng(26)
         Lt = torch.as_tensor(rng.standard_normal(N_SAMPLES), dtype=torch.float32, device=dev)
         Rt = torch.as_tensor(rng.standard_normal(N_SAMPLES), dtype=torch.float32, device=dev)
-        omnibus.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         got, first_s = timed(lambda: art.process(Lt, Rt))
-        launches = omnibus.LAUNCHES
+        launches = tracing.launches("K1")
         live, live_init_s = timed(lambda: Upmixer(cfg, device="cuda"))
         ref, live_first_s = timed(lambda: live.process(Lt, Rt))
         same = _equal(got, ref)
@@ -3124,17 +3119,15 @@ def aot_phases(smi: str, dev):
                 def push(p, blk):
                     return p.push_blocks_multi(blk[0], blk[1]) if hops > 1 else p.push_blocks(blk[0], blk[1])
 
-                counts = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES)
-                pool.LAUNCHES = pool.SPECTRAL_LAUNCHES = pool.EDGE_LAUNCHES = 0
+                counts = [tracing.launches(k) for k in ("K3", "K3s", "K3s.edge")]
                 first, first_s = timed(lambda: push(art, x[0]))
                 outs = [first] + [push(art, blk) for blk in x[1:]]
-                k3, k3s, edge = pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
+                k3, k3s, edge = (tracing.launches(k) - n for k, n in zip(("K3", "K3s", "K3s.edge"), counts))
                 same = all(_equal(o, push(live, blk)) for o, blk in zip(outs, x))
                 snap = art.snapshot()
                 fresh = aot.load(path)
                 fresh.restore(snap)
                 cont = _equal(push(fresh, x[0]), push(live, x[0]))
-                pool.LAUNCHES, pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES = counts
                 launched = (k3 > 0 and k3s == 0) if ola == "time" else (k3s > 0 and edge > 0 and k3 == 0)
                 print(f"aot [{smi}]: pool artifact ola={ola} hops={hops} S={POOL_STREAMS}: "
                       f"{Path(path).stat().st_size} bytes, save {save_s:.3f} s, load {load_s:.3f} s, first call "
@@ -3173,9 +3166,9 @@ def aot_phases(smi: str, dev):
         live, live_init_s = timed(lambda: StreamingUpmixer(pcfg, POOL_HW, device="cuda"))
         rng = np.random.default_rng(7)
         x = rng.standard_normal((POOL_BLOCKS, 2, POOL_HW)).astype(np.float32) * 0.3
-        pool.LAUNCHES = 0
+        tracing.LAUNCHES.clear()
         got = [art.push_block(b[0], b[1]) for b in x]
-        k3 = pool.LAUNCHES
+        k3 = tracing.launches("K3")
         same = all(_equal(g, live.push_block(b[0], b[1])) for g, b in zip(got, x))
         nonzero = bool(got[-1][0].abs().max() > 0)
         print(f"aot [{smi}]: stream-step artifact hw={POOL_HW}: {Path(path).stat().st_size} bytes, save {save_s:.3f} s, "
@@ -3286,7 +3279,6 @@ def server_phases(smi: str, dev):
 
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.serve_stream import StreamSession, fetch_metrics, run_stream_server
 
     kw = dict(sr=POOL_SR, hw_block_size=POOL_HW, band_edges=POOL_EDGES, verbose=False, device=dev)
@@ -3300,7 +3292,7 @@ def server_phases(smi: str, dev):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/sessions.npz"
         for hops, pipeline in ((1, 1), (4, 1), (1, 2)):
-            pool.LAUNCHES = 0
+            tracing.LAUNCHES.clear()
             srv = run_stream_server(0, n_streams=SERVER_SLOTS, lockstep=True, hops=hops, pipeline=pipeline, **kw)
             try:
                 if not isinstance(srv.pool, CudaStreamPool) or srv.pool.device != dev:
@@ -3331,7 +3323,7 @@ def server_phases(smi: str, dev):
                 text = fetch_metrics(*srv.address, fmt="prometheus")
             finally:
                 srv.close()
-            launches = pool.LAUNCHES
+            launches = tracing.launches("K3")
             same = bool(np.array_equal(got, refs[hops]))
             err = float(np.abs(got - refs[hops]).max())
             cut = f" (checkpoint and resume at block {SERVER_CUT})" if hops == 1 and pipeline == 1 else ""
@@ -3369,13 +3361,13 @@ def server_phases(smi: str, dev):
             windows = []
             for blocks in (4, LOAD_BLOCKS):
                 before = srv.metrics.snapshot()
-                pool.LAUNCHES = 0
+                tracing.LAUNCHES.clear()
                 t0 = time.perf_counter()
                 res = subprocess.run([sys.executable, "-c", LOAD_CLIENTS_CODE, *map(str, srv.address),
                                       str(LOAD_CLIENTS), str(blocks), str(POOL_HW), str(POOL_SR)],
                                      cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
                                      timeout=120)
-                windows.append((before, srv.metrics.snapshot(), time.perf_counter() - t0, pool.LAUNCHES))
+                windows.append((before, srv.metrics.snapshot(), time.perf_counter() - t0, tracing.launches("K3")))
                 if res.returncode != 0 or "clients ok" not in res.stdout:
                     fail(f"the 2048-slot server's clients failed: {res.stdout[-2000:]} {res.stderr[-2000:]}")
         finally:

@@ -27,13 +27,13 @@ import torch
 
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import Upmixer, _plan_buckets, build_offline_fn, plans_from_numpy
-from upmix_tpu_torch.ops import omnibus
 from upmix_tpu_torch.ops.omnibus import (
     launches_per_bucket,
     make_omnibus_plan,
     omnibus_lcr_batch,
     omnibus_lcr_batch_plain,
 )
+from upmix_tpu_torch.utils.tracing import launches
 
 pytestmark = pytest.mark.gpu
 
@@ -73,10 +73,10 @@ def test_kernel_matches_plain_float64(cuda, case):
     x = torch.as_tensor(
         rng.standard_normal((3, 2, chunk + plan.halo)), dtype=torch.float32, device=cuda
     )
-    before = omnibus.LAUNCHES
+    before = launches("K1")
     got = torch.cat(omnibus_lcr_batch(x, plan), dim=-1)
     torch.cuda.synchronize()
-    assert omnibus.LAUNCHES - before == sum(launches_per_bucket(b.block) for b in plan.buckets)
+    assert launches("K1") - before == sum(launches_per_bucket(b.block) for b in plan.buckets)
     ref = torch.cat(omnibus_lcr_batch_plain(x.double(), plan), dim=-1)
     for o in range(3):
         assert _snr(ref[:, o], got[:, o]) > 90.0
@@ -159,10 +159,10 @@ def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
     t[0] = 1
     carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block)), dtype=torch.float32, device=cuda)
                for b in plan.buckets]
-    before = pool.LAUNCHES
+    before = launches("K3")
     out, new = pool_step_lcr(hist, t, carries, plan, hops)
     torch.cuda.synchronize()
-    assert pool.LAUNCHES - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
+    assert launches("K3") - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     ref, ref_new = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
     assert torch.equal(out == 0, ref == 0)  # not-ready hops are exact zeros
     if bool((ref != 0).any()):  # else no stream was ready: all zeros, checked above
@@ -232,9 +232,9 @@ def test_pool_floor_at_the_pool_shapes(cuda, S, hw, mode):
     plan = make_pool_plan(cfg, hw, S, device=cuda)
     gen = torch.Generator(cuda).manual_seed(S * hw)
     hist = torch.randn((S, 2, plan.window), device=cuda, generator=gen)
-    before = pf.LAUNCHES
+    before = launches("K6")
     assert torch.equal(pf.pool_floor(hist, hw, mode, plan), pf.pool_floor_plain(hist, hw, mode, plan))
-    assert pf.LAUNCHES - before == 1
+    assert launches("K6") - before == 1
     off = torch.randn(S * 2 * plan.window + 1, device=cuda, generator=gen)[1:].view(S, 2, plan.window)
     assert torch.equal(pf.pool_floor(off, hw, mode, plan), pf.pool_floor_plain(off, hw, mode, plan))
     if mode == "copy":
@@ -255,10 +255,10 @@ def test_cuda_pool_matches_torch_engine(cuda):
     ref = BatchStreamingUpmixer(cfg, 256, S, device=cuda)
     blocks = torch.randn((10, S, 2, 256), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
     for t, b in enumerate(blocks):
-        before = pool.LAUNCHES
+        before = launches("K3")
         got = torch.stack(pool_.push_blocks(b[:, 0], b[:, 1]))
         want = torch.stack(ref.push_blocks(b[:, 0], b[:, 1]))
-        assert pool.LAUNCHES - before == 2 * sum(pool.launches_per_bucket(b.block) for b in pool_.plan.buckets)
+        assert launches("K3") - before == 2 * sum(pool.launches_per_bucket(b.block) for b in pool_.plan.buckets)
         if t < pool_.warmup_blocks - 1:
             assert torch.all(got == 0)
         assert torch.equal(got, want)
@@ -281,21 +281,21 @@ def test_engines_on_cuda_launch_the_pool_kernel(cuda):
     carries = [hist.new_zeros((S, 3, b.block)) for b in plan.buckets]
     ref, _ = pool_step_lcr_plain(hist, torch.ones(S, dtype=torch.int32, device=cuda), carries, plan, n)
 
-    before = pool.LAUNCHES
+    before = launches("K3")
     got = torch.stack(StreamingUpmixer(cfg, hw, device=cuda).process_signal(x[0, 0], x[0, 1]))
-    assert pool.LAUNCHES - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
+    assert launches("K3") - before == sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     assert torch.equal(got[:, : (K - 1) * hw] == 0, ref[0, :, : (K - 1) * hw] == 0)
     assert _snr(ref[0], got) > 90.0
 
     single = StreamingUpmixer(cfg, hw, device=cuda)
     batch = BatchStreamingUpmixer(cfg, hw, S, device=cuda)
-    before = pool.LAUNCHES
+    before = launches("K3")
     pushed, batched = [], []
     for i in range(n):
         blk = x[..., i * hw : (i + 1) * hw]
         pushed.append(torch.stack(single.push_block(blk[0, 0], blk[0, 1])))
         batched.append(torch.stack(batch.push_blocks(blk[:, 0], blk[:, 1])))
-    assert pool.LAUNCHES - before == 2 * n * sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
+    assert launches("K3") - before == 2 * n * sum(pool.launches_per_bucket(b.block) for b in plan.buckets)
     assert _snr(ref[0], torch.cat(pushed, dim=-1)) > 90.0
     assert _snr(ref.transpose(0, 1), torch.cat(batched, dim=-1)) > 90.0
 
@@ -324,12 +324,12 @@ def test_spectral_kernel_matches_plain_float64(cuda, case, S, hops):
     t[0] = 1
     carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(S)), dtype=torch.float32, device=cuda)
                for b in plan.buckets]
-    before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+    before = (launches("K3"), launches("K3s"))
     out, new = pool_step_lcr(hist, t, carries, plan, hops)
     again, _ = pool_step_lcr(hist, t, carries, plan, hops)
     torch.cuda.synchronize()
     per_call = pool.spectral_launches(plan, hops)
-    assert (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 2 * per_call)
+    assert (launches("K3"), launches("K3s")) == (before[0], before[1] + 2 * per_call)
     assert torch.equal(out, again)
     ref, ref_new = pool_step_spectral_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
     assert bool((out[ref == 0] == 0).all())  # not-ready hops are exact zeros
@@ -368,13 +368,13 @@ def test_spectral_pool_launches_k3s_and_isolates_nan(cuda):
     real = pool.pool_step_spectral_plain
     pool.pool_step_spectral_plain = lambda *a, **k: calls.append(1) or real(*a, **k)
     try:
-        before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+        before = (launches("K3"), launches("K3s"))
         outs = [torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks]
         torch.cuda.synchronize()
     finally:
         pool.pool_step_spectral_plain = real
     per_call = pool.spectral_launches(plan, 1)
-    assert not calls and (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0], before[1] + 8 * per_call)
+    assert not calls and (launches("K3"), launches("K3s")) == (before[0], before[1] + 8 * per_call)
     hist = torch.zeros((S, 2, (K - 1) * hw), dtype=torch.float64, device=cuda)
     carries = [torch.zeros(b.spectral_carry_shape(S), dtype=torch.float64, device=cuda) for b in plan.buckets]
     for i, (b, out) in enumerate(zip(blocks, outs)):
@@ -425,13 +425,11 @@ def test_register_fft_core_matches_torch_fft_float64(cuda, log2n, inverse):
     y = torch.full((count, n, 2), float("nan"), device=cuda)
     ones = torch.ones(n, device=cuda)
     tw = torch.as_tensor(reg_twiddles(n), device=cuda)
-    with _build.on_device(cuda):
-        lib = _build.load()
-        pool.load_reg_roots(lib, cuda)
-        rc = lib.pool_spectral_reg_fft(x.data_ptr(), y.data_ptr(), ones.data_ptr(), tw.data_ptr(), n, count, inverse,
-                                       torch.cuda.current_stream(cuda).cuda_stream)
+    with _build.kernels(cuda) as k:  # raises on a CUDA error
+        pool.load_reg_roots(k)
+        k.run("pool_spectral_reg_fft", x.data_ptr(), y.data_ptr(), ones.data_ptr(), tw.data_ptr(), n, count, inverse,
+              k.stream)
     torch.cuda.synchronize()
-    assert rc == 0
     assert _snr(torch.view_as_real(ref), y.double()) >= 120.0
 
 
@@ -503,7 +501,6 @@ def test_edge_product_matches_plain_float64(cuda, S, hops, hw):
     # counted.
     import dataclasses
 
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import make_pool_plan, spectral_edge, spectral_edge_plain, spectral_forward
 
     if hw > 2048 and S == 2048:
@@ -521,11 +518,11 @@ def test_edge_product_matches_plain_float64(cuda, S, hops, hw):
     specs, _ = spectral_forward(hist, t, carries, plan, hops)
     for i, b in enumerate(plan.buckets):
         sub = dataclasses.replace(plan, buckets=(b,))
-        before = (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES)
+        before = (launches("K3s.edge"), launches("K3s"))
         got = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
         again = spectral_edge([carries[i]], [specs[i]], t, sub, hops)
         torch.cuda.synchronize()
-        assert (pool.EDGE_LAUNCHES, pool.SPECTRAL_LAUNCHES) == (before[0] + 4, before[1] + 4)
+        assert (launches("K3s.edge"), launches("K3s")) == (before[0] + 4, before[1] + 4)
         assert torch.equal(got, again)
         ref = spectral_edge_plain([carries[i].double()], [specs[i].double()], t, sub, hops)
         assert bool((got[ref == 0] == 0).all())
@@ -565,20 +562,19 @@ def test_edge_product_never_hands_work_to_a_plain_version(cuda):
     for n in names:
         setattr(pool, n, lambda *a, _n=n, **k: calls.append(_n) or real[_n](*a, **k))
     try:
-        before = pool.EDGE_LAUNCHES
+        before = launches("K3s.edge")
         pool_step_lcr(hist, t, carries, plan, 1)
         torch.cuda.synchronize()
     finally:
         for n in names:
             setattr(pool, n, real[n])
-    assert not calls and pool.EDGE_LAUNCHES == before + 2
+    assert not calls and launches("K3s.edge") == before + 2
 
 
 def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
     # The edge and whole steps run where the spectra lie; t, a carry or out
     # on the host beside spectra on the card raise (no plain version runs
     # on the card's tensors, no kernel launches).
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import make_pool_plan, spectral_edge, spectral_forward, spectral_whole
 
     cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
@@ -590,7 +586,7 @@ def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
     specs, _ = spectral_forward(hist, t, carries, plan)
     out = spectral_edge(carries, specs, t, plan)
     torch.cuda.synchronize()
-    before = pool.SPECTRAL_LAUNCHES
+    before = launches("K3s")
     with pytest.raises(ValueError, match="one device"):
         spectral_edge(carries, specs, t.cpu(), plan)
     with pytest.raises(ValueError, match="one device"):
@@ -599,16 +595,14 @@ def test_spectral_steps_refuse_inputs_spread_over_devices(cuda):
         spectral_whole(carries, specs, t, plan, out=out.cpu())
     with pytest.raises(ValueError, match="one device"):
         spectral_edge([carries[0].cpu(), *carries[1:]], specs, t, plan)
-    assert pool.SPECTRAL_LAUNCHES == before
+    assert launches("K3s") == before
 
 
 def test_spectral_whole_of_an_all_edge_plan_is_zeros_on_the_card(cuda):
     # The Bela config's 8192 and 4096 records alone: at hops 1 every frame
     # goes to the edge product, so spectral_whole launches nothing and its
     # out=None result must be exact zeros, not unwritten memory.
-    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
-    from upmix_tpu_torch.ops import pool
-    from upmix_tpu_torch.ops.pool import plan_from_stream_buckets, spectral_whole
+    from upmix_tpu_torch.ops.pool import _plan_stream_buckets, plan_from_stream_buckets, spectral_whole
 
     cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
     records = [r for r in _plan_stream_buckets(cfg, 2048) if r.block_size in (8192, 4096)]
@@ -621,10 +615,10 @@ def test_spectral_whole_of_an_all_edge_plan_is_zeros_on_the_card(cuda):
     t = torch.full((S,), 9, dtype=torch.int32, device=cuda)
     for _ in range(3):  # reuse of freed blocks of the caching allocator
         torch.full((S, 3, 2048), float("nan"), device=cuda)
-        before = pool.SPECTRAL_LAUNCHES
+        before = launches("K3s")
         out = spectral_whole(carries, specs, t, plan)
         torch.cuda.synchronize()
-        assert pool.SPECTRAL_LAUNCHES == before and out.shape == (S, 3, 2048) and not out.any()
+        assert launches("K3s") == before and out.shape == (S, 3, 2048) and not out.any()
 
 
 @pytest.mark.parametrize("ola", ["time", "spectral"])
@@ -633,7 +627,6 @@ def test_aot_pool_artifact_on_the_card(cuda, ola, tmp_path):
     # pool kernels and equals the live pool bit for bit, at hops 1 and 4.
     from upmix_tpu_torch import aot
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool
 
     cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
     S = 8
@@ -643,13 +636,13 @@ def test_aot_pool_artifact_on_the_card(cuda, ola, tmp_path):
         aot.save_stream_pool(path, cfg, 2048, S, ola=ola, hops=hops)
         art = aot.load(path)
         live = CudaStreamPool(cfg, 2048, S, ola=ola)
-        before = pool.LAUNCHES + pool.SPECTRAL_LAUNCHES
+        before = launches("K3") + launches("K3s")
         for _ in range(3):
             x = rng.standard_normal((2, S, hops * 2048)).astype(np.float32)
             push = (lambda p: p.push_blocks_multi(x[0], x[1])) if hops > 1 else (lambda p: p.push_blocks(x[0], x[1]))
             for got, want in zip(push(art), push(live)):
                 assert torch.equal(got, want)
-        assert pool.LAUNCHES + pool.SPECTRAL_LAUNCHES > before
+        assert launches("K3") + launches("K3s") > before
 
 
 @pytest.mark.parametrize("ola", ["time", "spectral"])
@@ -667,7 +660,7 @@ def test_mesh_pool_on_the_card(cuda, ola):
     shard = CudaStreamPool(cfg, hw, S, device=cuda, mesh=mesh, ola=ola)
     plain = CudaStreamPool(cfg, hw, S, device=cuda, ola=ola)
     assert shard.plan.n_streams == S // 2
-    count = (lambda: pool.SPECTRAL_LAUNCHES) if ola == "spectral" else (lambda: pool.LAUNCHES)
+    count = (lambda: launches("K3s")) if ola == "spectral" else (lambda: launches("K3"))
     if ola == "spectral":
         per_call = pool.spectral_launches(shard.plan, 1)
     else:
@@ -696,7 +689,6 @@ FUSED_CASES = {
 @pytest.mark.parametrize("S", [1, 5])
 def test_fused_kernel_matches_plain_float64(cuda, case, S):
     # FP32 products against float64 FFTs: ~120 dB in practice; 90 dB bar.
-    from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain
     from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
 
@@ -707,10 +699,10 @@ def test_fused_kernel_matches_plain_float64(cuda, case, S):
     for b in buckets:
         x = torch.as_tensor(rng.standard_normal((S, 2, chunk + b.spill)), dtype=torch.float32, device=cuda)
         x[0, :, 100:300] = 0.0  # a silent stretch inside the first segment
-        before = fused.LAUNCHES
+        before = launches("K2")
         got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
         torch.cuda.synchronize()
-        assert fused.LAUNCHES - before == 1
+        assert launches("K2") - before == 1
         ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
         for o in range(3):
             assert _snr(ref[:, o], got[:, o]) > 90.0, (b.block, o)
@@ -746,21 +738,20 @@ def _bucket_plan(block, hop, lo, kept, seed):
 @pytest.mark.parametrize("S", [1, 5])
 def test_fused_kernel_every_frame_pass(cuda, case, S):
     # FP32 FFTs against float64 FFTs, >= 90 dB; two calls the same bits.
-    from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.ops.fused import fused_bucket_lcr_batch, fused_bucket_lcr_batch_plain, takes_fused
     from upmix_tpu_torch.ops.omnibus import frame_pass, make_bucket
 
-    block, hop, lo, kept, G, launches = FUSED_BUCKETS[case]
+    block, hop, lo, kept, G, want = FUSED_BUCKETS[case]
     b = make_bucket(_bucket_plan(block, hop, lo, kept, S), cuda)
     assert takes_fused(b) and b.kept == kept
     if b.wide is None:
         assert frame_pass(block, kept) == (G, G == 1)
     chunk = 4 * block
     x = torch.randn((S, 2, chunk + b.spill), device=cuda, generator=torch.Generator(cuda).manual_seed(S))
-    before = fused.LAUNCHES
+    before = launches("K2")
     got = torch.cat(fused_bucket_lcr_batch(x, b), dim=-1)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES - before == launches
+    assert launches("K2") - before == want
     assert torch.equal(got, torch.cat(fused_bucket_lcr_batch(x, b), dim=-1))
     ref = torch.cat(fused_bucket_lcr_batch_plain(x.double(), b), dim=-1)
     for o in range(3):
@@ -784,10 +775,10 @@ def test_block_of_2p21_through_the_split(cuda):
     cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0, max_block_size=2**21)
     L, R = x[0, 0, : 2**21], x[0, 1, : 2**21]
     up = Upmixer(cfg, device=cuda)
-    before = omnibus.LAUNCHES
+    before = launches("K1")
     out = up.process(L, R)
     want_launches = sum(launches_per_bucket(bb.block) for bb in plans_from_numpy(_plan_buckets(cfg, 1), "cpu"))
-    assert omnibus.LAUNCHES - before == want_launches == 8  # 2^21 and 65536 split, four buckets of one launch
+    assert launches("K1") - before == want_launches == 8  # 2^21 and 65536 split, four buckets of one launch
     want = build_offline_fn(cfg, 2**21, chunk=0, device=cuda)(L.double(), R.double())
     for r, g in zip(want, out):
         assert _snr(r, g) >= 60.0
@@ -797,7 +788,6 @@ def test_sharded_upmixer_launches_both_kernels(cuda):
     # A 2 x 4 mesh on one card: per call one K2 launch per narrow bucket
     # and K1's launches per wide bucket; matches the float64 whole-file
     # path and the unsharded Upmixer.
-    from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
     from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
 
@@ -805,11 +795,11 @@ def test_sharded_upmixer_launches_both_kernels(cuda):
     su = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 4}, devices=[cuda] * 8))
     x = torch.randn((2, 2, 2**18), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     omni, narrow = route_buckets(plans_from_numpy(_plan_seq_buckets(cfg), "cpu"), 2**16)
-    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    k1, k2 = launches("K1"), launches("K2")
     y = su.process_batch(x)
     torch.cuda.synchronize()
     want = (sum(launches_per_bucket(b.block) for b in omni.buckets), len(narrow))
-    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == want == (3, 3)
+    assert (launches("K1") - k1, launches("K2") - k2) == want == (3, 3)
     for i in range(2):
         ref = build_offline_fn(cfg, 2**18, chunk=0, device=cuda)(x[i, 0].double(), x[i, 1].double())
         for o in range(3):
@@ -826,26 +816,25 @@ def test_geometries_no_kernel_takes_run_on_torch_fft(cuda, kw):
     # K2/K1 (the 1024 bucket of max_block_size 3000 on K2) and runs the
     # rest inside each shard.  All match the float64 whole-file program.
     from upmix_tpu_torch.models import BatchUpmixer
-    from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
     from upmix_tpu_torch.parallel.sharded import route_buckets, split_plans
 
     cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, **{"max_block_size": 512, **kw})
     n = 3 * 2**15 + 11
     x = torch.randn((2, 2, n), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
-    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    k1, k2 = launches("K1"), launches("K2")
     up = Upmixer(cfg, device=cuda)
     got = torch.stack(up.process(x[0, 0], x[0, 1]))
     batch = BatchUpmixer(cfg, n, 2, device=cuda)
     rows = list(batch.process_files([a.cpu().numpy() for a in x]))
     torch.cuda.synchronize()
-    assert (omnibus.LAUNCHES, fused.LAUNCHES) == (k1, k2) and not up.kernel_path
+    assert (launches("K1"), launches("K2")) == (k1, k2) and not up.kernel_path
     su = ShardedUpmixer(cfg, make_mesh({"data": 2, "seq": 2}, devices=[cuda] * 4))
     sharded = su.process_batch(x)
     torch.cuda.synchronize()
     omni, narrow = route_buckets(plans_from_numpy(split_plans(cfg)[0], "cpu"), su._compiled(n)[1].chunk)
     want = (sum(launches_per_bucket(b.block) for b in omni.buckets) if omni else 0, len(narrow))
-    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == want == ((0, 1) if "max_block_size" in kw else (0, 0))
+    assert (launches("K1") - k1, launches("K2") - k2) == want == ((0, 1) if "max_block_size" in kw else (0, 0))
     for i in range(2):
         ref = build_offline_fn(cfg, n, chunk=0, device=cuda)(x[i, 0].double(), x[i, 1].double())
         for o in range(3):
@@ -858,25 +847,24 @@ def test_geometries_no_kernel_takes_run_on_torch_fft(cuda, kw):
 def test_custom_window_launches_the_kernels(cuda):
     # A registered window reaches K1 and K3 as arrays of their plans.
     from upmix_tpu_torch.models.streaming import CudaStreamPool, make_stream_pool
-    from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import pool_step_lcr_plain
     from upmix_tpu_torch.ops.windows import register_window_vector
 
     name = register_window_vector("gpu_test_kaiser", np.kaiser(1000, 8.0), overwrite=True)
     cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512, window=name)
     x = torch.randn((2, 5000), device=cuda, generator=torch.Generator(cuda).manual_seed(6))
-    before = omnibus.LAUNCHES
+    before = launches("K1")
     got = Upmixer(cfg, device=cuda).process(x[0], x[1])
-    assert omnibus.LAUNCHES - before == 2  # buckets 512 and 256
+    assert launches("K1") - before == 2  # buckets 512 and 256
     for r, g in zip(build_offline_fn(cfg, 5000, chunk=0, device=cuda)(x[0].double(), x[1].double()), got):
         assert _snr(r, g) >= 60.0
     scfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=256, window=name)
     sp = make_stream_pool(scfg, 256, 4, device=cuda)
     assert type(sp) is CudaStreamPool
     blocks = torch.randn((8, 2, 4, 256), device=cuda, generator=torch.Generator(cuda).manual_seed(7))
-    before = pool.LAUNCHES
+    before = launches("K3")
     outs = torch.stack([torch.stack(sp.push_blocks(b[0], b[1])) for b in blocks])  # [T, 3, S, hw]
-    assert pool.LAUNCHES > before
+    assert launches("K3") > before
     K = sp.plan.warmup
     h = torch.cat([blocks.new_zeros((4, 2, (K - 1) * 256)), blocks.permute(2, 1, 0, 3).reshape(4, 2, -1)], -1)
     ref, _ = pool_step_lcr_plain(h.double(), torch.ones(4, dtype=torch.int32, device=cuda),
@@ -893,9 +881,9 @@ def test_batch_upmixer_pipelined_on_cuda(cuda):
     rng = np.random.default_rng(3)
     files = [rng.standard_normal((2, n)).astype(np.float32) for n in (4096, 3000, 4096)]
     bu = BatchUpmixer(cfg, 4096, 2, device=cuda)
-    before = omnibus.LAUNCHES
+    before = launches("K1")
     seq = list(bu.process_files(files))
-    assert omnibus.LAUNCHES - before == 2 * 2  # two batches, one launch per bucket (512 and 256)
+    assert launches("K1") - before == 2 * 2  # two batches, one launch per bucket (512 and 256)
     piped = list(bu.process_files(files, pipeline=True))
     for f, a, b in zip(files, seq, piped):
         np.testing.assert_array_equal(a, b)
@@ -913,10 +901,10 @@ def test_dot_chain_kernel_matches_plain(cuda, variant):
     consts = int8_dot.make_consts(variant, cuda)
     x = torch.from_numpy(int8_dot.start_x(64)).to(cuda)
     for chain in (1, 8):
-        before = int8_dot.LAUNCHES
+        before = launches("K4")
         got = int8_dot.int8_dot_chain(x, variant, chain, consts)
         torch.cuda.synchronize()
-        assert int8_dot.LAUNCHES - before == 1
+        assert launches("K4") - before == 1
         ref = int8_dot.int8_dot_chain_plain(x, variant, chain, consts)
         assert bool(torch.isfinite(got).all())
         if variant in int8_dot.EXACT:
@@ -980,10 +968,10 @@ def test_overhead_probe_bit_exact(cuda, config):
         x, rng = op.make_inputs(n, tile, cuda)
         weights = op.make_weights(n_weights, rng, cuda)
         seed = torch.tensor(0.125, device=cuda)
-        before = op.LAUNCHES
+        before = launches("K5")
         out, spill = op.overhead_probe(x, seed, weights, n_views, halo, tile)
         torch.cuda.synchronize()
-        assert op.LAUNCHES - before == 1
+        assert launches("K5") - before == 1
         ref, ref_spill = op.overhead_probe_plain(x, seed, weights, n_views, halo, tile)
         assert torch.equal(out, ref) and torch.equal(spill, ref_spill)
 
@@ -1057,7 +1045,6 @@ def test_stream_server_on_the_card_matches_the_pool_fed_directly(cuda, hops, pip
     # pool on the card fed the same blocks at the same slots (the same
     # kernels on the same inputs), warmup-aligned.
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool as pool_ops
     from upmix_tpu_torch.serve_stream import StreamServer, StreamSession
 
     hw, S, n_blocks = 256, 6, 10
@@ -1075,7 +1062,7 @@ def test_stream_server_on_the_card_matches_the_pool_fed_directly(cuda, hops, pip
     want = [np.stack([o.cpu().numpy()[:2] for o in push(xs[:, i : i + hops * hw, 0], xs[:, i : i + hops * hw, 1])],
                      -1) for i in range(0, total * hw, hops * hw)]  # [2, hops * hw, 3] each
     want = np.concatenate(want, axis=1)[:, skip : skip + n_blocks * hw]
-    before = pool_ops.LAUNCHES
+    before = launches("K3")
     with StreamServer(CudaStreamPool(cfg, hw, S, device=cuda), lockstep=True, hops=hops,
                       pipeline=pipeline) as srv:
         sessions = [StreamSession(*srv.address, mix="lcr") for _ in range(2)]
@@ -1088,7 +1075,7 @@ def test_stream_server_on_the_card_matches_the_pool_fed_directly(cuda, hops, pip
         got = np.stack([s.recv_frames(n_blocks * hw) for s in sessions])
         for s in sessions:
             s.close()
-    assert pool_ops.LAUNCHES > before
+    assert launches("K3") > before
     np.testing.assert_array_equal(got, want)
 
 
@@ -1149,7 +1136,6 @@ def test_devices_launch_under_another_current_device_and_stream(cards):
 
 
 def test_devices_sharded_over_distinct_cards(cards):
-    from upmix_tpu_torch.ops import fused
     from upmix_tpu_torch.parallel import ShardedUpmixer, make_mesh
 
     cfg = UpmixConfig.make(BENCH_EDGES, sr=44100.0)
@@ -1158,10 +1144,10 @@ def test_devices_sharded_over_distinct_cards(cards):
     x = torch.randn((2, 2, 2**19), device="cuda:0", generator=torch.Generator("cuda:0").manual_seed(3))
     want = ShardedUpmixer(cfg, make_mesh(axes, devices=[cards[0]] * n)).process_batch(x)
     su = ShardedUpmixer(cfg, make_mesh(axes))
-    k1, k2 = omnibus.LAUNCHES, fused.LAUNCHES
+    k1, k2 = launches("K1"), launches("K2")
     got = su.process_batch(x)
     assert torch.cuda.current_device() == 0 and got.device == torch.device("cuda", 0)
-    assert (omnibus.LAUNCHES - k1, fused.LAUNCHES - k2) == (3 * n, 3 * n)  # 3 and 3 on every card
+    assert (launches("K1") - k1, launches("K2") - k2) == (3 * n, 3 * n)  # 3 and 3 on every card
     # Row counts change K1/K2's OLA grouping: float32 rounding apart.
     assert float((got - want).abs().max()) < 1e-5
     assert _rows(lambda: su.process_batch(x), OMNI_ROWS) == {i: 6 for i in range(n)}
@@ -1316,7 +1302,6 @@ def _profiled_spans(fn):
 @pytest.mark.parametrize("ola", ["time", "spectral"])
 def test_spans_count_the_launches(cuda, ola):
     from upmix_tpu_torch.models.streaming import CudaStreamPool
-    from upmix_tpu_torch.ops import pool
 
     p = CudaStreamPool(UpmixConfig.streaming(POOL_EDGES, sr=48000.0, hw_block_size=2048), 2048, 16, device=cuda,
                        ola=ola)
@@ -1324,7 +1309,7 @@ def test_spans_count_the_launches(cuda, ola):
     rng = np.random.default_rng(8)
     b = rng.standard_normal((2, 16, 2048)).astype(np.float32)
     x = rng.standard_normal((2, 2**19)).astype(np.float32)
-    counters = (lambda: (omnibus.LAUNCHES, pool.LAUNCHES + pool.SPECTRAL_LAUNCHES))
+    counters = (lambda: (launches("K1"), launches("K3") + launches("K3s")))
 
     def calls():
         before = counters()

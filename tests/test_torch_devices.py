@@ -1,20 +1,23 @@
 """One process over several cards, without a card.
 
-Every call into the CUDA library runs under `ops/_build.py::on_device`
-on its tensors' card: PyTorch's default stream is the legacy stream of
-the *current* device, so an unguarded launch for tensors on cuda:1 runs
-on cuda:0 (and faults, or races the copies that fill its inputs).  An
-AST walk over `upmix_tpu_torch/ops/` holds every launch site to the
-guard.  Meshes, the pool's shards and the pod check's entries spread
-over distinct cards as the JAX package's spread over its devices: with
-`torch.cuda.device_count` patched to 4, no CUDA call is made.  The card
-itself is in tests/test_torch_cuda.py (`-k devices`, two or more cards).
+Every call into the CUDA library goes through `ops/_build.py::kernels`:
+it runs the block under `on_device` on its tensors' card, for PyTorch's
+default stream is the legacy stream of the *current* device, so an
+unguarded launch for tensors on cuda:1 runs on cuda:0 (and faults, or
+races the copies that fill its inputs).  An AST walk over
+`upmix_tpu_torch/ops/` holds every other module to that one path, and a
+fake library checks the path itself.  Meshes, the pool's shards and the
+pod check's entries spread over distinct cards as the JAX package's
+spread over its devices: with `torch.cuda.device_count` patched to 4,
+no CUDA call is made.  The card itself is in tests/test_torch_cuda.py
+(`-k devices`, two or more cards).
 """
 
 import ast
 import contextlib
 import dataclasses
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -30,6 +33,7 @@ from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.omnibus import check_kernel_tables
 from upmix_tpu_torch.parallel import make_mesh, pod_check
 from upmix_tpu_torch.parallel.sharded import _device_grid
+from upmix_tpu_torch.utils.tracing import launches
 
 OPS = Path(__file__).resolve().parent.parent / "upmix_tpu_torch" / "ops"
 # The ten launch sites: K1, K2, K3, K3s's three steps, K4, K5's two, K6.
@@ -37,122 +41,137 @@ LAUNCH_SITES = {
     "_omnibus_cuda", "_fused_cuda", "_pool_cuda", "_forward_cuda", "_edge_cuda", "_whole_cuda", "dot_cuda",
     "_probe_cuda", "empty_launch", "_floor_cuda",
 }
+# What an ops module may take of `_build`: the launch path, another build
+# of the library for it, and the bare guard (plans built on a card).
+PATH = {"kernels", "library", "on_device"}
 
 
-def _is_load(node) -> bool:
-    """`_build.load()` or `load()`."""
-    return (isinstance(node, ast.Call) and not node.args
-            and ((isinstance(node.func, ast.Attribute) and node.func.attr == "load"
-                  and isinstance(node.func.value, ast.Name) and node.func.value.id == "_build")
-                 or (isinstance(node.func, ast.Name) and node.func.id == "load")))
+def _is_kernels(node) -> bool:
+    """`_build.kernels(...)`."""
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr == "kernels"
+            and isinstance(node.func.value, ast.Name) and node.func.value.id == "_build")
 
 
-def _is_library(node) -> bool:
-    """An expression that is the library: `lib`, `_build.load()`, `lib or _build.load()`."""
-    if isinstance(node, ast.Name):
-        return node.id == "lib"
-    if isinstance(node, ast.BoolOp):
-        return any(_is_library(v) for v in node.values)
-    return _is_load(node)
-
-
-def _library_call(node) -> bool:
-    """A call into the library: `lib.fn(...)`, `_build.load().fn(...)`,
-    `getattr(lib, name)(...)`, or the load itself."""
-    if not isinstance(node, ast.Call):
-        return False
-    if _is_load(node):
-        return True
-    f = node.func
-    if isinstance(f, ast.Attribute):
-        return _is_library(f.value)
-    return (isinstance(f, ast.Call) and isinstance(f.func, ast.Name) and f.func.id == "getattr"
-            and bool(f.args) and _is_library(f.args[0]))
-
-
-def _guard(node) -> bool:
-    return isinstance(node, ast.With) and any(
-        isinstance(item.context_expr, ast.Call)
-        and getattr(item.context_expr.func, "attr", getattr(item.context_expr.func, "id", None)) == "on_device"
-        for item in node.items
-    )
-
-
-def library_calls(source: str):
-    """[(function, call name, guarded, function takes `lib`)] of every
-    library call in `source`, and [(callee, guarded)] of every call by
-    plain name, for the functions that take the library as an argument."""
-    tree = ast.parse(source)
-    found, calls = [], []
-
-    def walk(node, fn, takes_lib, guarded):
-        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            names = [a.arg for a in node.args.args + node.args.kwonlyargs]
-            fn, takes_lib, guarded = node.name, "lib" in names, False
-        if _guard(node):
-            guarded = True
-        if _library_call(node):
-            f = node.func
-            name = "load" if _is_load(node) else getattr(f, "attr", "getattr")
-            found.append((fn, name, guarded, takes_lib))
-        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
-            calls.append((node.func.id, guarded))
-        for child in ast.iter_child_nodes(node):
-            walk(child, fn, takes_lib, guarded)
-
-    walk(tree, None, False, False)
-    return found, calls
-
-
-def unguarded(sources: dict) -> tuple:
-    """(faults, functions that reach the library) over {module: source}:
-    a library call outside `on_device`, unless its function takes the
-    library as an argument and every call of that function is guarded."""
-    found, calls = [], []
-    for mod, src in sources.items():
-        f, c = library_calls(src)
-        found += [(mod, *x) for x in f]
-        calls += c
+def bypasses(sources: dict) -> tuple:
+    """(faults, functions that reach the launch path) over {module:
+    source}: any use of `_build` but PATH, a library opened by ctypes,
+    and any use of a `with _build.kernels(...) as k` block's `k` after
+    the block (a launch, or a helper handed it, off the guard).  A
+    function reaches the path by using `k` inside its block or by being
+    handed it there."""
     faults, reach = [], set()
-    for mod, fn, name, guarded, takes_lib in found:
-        reach.add(fn)
-        if guarded:
-            continue
-        callers = [g for callee, g in calls if callee == fn]
-        if not (takes_lib and callers and all(callers)):
-            faults.append(f"{mod}::{fn} calls {name} outside on_device")
+    for mod, src in sources.items():
+        tree = ast.parse(src)
+        for node in ast.walk(tree):
+            where = f"{mod}:{getattr(node, 'lineno', '?')}"
+            if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id == "_build"
+                    and node.attr not in PATH):
+                faults.append(f"{where} uses _build.{node.attr}")
+            if isinstance(node, ast.ImportFrom) and (node.module or "").endswith("_build"):
+                faults += [f"{where} imports {a.name} from _build" for a in node.names if a.name not in PATH]
+            if isinstance(node, (ast.Attribute, ast.Name)) and getattr(node, "attr", getattr(node, "id", None)) in (
+                    "CDLL", "cdll", "LoadLibrary"):
+                faults.append(f"{where} opens a library outside _build")
+        for fn in [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]:
+            for block in [n for n in ast.walk(fn) if isinstance(n, ast.With)]:
+                for item in block.items:
+                    if not (_is_kernels(item.context_expr) and isinstance(item.optional_vars, ast.Name)):
+                        continue
+                    k = item.optional_vars.id
+                    inside = {id(n) for stmt in block.body for n in ast.walk(stmt)}
+                    for use in [n for n in ast.walk(fn) if isinstance(n, ast.Name) and n.id == k
+                                and isinstance(n.ctx, ast.Load)]:
+                        if id(use) not in inside:
+                            faults.append(f"{mod}::{fn.name} uses {k} after its kernels block")
+                            continue
+                        reach.add(fn.name)
+                    for call in [n for stmt in block.body for n in ast.walk(stmt) if isinstance(n, ast.Call)]:
+                        if isinstance(call.func, ast.Name) and any(isinstance(a, ast.Name) and a.id == k
+                                                                   for a in call.args):
+                            reach.add(call.func.id)
     return faults, reach
 
 
 def test_every_launch_in_ops_runs_under_the_device_guard():
     sources = {p.name: p.read_text() for p in sorted(OPS.glob("*.py")) if p.name != "_build.py"}
-    faults, reach = unguarded(sources)
+    faults, reach = bypasses(sources)
     assert not faults, faults
     assert LAUNCH_SITES <= reach, sorted(LAUNCH_SITES - reach)
 
 
 @pytest.mark.parametrize("source", [
     "def f(x):\n    lib = _build.load()\n    lib.omni_bucket(1)\n",
-    "def f(x):\n    with _build.on_device(x.device):\n        lib = _build.load()\n    lib.omni_bucket(1)\n",
+    "def f(x):\n    with _build.kernels(x.device) as k:\n        pass\n    k.launch('K1', 'omni_bucket', 1)\n",
     "def f(x):\n    _build.load().dot_chain(1)\n",
-    "def f(x, lib=None):\n    (lib or _build.load()).pool_floor(1)\n",
-    "def helper(lib):\n    lib.omni_bucket(1)\n\ndef f(x):\n    with _build.on_device(x.device):\n"
-    "        helper(_build.load())\n    helper(_build.load())\n",
-    "def f(fn):\n    lib = _build.load()\n    n = getattr(lib, fn)(1)\n",
+    "def f(x, path):\n    ctypes.CDLL(path).pool_floor(1)\n",
+    "def helper(k):\n    k.launch('K1', 'omni_bucket', 1)\n\ndef f(x):\n    with _build.kernels(x.device) as k:\n"
+    "        helper(k)\n    helper(k)\n",
+    "def f(fn):\n    n = getattr(_build._lib, fn)(1)\n",
 ])
 def test_the_guard_check_sees_a_launch_outside_the_guard(source):
-    faults, _ = unguarded({"m.py": source})
+    faults, _ = bypasses({"m.py": source})
     assert faults
 
 
 def test_the_guard_check_passes_guarded_launches():
     source = (
-        "def helper(lib):\n    lib.omni_bucket(1)\n\n"
-        "def f(x, lib=None):\n    with _build.on_device(x.device):\n        helper(_build.load())\n"
-        "        (lib or _build.load()).pool_floor(1)\n"
+        "def helper(k):\n    k.launch('K1', 'omni_bucket', 1)\n\n"
+        "def f(x, path=None):\n    lib = _build.library(path, 'pool_floor') if path else None\n"
+        "    with _build.kernels(x.device, lib) as k:\n        helper(k)\n"
+        "        k.launch('K6', 'pool_floor', 1)\n"
     )
-    faults, reach = unguarded({"m.py": source})
+    faults, reach = bypasses({"m.py": source})
     assert not faults and reach == {"f", "helper"}
+
+
+class _FakeLibrary:
+    """Entries that record their arguments and return the rc set for them."""
+
+    _name = "fake.so"
+
+    def __init__(self, **rc):
+        self.calls, self._rc = [], rc
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            return self._rc.get(entry, 0)
+
+        return call
+
+
+def test_the_launch_path_guards_once_appends_the_stream_counts_and_raises(monkeypatch):
+    entered = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        entered.append(("in", torch.device(dev)))
+        yield
+        entered.append(("out", torch.device(dev)))
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(_build, "_once", set())
+    lib = _FakeLibrary(pool_bucket=700, empty_launch=2)
+    before = launches("K1"), launches("K3s"), launches("K3s.edge"), launches(*("K1", "K2", "K3", "K3s"))
+    with _build.kernels("cuda:1", lib) as k:
+        assert entered == [("in", torch.device("cuda", 1))]
+        k.launch("K1", "omni_bucket", 1, 2)
+        k.launch("K3s.edge", "pool_spectral_edge", 3)
+        k.once("pool_spectral_roots", 4)
+        k.once("pool_spectral_roots", 4)  # once for each library and card
+        assert k.query("dot_chain_clusters", 32, 2, 8) == 0
+        with pytest.raises(RuntimeError, match="pool_bucket launch failed: cudaError 700"):
+            k.launch("K3", "pool_bucket", 5)
+        with pytest.raises(RuntimeError, match="empty_launch failed: cudaError 2"):
+            k.run("empty_launch", 6, 1, k.stream)
+    assert entered == [("in", torch.device("cuda", 1)), ("out", torch.device("cuda", 1))]  # one guard a block
+    assert lib.calls == [("omni_bucket", (1, 2, 77)), ("pool_spectral_edge", (3, 77)),
+                         ("pool_spectral_roots", (4,)), ("dot_chain_clusters", (32, 2, 8)),
+                         ("pool_bucket", (5, 77)), ("empty_launch", (6, 1, 77))]
+    # one launch under its kernel each, the failed one too; the edge product's among K3s's; no query or run counted
+    assert (launches("K1"), launches("K3s"), launches("K3s.edge"), launches("K1", "K2", "K3", "K3s")) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 3)
 
 
 def test_on_device_makes_the_card_current_and_restores_it(monkeypatch):

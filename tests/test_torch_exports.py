@@ -16,8 +16,12 @@ import upmix_tpu.ops
 import upmix_tpu_torch
 import upmix_tpu_torch.ops
 from upmix_tpu_torch.config import UpmixConfig
-from upmix_tpu_torch.models.streaming import _plan_stream_buckets
-from upmix_tpu_torch.ops.pool import plan_from_stream_buckets, spectral_whole, spectral_whole_plain
+from upmix_tpu_torch.ops.pool import (
+    _plan_stream_buckets,
+    plan_from_stream_buckets,
+    spectral_whole,
+    spectral_whole_plain,
+)
 
 # The JAX package's names that exist for its TPU only, with the port's
 # counterpart: the Pallas serving pool is CudaStreamPool here.

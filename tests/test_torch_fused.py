@@ -22,7 +22,6 @@ from upmix_tpu.ops.pallas_upmix import fused_bucket_lcr_batch as jax_fused_bucke
 from upmix_tpu.ops.pallas_upmix import make_fused_plan as jax_make_fused_plan
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.offline import _plan_buckets, plans_from_numpy
-from upmix_tpu_torch.ops import fused
 from upmix_tpu_torch.ops.fused import (
     FUSED_WEIGHT_BYTES,
     fused_bucket_lcr,
@@ -32,6 +31,7 @@ from upmix_tpu_torch.ops.fused import (
 )
 from upmix_tpu_torch.ops.omnibus import launch_geometry, make_bucket, make_omnibus_plan, omnibus_lcr_batch_plain
 from upmix_tpu_torch.parallel.sharded import _plan_seq_buckets, route_buckets
+from upmix_tpu_torch.utils.tracing import launches
 
 # tests/test_fftmm.py::test_pallas_fused_bucket_matches_fold: 8 kHz, max
 # block 512, chunk 2048, 512-sample tiles (so n_tiles > 1 and the JAX
@@ -91,10 +91,10 @@ def test_cpu_dispatch_is_the_plain_version_and_shapes_are_checked():
     cfg = UpmixConfig.make(SMALL[0], **SMALL[1])
     b = plans_from_numpy(_plan_seq_buckets(cfg), "cpu")[0]
     x = torch.randn((2, 2, CHUNK + b.spill), generator=torch.Generator().manual_seed(1))
-    before = fused.LAUNCHES
+    before = launches("K2")
     for a, r in zip(fused_bucket_lcr_batch(x, b), fused_bucket_lcr_batch_plain(x, b)):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
-    assert fused.LAUNCHES == before  # no kernel on the CPU
+    assert launches("K2") == before  # no kernel on the CPU
     with pytest.raises(ValueError):  # neither cpu nor cuda: refused
         fused_bucket_lcr_batch(x.to("meta"), b)
     for bad in (x[..., :-1], x[:, :1], x[0]):

@@ -21,7 +21,6 @@ from upmix_tpu.models.offline import _plan_buckets as jax_plan_buckets
 from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan as jax_make_omnibus_plan
 from upmix_tpu.ops.pallas_omnibus import omnibus_lcr as jax_omnibus_lcr
 from upmix_tpu_torch.models.offline import plans_from_numpy
-from upmix_tpu_torch.ops import omnibus
 from upmix_tpu_torch.ops.omnibus import (
     OmnibusBucket,
     check_geometry,
@@ -30,6 +29,7 @@ from upmix_tpu_torch.ops.omnibus import (
     omnibus_lcr_batch,
     omnibus_lcr_batch_plain,
 )
+from upmix_tpu_torch.utils.tracing import launches
 
 BENCH = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0, max_block_size=65536))
 SMALL = ([0.0, 400.0, 1600.0], dict(sr=8000.0, max_block_size=512))
@@ -84,10 +84,10 @@ def test_cpu_dispatch_is_the_plain_version():
     cfg = JaxUpmixConfig.make(*SMALL[:1], **SMALL[1])
     plan = make_omnibus_plan(plans_from_numpy(jax_plan_buckets(cfg, 1024), "cpu"), 1024)
     x = torch.randn((2, 2, 1024 + plan.halo), generator=torch.Generator().manual_seed(0))
-    before = omnibus.LAUNCHES
+    before = launches("K1")
     for a, b in zip(omnibus_lcr_batch(x, plan), omnibus_lcr_batch_plain(x, plan)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert omnibus.LAUNCHES == before  # no kernel on the CPU
+    assert launches("K1") == before  # no kernel on the CPU
     # Neither cpu nor cuda: refused, never run somewhere else.
     with pytest.raises(ValueError):
         omnibus_lcr_batch(x.to("meta"), plan)

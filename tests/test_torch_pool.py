@@ -25,6 +25,7 @@ from upmix_tpu_torch.ops.fftplan import pass_twiddles
 from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor, pool_floor_plain
 from upmix_tpu_torch.parallel import make_mesh
+from upmix_tpu_torch.utils.tracing import launches
 
 HW = 256
 EDGES = [0.0, 400.0, 1600.0]
@@ -334,10 +335,10 @@ def test_cpu_dispatch_is_the_plain_version_and_options_not_ported(tmp_path):
     hist = torch.as_tensor(rng.standard_normal((2, 2, 4 * HW)), dtype=torch.float32)
     t = torch.tensor([3, 9], dtype=torch.int32)
     carries = [torch.zeros((2, 3, b.block)) for b in plan.buckets]
-    before = pool.LAUNCHES
+    before = launches("K3")
     for a, b in zip(pool_step_lcr(hist, t, carries, plan), pool_step_lcr_plain(hist, t, carries, plan)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert pool.LAUNCHES == before
+    assert launches("K3") == before
     with pytest.raises(ValueError):
         pool_step_lcr(hist.to("meta"), t, carries, plan)
     with pytest.raises(ValueError):

@@ -20,9 +20,9 @@ from upmix_tpu.parallel import make_mesh as jax_make_mesh
 from upmix_tpu.parallel import sequence_plan as jax_sequence_plan
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models import Upmixer
-from upmix_tpu_torch.ops import fused, omnibus
 from upmix_tpu_torch.parallel import ShardedUpmixer, build_sharded_offline_fn, make_mesh, sequence_plan
 from upmix_tpu_torch.parallel import sharded
+from upmix_tpu_torch.utils.tracing import launches
 
 SMALL = ([0.0, 400.0, 1600.0], dict(sr=8000.0, max_block_size=512))
 PROD = ([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], dict(sr=44100.0))
@@ -170,11 +170,11 @@ def test_shards_on_one_device_run_as_rows_of_one_call(monkeypatch):
     monkeypatch.setattr(sharded, "omnibus_lcr_batch", spy(sharded.omnibus_lcr_batch, "K1"))
     cfg = _cfg(PROD)
     su = ShardedUpmixer(cfg, _mesh({"data": 2, "seq": 4}))
-    before = (fused.LAUNCHES, omnibus.LAUNCHES)
+    before = launches("K1", "K2")
     x = np.random.default_rng(5).standard_normal((2, 2, 2**17)).astype(np.float32)
     y = su.process_batch(x)
     assert sorted(calls) == [("K1", 8), ("K2", 8), ("K2", 8), ("K2", 8)]
-    assert (fused.LAUNCHES, omnibus.LAUNCHES) == before  # plain versions on the CPU
+    assert launches("K1", "K2") == before  # plain versions on the CPU
     for b in range(2):
         ref = oracle_multiband(x[b, 0], x[b, 1], _jcfg(PROD))
         for ch in range(3):

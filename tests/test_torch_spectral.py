@@ -41,6 +41,7 @@ from upmix_tpu_torch.ops.pool import (
     unpack_spectral_carry,
 )
 from upmix_tpu_torch.serve_stream import StreamServer, stream_client
+from upmix_tpu_torch.utils.tracing import launches
 
 HW = 256
 SR = 8000.0
@@ -360,10 +361,10 @@ def test_spectral_dispatch_on_the_cpu_is_the_plain_version():
     t = torch.tensor([3, 9], dtype=torch.int32)
     carries = [torch.as_tensor(rng.standard_normal(b.spectral_carry_shape(2)), dtype=torch.float32)
                for b in plan.buckets]
-    before = (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES)
+    before = launches("K3", "K3s")
     for a, b in zip(pool_step_lcr(hist, t, carries, plan), pool_step_spectral_plain(hist, t, carries, plan)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (pool.LAUNCHES, pool.SPECTRAL_LAUNCHES) == before
+    assert launches("K3", "K3s") == before
     time_carries = [torch.zeros((2, 3, b.block)) for b in plan.buckets]
     with pytest.raises(ValueError, match="spectral carry"):
         pool_step_lcr(hist, t, time_carries, plan)

@@ -128,13 +128,21 @@ def _plain_k3s(monkeypatch):
     """Route a CPU pool's spectral step through the card's three-step
     path (`ops/pool.py::_spectral_cuda`, its spans and its launch counts),
     each step's kernels replaced by its plain version; the edge step
-    counts a gather and a product for each launch group, as on the card."""
+    counts a gather and a product for each launch group through the
+    launch path, as on the card (a library whose every launch succeeds)."""
+    from upmix_tpu_torch.ops import _build
     from upmix_tpu_torch.ops import pool as ops
+
+    class Succeeds:
+        def __getattr__(self, entry):
+            return lambda *args: 0
+
+    k = _build.kernels("cpu", Succeeds())  # used unentered: its launches alone, on stream None
 
     def edge(carries, specs, t, plan, hops, routes):
         for _ in routes.groups:
-            ops._launched_edge(0, "pool_spectral_edge_gather")
-            ops._launched_edge(0, "pool_spectral_edge")
+            k.launch("K3s.edge", "pool_spectral_edge_gather")
+            k.launch("K3s.edge", "pool_spectral_edge")
         return ops.spectral_edge_plain(carries, specs, t, plan, hops)
 
     def whole(carries, specs, t, plan, hops, routes, out):

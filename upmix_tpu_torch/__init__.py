@@ -18,7 +18,8 @@ so each module's counterpart is easy to find:
   - ops.pool: the serving-pool step's wrapper, plain version and plan
   - ops.pool_floor: the pool's floor probe
   - ops.fused: the fused bucket kernel's wrapper, plain version and gate
-  - ops._build: nvcc build and ctypes binding of csrc/
+  - ops._build: nvcc build and ctypes binding of csrc/, and the one path
+    every kernel is launched through (kernels)
   - models.offline: Upmixer / upmix_offline
   - models.batch: BatchUpmixer (many files as rows of one call)
   - parallel.sharded: make_mesh, ShardedUpmixer (data and sequence

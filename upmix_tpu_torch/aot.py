@@ -144,7 +144,7 @@ def save_offline(path: str, config: UpmixConfig, n_samples: int, device="cuda", 
 def save_stream_step(path: str, config: UpmixConfig, hw_block_size: int, device="cuda",
                      platforms: Sequence[str] | None = None) -> dict:
     """Write a streaming-step artifact; returns its metadata."""
-    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
+    from upmix_tpu_torch.ops.pool import _plan_stream_buckets
 
     hw = int(hw_block_size)
     records = _plan_stream_buckets(config, hw)  # raises for a config that cannot stream at hw
@@ -159,8 +159,8 @@ def save_stream_pool(path: str, config: UpmixConfig, hw_block_size: int, n_strea
     freezes the step of T blocks a call: the loaded pool serves through
     push_blocks_multi only.  `group` and `layout` (the JAX pool's TPU
     grid step and state layout) are recorded and do nothing."""
-    from upmix_tpu_torch.models.streaming import NOT_ELIGIBLE, _plan_stream_buckets
-    from upmix_tpu_torch.ops.pool import check_ola, make_pool_plan
+    from upmix_tpu_torch.models.streaming import NOT_ELIGIBLE
+    from upmix_tpu_torch.ops.pool import _plan_stream_buckets, check_ola, make_pool_plan
 
     check_ola(ola)
     hw, S, hops = int(hw_block_size), int(n_streams), int(hops)
@@ -285,7 +285,7 @@ def _check_tables(path: str, meta: dict, config: UpmixConfig, payload: bytes) ->
 
         records = _plan_buckets(config, 1)
     else:
-        from upmix_tpu_torch.models.streaming import _plan_stream_buckets
+        from upmix_tpu_torch.ops.pool import _plan_stream_buckets
 
         records = _plan_stream_buckets(config, int(meta["hw_block_size"]))
     built = _tables(records)

@@ -10,6 +10,12 @@ before the first load; `fresh_build_dir` points it at a temporary
 directory for the length of a block (the CLI's --no-compile-cache).  Nothing here
 runs at import time: machines without a GPU or nvcc import the package
 and use the plain versions.
+
+Every call into the library goes through `with kernels(device) as k`:
+it makes the device current once for the block, and `k.launch` appends
+the device's current stream, checks the CUDA error and counts the
+launch under its kernel in `utils/tracing.py::LAUNCHES`.  No other
+module touches the library.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from upmix_tpu_torch.utils.tracing import LAUNCHES
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -34,7 +42,35 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The library's entries and their argument types, the type check at the
+# foreign boundary; every entry returns an int (a cudaError; the two
+# occupancy queries, their answer).  A launch entry takes its stream last.
+ENTRIES = {
+    "omni_bucket": [_p] * 6 + [_i] * 10 + [_ll, _i, _p],
+    "omni_wide_forward": [_p] * 5 + [_i] * 8 + [_ll, _p],
+    "omni_wide_inverse": [_p] * 10 + [_i] * 12 + [_ll, _i, _p],
+    "pool_bucket": [_p] * 9 + [_i] * 11 + [_ll, _i, _p],
+    "pool_wide_forward": [_p] * 6 + [_i] * 10 + [_ll, _p],
+    "pool_wide_inverse": [_p] * 13 + [_i] * 14 + [_p],
+    "pool_spectral_forward": [_p] * 8 + [_i] * 9 + [_ll, _p],
+    "pool_spectral_reg_fft": [_p] * 4 + [_i] * 3 + [_p],
+    "pool_spectral_roots": [_p],
+    "pool_spectral_mask": [_p] * 6 + [_i] * 10 + [_p],
+    "pool_spectral_edge_gather": [_p] * 5 + [_i, _p, _p] + [_i] * 5 + [_p],
+    "pool_spectral_edge": [_p] * 5 + [_i, _p, _p] + [_i] * 5 + [_p],
+    "pool_spectral_inverse": [_p] * 6 + [_i] * 11 + [_p],
+    "pool_spectral_wide_inverse": [_p] * 11 + [_i] * 15 + [_p],
+    "pool_floor": [_p, _p] + [_i] * 4 + [_p, _p],
+    "dot_chain": [_p] * 5 + [_i] * 4 + [_p],
+    "dot_chain_clusters": [_i] * 3,
+    "dot_chain_resident": [_i] * 2,
+    "overhead_probe": [_p, _ll, _p, _p] + [_i] * 4 + [_p, _p, _i, _p],
+    "empty_launch": [_i, _i, _p],
+}
+
 _lib = None
+_once = set()  # (library path, CUDA device index, entry) of `kernels.once`
 # Filled by load(): seconds the last build spent in nvcc (0.0 when the
 # library was already built) and the compiler's report (registers, spills
 # per kernel).
@@ -78,28 +114,111 @@ def fresh_build_dir():
         shutil.rmtree(fresh, ignore_errors=True)
 
 
-@contextlib.contextmanager
-def on_device(device):
+class on_device:
     """Make `device` (a torch.device or a name; a CUDA device) the current
-    device for the block, and the caller's current device again after it.
+    device for the block, and the caller's current device again after it;
+    `with on_device(device) as dev` gives the torch.device.
 
-    Every call into the library runs inside this guard on the device of
-    the tensors it is handed.  A launch goes to the stream handle of
-    `torch.cuda.current_stream(device)`; PyTorch's default stream is
-    handle 0, the legacy stream of whichever device is *current*, and
-    `cudaFuncSetAttribute` acts on the current device too, so without
-    the guard a launch for tensors on cuda:1 would run on cuda:0.  A CPU
-    device (a plan built for the plain versions) makes no change."""
-    import torch
+    Every call into the library runs inside this guard (`kernels`) on the
+    device of the tensors it is handed.  A launch goes to the stream
+    handle of `torch.cuda.current_stream(device)`; PyTorch's default
+    stream is handle 0, the legacy stream of whichever device is
+    *current*, and `cudaFuncSetAttribute` acts on the current device too,
+    so without the guard a launch for tensors on cuda:1 would run on
+    cuda:0.  A CPU device (a plan built for the plain versions) makes no
+    change."""
 
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        if dev.type != "cpu":
-            raise ValueError(f"the kernels run on cuda devices, not {dev}")
-        yield dev
-        return
-    with torch.cuda.device(dev):
-        yield dev
+    __slots__ = ("device", "_guard")
+
+    def __init__(self, device):
+        import torch
+
+        self.device = torch.device(device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"the kernels run on cuda devices, not {self.device}")
+        self._guard = torch.cuda.device(self.device) if self.device.type == "cuda" else None
+
+    def __enter__(self):
+        if self._guard is not None:
+            self._guard.__enter__()
+        return self.device
+
+    def __exit__(self, *exc):
+        if self._guard is not None:
+            self._guard.__exit__(*exc)
+        return False
+
+
+class kernels(on_device):
+    """The block's calls into the library on the CUDA `device`: under
+    `on_device` for the whole block, on the device's current stream.
+    `lib` is another build's (`library`), by default this tree's
+    (`load()`).  `with kernels(device) as k` gives the object whose
+    methods make the calls."""
+
+    __slots__ = ("lib", "stream")
+
+    def __init__(self, device, lib=None):
+        super().__init__(device)
+        self.lib, self.stream = lib, None
+
+    def __enter__(self):
+        import torch
+
+        # what can raise comes before the guard, which has no __exit__ then;
+        # the stream is the device's, whichever device is current
+        if self.lib is None:
+            self.lib = load()
+        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+        super().__enter__()
+        return self
+
+    def launch(self, kernel: str, entry: str, *args) -> None:
+        """Launch `entry` with `args` on the card's current stream and count
+        it under `kernel` ("K1" .. "K6"; a part of one as "K3s.edge");
+        raise on a CUDA error."""
+        rc = getattr(self.lib, entry)(*args, self.stream)
+        try:
+            LAUNCHES[kernel] += 1
+        except KeyError:  # the kernel's first launch in this process
+            LAUNCHES[kernel] = 1
+        if rc:
+            raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+
+    def run(self, entry: str, *args) -> None:
+        """Call `entry`, not a launch of a kernel (`args` as it takes them);
+        raise on a CUDA error."""
+        rc = getattr(self.lib, entry)(*args)
+        if rc:
+            raise RuntimeError(f"{entry} failed: cudaError {rc}")
+
+    def once(self, entry: str, *args) -> None:
+        """`run` once for each library and card: a copy into the card's
+        constant memory."""
+        import torch
+
+        key = (self.lib._name, torch.cuda.current_device() if self.device.index is None else self.device.index, entry)
+        if key not in _once:
+            self.run(entry, *args)
+            _once.add(key)
+
+    def query(self, entry: str, *args) -> int:
+        """The answer of an occupancy query."""
+        return getattr(self.lib, entry)(*args)
+
+
+def _bind(lib: ctypes.CDLL, entries) -> ctypes.CDLL:
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = ENTRIES[name], ctypes.c_int
+    return lib
+
+
+def library(path: str, *entries: str) -> ctypes.CDLL:
+    """Another build of the library (an earlier tree's
+    `upmix_tpu_torch/_build/kernels_*.so`), `entries` bound as `load`
+    binds them, for `kernels(device, lib)`."""
+    return _bind(ctypes.CDLL(path), entries)
 
 
 def load() -> ctypes.CDLL:
@@ -144,33 +263,5 @@ def load() -> ctypes.CDLL:
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.omni_bucket.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ll, i, p]
-    lib.omni_wide_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ll, p]
-    lib.omni_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, ll, i, p]
-    lib.pool_bucket.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ll, i, p]
-    lib.pool_wide_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ll, p]
-    lib.pool_wide_inverse.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
-    lib.pool_spectral_forward.argtypes = [p] * 8 + [i] * 9 + [ll, p]
-    lib.pool_spectral_reg_fft.argtypes = [p, p, p, p, i, i, i, p]
-    lib.pool_spectral_roots.argtypes = [p]
-    lib.pool_spectral_mask.argtypes = [p] * 6 + [i] * 10 + [p]
-    lib.pool_spectral_edge_gather.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-    lib.pool_spectral_edge.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-    lib.pool_spectral_inverse.argtypes = [p] * 6 + [i] * 11 + [p]
-    lib.pool_spectral_wide_inverse.argtypes = [p] * 11 + [i] * 15 + [p]
-    lib.pool_floor.argtypes = [p, p, i, i, i, i, p, p]
-    lib.dot_chain.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.dot_chain_clusters.argtypes = [i, i, i]
-    lib.dot_chain_resident.argtypes = [i, i]
-    lib.overhead_probe.argtypes = [p, ll, p, p, i, i, i, i, p, p, i, p]
-    lib.empty_launch.argtypes = [i, i, p]
-    for fn in (lib.omni_bucket, lib.omni_wide_forward, lib.omni_wide_inverse, lib.pool_bucket,
-               lib.pool_wide_forward, lib.pool_wide_inverse, lib.pool_spectral_forward, lib.pool_spectral_mask,
-               lib.pool_spectral_edge_gather, lib.pool_spectral_edge, lib.pool_spectral_inverse,
-               lib.pool_spectral_wide_inverse, lib.pool_spectral_reg_fft, lib.pool_spectral_roots, lib.pool_floor,
-               lib.dot_chain, lib.dot_chain_clusters, lib.dot_chain_resident, lib.overhead_probe, lib.empty_launch):
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _lib = _bind(ctypes.CDLL(str(so)), ENTRIES)
+    return _lib

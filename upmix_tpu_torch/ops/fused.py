@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.omnibus import (
     OmnibusBucket,
     check_kernel_tables,
@@ -41,9 +42,6 @@ from upmix_tpu_torch.ops.omnibus import (
     make_omnibus_plan,
     omnibus_lcr_batch_plain,
 )
-
-# CUDA kernel launches made by fused_bucket_lcr_batch (launches_per_bucket a call).
-LAUNCHES = 0
 
 # The JAX package's fused-plan gate: weight bytes per direction.
 FUSED_WEIGHT_BYTES = 7 << 20
@@ -91,26 +89,15 @@ def fused_bucket_lcr(x: torch.Tensor, bucket: FusedBucket):
     return main[0], spill[0]
 
 
-def _launched(rc: int, what: str) -> None:
-    global LAUNCHES
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
-
-
 def _fused_cuda(x: torch.Tensor, b: FusedBucket, chunk: int) -> torch.Tensor:
-    from upmix_tpu_torch.ops import _build
-
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the fused kernel takes a contiguous float32 tensor")
     check_kernel_tables(b, x.device)
     S, _, width = x.shape
-    with _build.on_device(x.device):
-        lib = _build.load()
+    with _build.kernels(x.device) as k:
         y = torch.empty((S, 3, width), dtype=torch.float32, device=x.device)
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        launch_bucket(lib, x, y, b, chunk // b.hop, False, n_sm, torch.cuda.current_stream(x.device).cuda_stream,
-                      _launched)
+        launch_bucket(k, "K2", x, y, b, chunk // b.hop, False, n_sm)
     return y
 
 

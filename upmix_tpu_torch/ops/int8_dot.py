@@ -52,9 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# CUDA kernel launches made by int8_dot_chain, in all and by variant.
-LAUNCHES = 0
-LAUNCHES_BY_VARIANT: dict = {}
+from upmix_tpu_torch.ops import _build
 
 K_KERNEL = 512  # csrc/int8_dot.cu: K
 ROWS = 32  # csrc/int8_dot.cu: R, rows per strip
@@ -67,6 +65,7 @@ CARD_VARIANTS = ("fp32", "tf32x3")
 VARIANTS = TPU_VARIANTS + CARD_VARIANTS
 # The kernel's variant codes (csrc/int8_dot.cu: enum Variant).
 _CODES = {"fp32": 0, "bf16x1": 1, "bf16x3": 2, "tf32x3": 3, "int8x1": 4, "int8x3": 5, "int8x3f": 6}
+_COUNTED = {v: f"K4.{v}" for v in _CODES}  # the launch counter's key of each variant (utils/tracing.py)
 PASSES = {"bf16x3": 3, "bf16x1": 1, "int8x3": 3, "int8x3f": 3, "int8x1": 1, "fp32": 1, "tf32x3": 3}
 UNIT = {"bf16x3": "bf16", "bf16x1": "bf16", "int8x3": "int8", "int8x3f": "int8", "int8x1": "int8",
         "fp32": "fp32", "tf32x3": "tf32"}
@@ -169,16 +168,14 @@ def card_clusters(variant: str, device="cuda"):
     `cluster_size`: whether a cluster size keeps W resident, and how many
     of its clusters the card runs at once (cudaOccupancyMaxActiveClusters);
     each asked once."""
-    from upmix_tpu_torch.ops import _build
-
     _check_variant(variant)
 
     def ask(fn, cs):
         key = (fn, variant, cs)
         if key not in _CARD:
             args = (_CODES[variant], cs) if fn == "dot_chain_resident" else (ROWS, _CODES[variant], cs)
-            with _build.on_device(device):
-                n = getattr(_build.load(), fn)(*args)
+            with _build.kernels(device) as k:
+                n = k.query(fn, *args)
             if n < 0:
                 raise RuntimeError(f"{fn} failed for {variant} at cluster size {cs}")
             _CARD[key] = n
@@ -250,10 +247,8 @@ def int8_dot_chain(x: torch.Tensor, variant: str, chain: int, consts: DotConsts)
 def dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts, cluster: int | None = None) -> torch.Tensor:
     """The kernel's launch: `cluster` CTAs per strip, one of CLUSTER_SIZES,
     by default `cluster_size` for M on this card (the result does not
-    depend on it; the tests and chip_smoke.py's sweep set it)."""
-    global LAUNCHES
-    from upmix_tpu_torch.ops import _build
-
+    depend on it; the tests and chip_smoke.py's sweep set it).  Counted
+    under "K4.<variant>"."""
     _check(x, variant, chain, consts)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the dot-chain kernel takes a contiguous float32 x")
@@ -269,15 +264,10 @@ def dot_cuda(x: torch.Tensor, variant: str, chain: int, consts: DotConsts, clust
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    with _build.on_device(x.device):
+    with _build.kernels(x.device) as k:
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _build.load().dot_chain(x.data_ptr(), out.data_ptr(), ptr(hi), ptr(lo), ptr(sw), M,
-                                     _CODES[variant], chain, cluster, stream)
-    LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[variant] = LAUNCHES_BY_VARIANT.get(variant, 0) + 1
-    if rc != 0:
-        raise RuntimeError(f"dot_chain launch failed: cudaError {rc}")
+        k.launch(_COUNTED[variant], "dot_chain", x.data_ptr(), out.data_ptr(), ptr(hi), ptr(lo), ptr(sw), M,
+                 _CODES[variant], chain, cluster)
     return out
 
 

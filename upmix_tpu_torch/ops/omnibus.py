@@ -34,12 +34,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, twiddles, wide_split
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.mask import mask_sum
-
-# CUDA kernel launches made by omnibus_lcr_batch (launches_per_bucket each).
-LAUNCHES = 0
 
 FRAME_TILE = 8192  # complex values of the frames one thread block transforms at a time
 SMEM_TARGET = 75 * 1024  # shared memory per block for G > 1: three blocks share an SM (228 KB, 1 KB a block reserved)
@@ -283,13 +281,6 @@ def omnibus_lcr(x: torch.Tensor, plan: OmnibusPlan):
     return main[0], spill[0]
 
 
-def _launched(rc: int, what: str) -> None:
-    global LAUNCHES
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
-
-
 def check_kernel_tables(b, dev) -> None:
     """Raise unless bucket b carries the FFT kernels' tables, every one of
     them on `dev`."""
@@ -303,48 +294,36 @@ def check_kernel_tables(b, dev) -> None:
         raise ValueError(f"plan buckets live on {b.gains.device}, input on {dev}")
 
 
-def launch_bucket(lib, x, y, b, F: int, accumulate: bool, n_sm: int, stream, launched) -> None:
-    """Launch bucket b's kernels (csrc/omnibus.cu on csrc/fft.cuh) over F
-    frames of each row of x [S, 2, width] into y [S, 3, width], at
-    `launch_geometry`: omni_bucket for a block up to FFT_MAX points, the
-    split's omni_wide_forward and omni_wide_inverse for a wider one; the
-    bucket writes its span, or adds into it with `accumulate`;
-    launched(rc, name) after each launch."""
+def launch_bucket(k, kernel: str, x, y, b, F: int, accumulate: bool, n_sm: int) -> None:
+    """Launch bucket b's kernels (csrc/omnibus.cu on csrc/fft.cuh) through
+    `k` (`_build.kernels`), counted under `kernel`, over F frames of each
+    row of x [S, 2, width] into y [S, 3, width], at `launch_geometry`:
+    omni_bucket for a block up to FFT_MAX points, the split's
+    omni_wide_forward and omni_wide_inverse for a wider one; the bucket
+    writes its span, or adds into it with `accumulate`."""
     S, _, width = x.shape
     B, H, K, w = b.block, b.hop, b.kept, b.wide
     geo = launch_geometry(b, F, S, n_sm)
     common = (b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr())
     if w is None:
-        launched(
-            lib.omni_bucket(
-                x.data_ptr(), y.data_ptr(), b.analysis_window.data_ptr(), *common,
-                S, B, H, K, b.lo, b.gains.shape[0], F, geo.hops, geo.frames, int(geo.pair), width, int(accumulate),
-                stream,
-            ),
-            "omni_bucket",
+        k.launch(
+            kernel, "omni_bucket", x.data_ptr(), y.data_ptr(), b.analysis_window.data_ptr(), *common,
+            S, B, H, K, b.lo, b.gains.shape[0], F, geo.hops, geo.frames, int(geo.pair), width, int(accumulate),
         )
         return
     part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=x.device)
-    launched(
-        lib.omni_wide_forward(
-            x.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(), b.twiddles.data_ptr(),
-            w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, F, width, stream,
-        ),
-        "omni_wide_forward",
+    k.launch(
+        kernel, "omni_wide_forward", x.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
+        b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, F, width,
     )
-    launched(
-        lib.omni_wide_inverse(
-            part.data_ptr(), y.data_ptr(), *common, w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
-            w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, b.gains.shape[0],
-            w.n1, w.cols, F, geo.hops, width, int(accumulate), stream,
-        ),
-        "omni_wide_inverse",
+    k.launch(
+        kernel, "omni_wide_inverse", part.data_ptr(), y.data_ptr(), *common, w.stage2.data_ptr(), w.rows.data_ptr(),
+        w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo,
+        b.gains.shape[0], w.n1, w.cols, F, geo.hops, width, int(accumulate),
     )
 
 
 def _omnibus_cuda(x: torch.Tensor, plan: OmnibusPlan) -> torch.Tensor:
-    from upmix_tpu_torch.ops import _build
-
     _check_input(x, plan)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the omnibus kernel takes a contiguous float32 tensor")
@@ -352,13 +331,11 @@ def _omnibus_cuda(x: torch.Tensor, plan: OmnibusPlan) -> torch.Tensor:
     for b in plan.buckets:
         check_kernel_tables(b, dev)
     S, _, width = x.shape
-    with _build.on_device(dev):
-        lib = _build.load()
+    with _build.kernels(dev) as k:
         y = torch.empty((S, 3, width), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         for i, b in enumerate(plan.buckets):  # the first writes its span, the others add
-            launch_bucket(lib, x, y, b, plan.chunk // b.hop, i > 0, n_sm, stream, _launched)
+            launch_bucket(k, "K1", x, y, b, plan.chunk // b.hop, i > 0, n_sm)
     return y
 
 

@@ -42,8 +42,7 @@ import sys
 import numpy as np
 import torch
 
-# CUDA kernel launches made by overhead_probe.
-LAUNCHES = 0
+from upmix_tpu_torch.ops import _build
 
 N = 2**21
 TILE = 16384
@@ -101,10 +100,7 @@ def overhead_probe(x: torch.Tensor, seed: torch.Tensor, weights, n_views: int, h
 
 
 def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, lib=None):
-    """The kernel of `lib` (default: this tree's library, `_build.load()`)."""
-    global LAUNCHES
-    from upmix_tpu_torch.ops import _build
-
+    """The kernel of `lib` (default: this tree's library)."""
     _check(x, seed, weights, n_views, halo, tile, n)
     tensors = (x, seed, *weights)
     if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device for t in tensors):
@@ -112,16 +108,11 @@ def _probe_cuda(x, seed, weights, n_views: int, halo: int, tile: int, n: int, li
     if x.shape[2] % 4 or tile % 4:
         raise ValueError("the probe kernel stages 16-byte pieces: x's length and the tile must be multiples of 4")
     ptrs = (ctypes.c_void_p * MAX_WEIGHTS)(*[w.data_ptr() for w in weights])
-    with _build.on_device(x.device):
+    with _build.kernels(x.device, lib) as k:
         out = torch.empty((1, 3, n), dtype=torch.float32, device=x.device)
         spill = torch.empty((1, 3, halo), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = (lib or _build.load()).overhead_probe(x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights),
-                                                   n_views, n // tile, tile, out.data_ptr(), spill.data_ptr(), halo,
-                                                   stream)
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"overhead_probe launch failed: cudaError {rc}")
+        k.launch("K5", "overhead_probe", x.data_ptr(), x.shape[2], seed.data_ptr(), ptrs, len(weights), n_views,
+                 n // tile, tile, out.data_ptr(), spill.data_ptr(), halo)
     return out, spill
 
 
@@ -140,13 +131,10 @@ def overhead_probe_plain(x: torch.Tensor, seed: torch.Tensor, weights, n_views: 
 
 def empty_launch(blocks: int, count: int = 1, device="cuda"):
     """`count` launches of an empty kernel on `blocks` blocks of the
-    probe's width, from one host call (the floor of a launch)."""
-    from upmix_tpu_torch.ops import _build
-
-    with _build.on_device(device) as dev:
-        rc = _build.load().empty_launch(blocks, count, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"empty_launch failed: cudaError {rc}")
+    probe's width, from one host call (the floor of a launch; not counted
+    as K5's)."""
+    with _build.kernels(device) as k:
+        k.run("empty_launch", blocks, count, k.stream)
 
 
 def queued_ms(fn, calls: int) -> float:
@@ -263,20 +251,10 @@ def run_configs() -> list:
     return rows
 
 
-def _library(path: str) -> ctypes.CDLL:
-    """Another build of this library (an earlier tree's), its
-    `overhead_probe` bound as `_build.load` binds it."""
-    lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.overhead_probe.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, p, p, i, p]
-    lib.overhead_probe.restype = i
-    return lib
-
-
 def cold(against: str | None = None) -> list:
     """Each configuration's kernel with L2 cold (`cold_ms` over SETS copies
     of x), beside `library_call` and the bound; with `against`, the kernel
-    of another build of this library too (`_library`), in turns (this,
+    of another build of this library too (`_build.library`), in turns (this,
     that, that, this) after holding its output against this kernel's.
     Returns one dict per configuration and prints a line for each."""
     if not torch.cuda.is_available():
@@ -285,7 +263,7 @@ def cold(against: str | None = None) -> list:
     x, rng = make_inputs(device=device)
     xs = [x] + [x.clone() for _ in range(SETS - 1)]
     seed = torch.tensor(0.25, device=device)
-    earlier = _library(against) if against else None
+    earlier = _build.library(against, "overhead_probe") if against else None
     rows = []
     for n_views, n_weights, halo in CONFIGS:
         weights = make_weights(n_weights, rng, device)

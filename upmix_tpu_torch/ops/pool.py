@@ -82,6 +82,12 @@ bf16 hi/lo split is the H100's choice of precision for the tensor cores,
 as the TPU's was for its matrix unit.  The plan declines only what the
 function cannot do: a hop that does not divide hw or its block, or mixed
 block/hop ratios.
+
+The stream host plan, the numpy bucket records a config gives at a
+hardware block size (`_plan_stream_buckets`, `stream_warmup_blocks`),
+lives here too: the plans, the streaming engines and the AOT artifacts
+all start from it.  The kernels are launched through
+`_build.kernels` (K3 and K3s, the edge product as "K3s.edge").
 """
 
 from __future__ import annotations
@@ -94,9 +100,11 @@ import torch
 import torch.nn.functional as tnf
 
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
+from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.dftmm import make_direct_plan
 from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, reg_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
+from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.mask import mask_sum
 from upmix_tpu_torch.ops.omnibus import (
     WideTables,
@@ -104,15 +112,8 @@ from upmix_tpu_torch.ops.omnibus import (
     launch_geometry,
     make_wide_tables,
 )
+from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
 from upmix_tpu_torch.utils.tracing import span
-
-# CUDA kernel launches made by pool_step_lcr: LAUNCHES by a time plan
-# (K3, launches_per_bucket each), SPECTRAL_LAUNCHES by a spectral plan
-# (K3s, spectral_launches a call), of which EDGE_LAUNCHES are the edge
-# product's (its gather and its product, two a launch group).
-LAUNCHES = 0
-SPECTRAL_LAUNCHES = 0
-EDGE_LAUNCHES = 0
 
 OLA_MODES = ("time", "spectral")
 SPECTRAL_LANES = 128  # the JAX package's packed spectra: 2K rounded up to this
@@ -134,7 +135,6 @@ EDGE_RATE_RATIO = 44
 # `reg_twiddles` table), copied into each device's constant memory once
 # per kernel library (`load_reg_roots`).
 _REG_ROOTS = np.ascontiguousarray(reg_twiddles(1)[:4])
-_roots_loaded = set()  # (library path, CUDA device index)
 
 
 def edge_frames(block: int, hop: int, frames: int) -> tuple:
@@ -353,6 +353,76 @@ def check_ola(ola: str) -> None:
         raise ValueError(f"unknown ola mode {ola!r}; one of {OLA_MODES}")
 
 
+@dataclass(frozen=True)
+class _StreamBucketPlan:
+    block_size: int
+    hop_size: int
+    passes: int  # hw_block // hop
+    analysis_window: np.ndarray  # [block]
+    synthesis_window: np.ndarray  # [block]
+    gains: np.ndarray  # [n_bands_in_bucket, n_bins]
+
+
+def stream_warmup_blocks(config: UpmixConfig) -> int:
+    """Uniform readiness latency in hardware blocks: K = block/hop, which
+    must be the same for every band (the shared history needs it)."""
+    ks = set()
+    for b in config.bands:
+        if b.block_size % b.hop_size:
+            raise ValueError(
+                f"streaming requires hop | block (band block {b.block_size}, hop {b.hop_size})"
+            )
+        ks.add(b.block_size // b.hop_size)
+    if len(ks) != 1:
+        raise ValueError(
+            f"streaming requires a uniform block/hop ratio across bands, got {sorted(ks)}"
+        )
+    return ks.pop()
+
+
+def _plan_stream_buckets(config: UpmixConfig, hw_block_size: int):
+    """Numpy bucket records (a copy of the JAX package's, without its
+    TPU-only direct-DFT field); raises ValueError for a config that cannot
+    stream at this hw block size."""
+    warmup = stream_warmup_blocks(config)
+    plans = []
+    for block_size, bands in bucket_bands(config.bands).items():
+        hop = bands[0].hop_size
+        if hw_block_size % hop != 0:
+            raise ValueError(
+                f"hw block size {hw_block_size} must be a multiple of every "
+                f"band hop (violated by block {block_size}, hop {hop})"
+            )
+        # The last pass reads [hw - hop, hw - hop + block) of the K*hw
+        # history (the C++ cap is block <= hw*4 at 75%, bela/upmix.cpp:498-506).
+        if hw_block_size - hop + block_size > warmup * hw_block_size:
+            raise ValueError(
+                f"band block size {block_size} exceeds the shared-history "
+                f"window ({warmup}x hw_block = {warmup * hw_block_size}); "
+                f"build the config with UpmixConfig.streaming "
+                f"(max_block_size = hw_block*4)"
+            )
+        aw = make_window(config.window, block_size)
+        if config.synthesis == "wola":
+            sw = design_wola_synthesis_window(aw, config.overlap)
+        elif config.synthesis == "analysis":
+            sw = aw  # C++ parity (bela/upmix.cpp:200-201)
+        else:
+            raise ValueError(f"unknown synthesis mode {config.synthesis!r}")
+        gains = np.stack([band_gain_curve(b, dtype=np.float32) for b in bands])
+        plans.append(
+            _StreamBucketPlan(
+                block_size=block_size,
+                hop_size=hop,
+                passes=hw_block_size // hop,
+                analysis_window=aw,
+                synthesis_window=sw,
+                gains=gains,
+            )
+        )
+    return plans
+
+
 def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, device,
                              ola: str = "time") -> PoolPlan | None:
     """Device plan from `_StreamBucketPlan` records (numpy arrays) of
@@ -360,10 +430,8 @@ def plan_from_stream_buckets(records, hw: int, warmup: int, n_streams: int, devi
     two-stage split's tables of a block over FFT_MAX and the edge weights
     are built for a CUDA device only, with it current
     (`_build.on_device`)."""
-    from upmix_tpu_torch.ops._build import on_device
-
     check_ola(ola)
-    with on_device(device):
+    with _build.on_device(device):
         return _plan_on(records, hw, warmup, n_streams, torch.device(device), ola)
 
 
@@ -411,8 +479,6 @@ def make_pool_plan(config: UpmixConfig, hw: int, n_streams: int, device="cuda", 
     live bucket.  (With hop | hw every block fits the K * hw history:
     hw + (K - 1) * hop <= K * hw.)  Both OLA dataflows take the same
     configs."""
-    from upmix_tpu_torch.models.streaming import _plan_stream_buckets
-
     hw = int(hw)
     ratios = set()
     for block, bands in bucket_bands(config.bands).items():
@@ -457,20 +523,6 @@ def pool_step_lcr(hist: torch.Tensor, t: torch.Tensor, carries, plan: PoolPlan, 
     return (_spectral_cuda if spectral else _pool_cuda)(hist, t, carries, plan, int(hops))
 
 
-def _launched(rc: int, what: str) -> None:
-    global LAUNCHES
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
-
-
-def _launched_spectral(rc: int, what: str) -> None:
-    global SPECTRAL_LAUNCHES
-    SPECTRAL_LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
-
-
 def _check_cuda_inputs(hist, carries, plan: PoolPlan) -> None:
     dev = hist.device
     if hist.dtype != torch.float32 or not hist.is_contiguous():
@@ -482,18 +534,14 @@ def _check_cuda_inputs(hist, carries, plan: PoolPlan) -> None:
 
 
 def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
-    from upmix_tpu_torch.ops import _build
-
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     dev = hist.device
     S, _, width = hist.shape
     hw, nq = plan.hw, plan.warmup
-    with _build.on_device(dev):
-        lib = _build.load()
+    with _build.kernels(dev) as k:
         t32 = t.to(device=dev, dtype=torch.int32).contiguous()
         out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         new = []
         for i, (b, carry) in enumerate(zip(plan.buckets, carries)):
             B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
@@ -501,32 +549,23 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
             io = (carry.data_ptr(), t32.data_ptr(), out.data_ptr(), carry_out.data_ptr())
             if w is None:
                 geo = launch_geometry(b, hops * b.passes, S, None, hops * b.passes + B // H)
-                _launched(
-                    lib.pool_bucket(
-                        hist.data_ptr(), *io, b.analysis_window.data_ptr(), b.synthesis_window.data_ptr(),
-                        b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq,
-                        geo.frames, int(geo.pair), width, int(i > 0), stream,
-                    ),
-                    "pool_bucket",
+                k.launch(
+                    "K3", "pool_bucket", hist.data_ptr(), *io, b.analysis_window.data_ptr(),
+                    b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw,
+                    hops, nq, geo.frames, int(geo.pair), width, int(i > 0),
                 )
             else:
                 part = torch.empty((S, hops * b.passes, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
-                _launched(
-                    lib.pool_wide_forward(
-                        hist.data_ptr(), t32.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
-                        b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
-                        width, stream,
-                    ),
-                    "pool_wide_forward",
+                k.launch(
+                    "K3", "pool_wide_forward", hist.data_ptr(), t32.data_ptr(), part.data_ptr(),
+                    b.analysis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1,
+                    w.cols, hw, hops, nq, width,
                 )
-                _launched(
-                    lib.pool_wide_inverse(
-                        part.data_ptr(), *io, b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(),
-                        w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(),
-                        w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, nb, w.n1, w.cols, hw, hops, nq,
-                        int(i > 0), stream,
-                    ),
-                    "pool_wide_inverse",
+                k.launch(
+                    "K3", "pool_wide_inverse", part.data_ptr(), *io, b.synthesis_window.data_ptr(), b.gains.data_ptr(),
+                    b.twiddles.data_ptr(), w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
+                    w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, nb, w.n1, w.cols, hw,
+                    hops, nq, int(i > 0),
                 )
             new.append(carry_out)
     return out, tuple(new)
@@ -570,17 +609,11 @@ def pool_step_lcr_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: Pool
     return out, tuple(new)
 
 
-def load_reg_roots(lib, device) -> None:
-    """Copy the register core's butterfly twiddles into `device`'s constant
-    memory (csrc/pool_spectral.cu::pool_spectral_roots), once for each
-    library and device; call with `device` current (`_build.on_device`)."""
-    dev = torch.device(device)
-    key = (lib._name, torch.cuda.current_device() if dev.index is None else dev.index)
-    if key not in _roots_loaded:
-        rc = lib.pool_spectral_roots(_REG_ROOTS.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"pool_spectral_roots failed: cudaError {rc}")
-        _roots_loaded.add(key)
+def load_reg_roots(k) -> None:
+    """Copy the register core's butterfly twiddles into the constant memory
+    of `k`'s card (`_build.kernels`; csrc/pool_spectral.cu::
+    pool_spectral_roots), once for each library and card."""
+    k.once("pool_spectral_roots", _REG_ROOTS.ctypes.data)
 
 
 def spectral_launches(plan: PoolPlan, hops: int) -> int:
@@ -661,14 +694,10 @@ def spectral_forward(hist, t, carries, plan: PoolPlan, hops: int = 1):
 
 
 def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
-    from upmix_tpu_torch.ops import _build
-
     S, _, width = hist.shape
     dev, hw, nq = hist.device, plan.hw, plan.warmup
-    with _build.on_device(dev):
-        lib = _build.load()
-        load_reg_roots(lib, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _build.kernels(dev) as k:
+        load_reg_roots(k)
         specs, new = [], []
         for b, carry in zip(plan.buckets, carries):
             B, H, K, nb, w = b.block, b.hop, b.kept, b.gains.shape[0], b.wide
@@ -677,29 +706,21 @@ def _forward_cuda(hist, t, carries, plan: PoolPlan, hops: int):
             carry_out = torch.empty_like(carry)
             state = (carry.data_ptr(), spec.data_ptr(), carry_out.data_ptr())
             if w is None:
-                _launched_spectral(
-                    lib.pool_spectral_forward(
-                        hist.data_ptr(), t.data_ptr(), *state, b.analysis_window.data_ptr(), b.gains.data_ptr(),
-                        b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw, hops, nq, width, stream,
-                    ),
-                    "pool_spectral_forward",
+                k.launch(
+                    "K3s", "pool_spectral_forward", hist.data_ptr(), t.data_ptr(), *state,
+                    b.analysis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw,
+                    hops, nq, width,
                 )
             else:
                 part = torch.empty((S, F, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
-                _launched_spectral(
-                    lib.pool_wide_forward(
-                        hist.data_ptr(), t.data_ptr(), part.data_ptr(), b.analysis_window.data_ptr(),
-                        b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq,
-                        width, stream,
-                    ),
-                    "pool_wide_forward",
+                k.launch(
+                    "K3s", "pool_wide_forward", hist.data_ptr(), t.data_ptr(), part.data_ptr(),
+                    b.analysis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(), S, B, H, K, b.lo, w.n1,
+                    w.cols, hw, hops, nq, width,
                 )
-                _launched_spectral(
-                    lib.pool_spectral_mask(
-                        part.data_ptr(), t.data_ptr(), *state, b.gains.data_ptr(), S, B, H, K, b.lo, nb, w.groups,
-                        hw, hops, nq, stream,
-                    ),
-                    "pool_spectral_mask",
+                k.launch(
+                    "K3s", "pool_spectral_mask", part.data_ptr(), t.data_ptr(), *state, b.gains.data_ptr(), S, B, H,
+                    K, b.lo, nb, w.groups, hw, hops, nq,
                 )
             specs.append(spec)
             new.append(carry_out)
@@ -723,17 +744,13 @@ def spectral_edge(carries, specs, t, plan: PoolPlan, hops: int = 1):
 
 
 def _edge_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRoutes):
-    from upmix_tpu_torch.ops import _build
-
     if routes.weight_error:
         raise ValueError(routes.weight_error)
     dev, S = t.device, t.shape[0]
     if any(g.device != dev for g in routes.groups):
         raise ValueError(f"the plan's split weights lie on {routes.groups[0].device}, the spectra on {dev}")
-    with _build.on_device(dev):
-        lib = _build.load()
+    with _build.kernels(dev) as k:
         out = torch.empty((S, 3, hops * plan.hw), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         for g, group in enumerate(routes.groups):
             n = len(group.buckets)
             # The gathered operands [2, 3 S, n_edge, Kp] of the group's buckets
@@ -745,9 +762,9 @@ def _edge_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRou
             args = (group.weights, (ctypes.c_void_p * n)(*at.tolist()),
                     (ctypes.c_void_p * n)(*[carries[i].data_ptr() for i in group.buckets]),
                     (ctypes.c_void_p * n)(*[specs[i].data_ptr() for i in group.buckets]),
-                    group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0), stream)
-            _launched_edge(lib.pool_spectral_edge_gather(*args), "pool_spectral_edge_gather")
-            _launched_edge(lib.pool_spectral_edge(*args), "pool_spectral_edge")
+                    group.geo, n, t.data_ptr(), out.data_ptr(), S, plan.hw, hops, plan.warmup, int(g > 0))
+            k.launch("K3s.edge", "pool_spectral_edge_gather", *args)
+            k.launch("K3s.edge", "pool_spectral_edge", *args)
     return out
 
 
@@ -768,19 +785,15 @@ def spectral_whole(carries, specs, t, plan: PoolPlan, hops: int = 1, out=None):
 
 
 def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRoutes, out):
-    from upmix_tpu_torch.ops import _build
-
     S, hw, nq = t.shape[0], plan.hw, plan.warmup
-    with _build.on_device(t.device):
-        lib = _build.load()
-        load_reg_roots(lib, t.device)
+    with _build.kernels(t.device) as k:
+        load_reg_roots(k)
         accumulate = out is not None
         if out is None:
             # The first launch writes every position; with no launch (every
             # bucket's frames on the edge product) the result is zeros.
             alloc = torch.empty if any(whole for _, whole in routes.frames) else torch.zeros
             out = alloc((S, 3, hops * hw), dtype=torch.float32, device=t.device)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
         for b, carry, spec, (_, whole) in zip(plan.buckets, carries, specs, routes.frames):
             if not whole:
                 continue
@@ -788,30 +801,19 @@ def _whole_cuda(carries, specs, t, plan: PoolPlan, hops: int, routes: SpectralRo
             state = (carry.data_ptr(), spec.data_ptr(), t.data_ptr(), out.data_ptr())
             span = (whole[0], whole[-1] + 1)
             if w is None:
-                _launched_spectral(
-                    lib.pool_spectral_inverse(
-                        *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, hw, hops, nq,
-                        *span, int(accumulate), stream,
-                    ),
-                    "pool_spectral_inverse",
+                k.launch(
+                    "K3s", "pool_spectral_inverse", *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), S,
+                    B, H, K, b.lo, hw, hops, nq, *span, int(accumulate),
                 )
             else:
-                _launched_spectral(
-                    lib.pool_spectral_wide_inverse(
-                        *state, b.synthesis_window.data_ptr(), b.twiddles.data_ptr(), w.stage2.data_ptr(),
-                        w.rows.data_ptr(), w.row_ptr.data_ptr(), w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles,
-                        w.kt, S, B, H, K, b.lo, w.n1, w.cols, hw, hops, nq, *span, int(accumulate), stream,
-                    ),
-                    "pool_spectral_wide_inverse",
+                k.launch(
+                    "K3s", "pool_spectral_wide_inverse", *state, b.synthesis_window.data_ptr(),
+                    b.twiddles.data_ptr(), w.stage2.data_ptr(), w.rows.data_ptr(), w.row_ptr.data_ptr(),
+                    w.entries.data_ptr(), w.tile_ptr.data_ptr(), w.tiles, w.kt, S, B, H, K, b.lo, w.n1, w.cols, hw,
+                    hops, nq, *span, int(accumulate),
                 )
             accumulate = True
     return out
-
-
-def _launched_edge(rc: int, what: str) -> None:
-    global EDGE_LAUNCHES
-    EDGE_LAUNCHES += 1
-    _launched_spectral(rc, what)
 
 
 def _masked_spectra(hist, b: PoolBucket, hops: int) -> torch.Tensor:

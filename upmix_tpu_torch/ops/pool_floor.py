@@ -43,10 +43,8 @@ import sys
 
 import torch
 
+from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.pool import PoolPlan
-
-# CUDA kernel launches made by pool_floor.
-LAUNCHES = 0
 
 MAX_BUCKETS = 8  # csrc/pool.cu: FloorGeom; streaming configs have at most 8 bands
 
@@ -85,9 +83,7 @@ def pool_floor(hist: torch.Tensor, hw: int, mode: str = "copy", plan: PoolPlan |
 
 
 def _floor_cuda(hist, hw: int, mode: str, plan, lib=None):
-    global LAUNCHES
-    from upmix_tpu_torch.ops import _build
-
+    """The kernel of `lib` (default: this tree's library)."""
     _check(hist, hw, mode, plan)
     if hist.dtype != torch.float32 or not hist.is_contiguous():
         raise ValueError("the floor kernel takes a contiguous float32 history")
@@ -96,13 +92,9 @@ def _floor_cuda(hist, hw: int, mode: str, plan, lib=None):
         raise ValueError(f"at most {MAX_BUCKETS} buckets, got {len(geo)}")
     packed = (ctypes.c_int * (2 * MAX_BUCKETS))(*[v for bm in geo for v in bm])
     S, _, W = hist.shape
-    with _build.on_device(hist.device):
+    with _build.kernels(hist.device, lib) as k:
         out = torch.empty((S, 3, hw), dtype=torch.float32, device=hist.device)
-        stream = torch.cuda.current_stream(hist.device).cuda_stream
-        rc = (lib or _build.load()).pool_floor(hist.data_ptr(), out.data_ptr(), S, W, hw, len(geo), packed, stream)
-    LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"pool_floor launch failed: cudaError {rc}")
+        k.launch("K6", "pool_floor", hist.data_ptr(), out.data_ptr(), S, W, hw, len(geo), packed)
     return out
 
 
@@ -171,11 +163,7 @@ def main(argv=None) -> int:
     plan = make_pool_plan(UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=hw), hw, S,
                           device=dev)
     hist = torch.randn((S, 2, plan.window), device=dev, generator=torch.Generator(dev).manual_seed(2))
-    other = None
-    if args.against:
-        other = ctypes.CDLL(args.against)
-        other.pool_floor.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-        other.pool_floor.restype = ctypes.c_int
+    other = _build.library(args.against, "pool_floor") if args.against else None
     bound_ms = floor_bytes(S, plan.window, hw) / 3.35e12 * 1e3
     lib_ms = _time_ms(lambda: library_call(hist, hw))
     lib_bytes = 4 * S * 2 * (plan.window + hw)

@@ -15,10 +15,10 @@ Each record is a `Span`: its name, start and end on
 `time.perf_counter_ns()`, its id, its parent's id (None for a root), the
 id of its root (every span of one call shares it), the CUDA index of the
 card it is for (or None) and its attributes.  A root's attributes hold
-`launches`: the kernels the ops modules launched inside it (the change
-of their launch counters); a `pool.push` root also holds
-`edge_launches`, those of K3s's edge product among them (0 where the
-product does not run).  At most LIMIT records are kept in memory
+`launches`: the program's kernel launches inside it (K1, K2, K3 and
+K3s, the change of their counts in `LAUNCHES`); a `pool.push` root also
+holds `edge_launches`, those of K3s's edge product among them (0 where
+the product does not run).  At most LIMIT records are kept in memory
 (one more for each other thread that records at the same moment at the
 limit); the spans past it are counted by `dropped()`.  `spans()` reads
 the records, `clear()` empties them.  `utils/profiling.py::trace` writes
@@ -41,7 +41,15 @@ _dropped = 0
 _recording = 0  # recording roots open, on every thread
 _lock = threading.Lock()
 _ids = itertools.count(1)
-_ops = None  # the ops modules whose launch counters a root reads
+
+# Kernel launches since the process started, by kernel: "K1" (omnibus),
+# "K2" (fused bucket), "K3" (pool, time OLA), "K3s" (pool, spectral
+# OLA), "K4" (dot chain), "K5" (overhead probe), "K6" (floor probe), and
+# a part of a kernel under "<kernel>.<part>": "K3s.edge", the edge
+# product's gather and product; "K4.<variant>".  `ops/_build.py` counts
+# every launch here; `launches` reads.
+LAUNCHES: dict = {}
+PROGRAM = ("K1", "K2", "K3", "K3s")  # the kernels a root counts; the probes are not the program's
 
 
 class Span(NamedTuple):
@@ -80,16 +88,16 @@ class _Null:
 _NULL = _Null()
 
 
-def _counters() -> tuple:
-    """(launches, edge launches) the ops modules have made so far."""
-    global _ops
-    if _ops is None:
-        from upmix_tpu_torch.ops import fused, omnibus, pool
+def launches(*kernels: str) -> int:
+    """Launches counted so far under `kernels`, each with its parts ("K3s"
+    takes "K3s.edge")."""
+    counted = tuple(LAUNCHES.items())  # one copy: another thread's first launch of a kernel adds its key
+    return sum(n for k, n in counted if k in kernels or k.partition(".")[0] in kernels)
 
-        _ops = (omnibus, fused, pool)
-    omnibus, fused, pool = _ops
-    # pool.EDGE_LAUNCHES are counted among pool.SPECTRAL_LAUNCHES
-    return omnibus.LAUNCHES + fused.LAUNCHES + pool.LAUNCHES + pool.SPECTRAL_LAUNCHES, pool.EDGE_LAUNCHES
+
+def _counts() -> tuple:
+    """(the program's launches, the edge product's) so far."""
+    return launches(*PROGRAM), LAUNCHES.get("K3s.edge", 0)
 
 
 def _card(device: torch.device) -> int | None:
@@ -124,7 +132,7 @@ class _Open:
         else:
             self.call = self.outer.call
         if self.root:
-            self.counts = _counters()
+            self.counts = _counts()
         _thread.open = self
         self.start = time.perf_counter_ns()
         return self
@@ -134,8 +142,8 @@ class _Open:
         end = time.perf_counter_ns()
         outer = _thread.open = self.outer
         if self.root:
-            launches, edges = _counters()
-            self.attrs["launches"] = launches - self.counts[0]
+            program, edges = _counts()
+            self.attrs["launches"] = program - self.counts[0]
             if self.edges:
                 self.attrs["edge_launches"] = edges - self.counts[1]
         record = tuple.__new__(Span, (self.name, self.start, end, self.id, None if outer is None else outer.id,
