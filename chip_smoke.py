@@ -27,6 +27,8 @@ between 5 and 6, 22-24, 27, 28 and 25 after 8, then 14-18 and 26):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu into upmix_tpu_torch/_build/;
+     ptxas's registers and spills, and K3's register path alone
+     (pool_reg_kernel and the calls of each size's instantiation);
   3. kernel parity: the omnibus kernel against its plain version run in
      float64 on the card, per bucket and for the whole plan (>= 80 dB),
      and two calls bit-identical; each plan's device bytes and build
@@ -64,8 +66,9 @@ between 5 and 6, 22-24, 27, 28 and 25 after 8, then 14-18 and 26):
      per block) each extrapolates to and whether it meets the deadline;
      then S doubled past 7680 until a block takes more than 42.67 ms or
      the pool would pass 40 GB of device memory, which brackets the
-     capacity by measurement; K3 against its plain version and the cuFFT
-     yardstick, per bucket; the design line; the history shift; K6 copy
+     capacity by measurement; K3 (its register path up to 16384 points)
+     against its plain version and the cuFFT yardstick, per bucket; the
+     design line; the history shift; K6 copy
      and frame, each with its plain version, its share of the bound and
      one PyTorch call that reads the whole history (a sum over its
      hw-long pieces, its bytes named; K6's `library_ms`); device time by
@@ -263,6 +266,7 @@ jax: the GPU machine does not have it.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -329,6 +333,28 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 # A kernel's bound may be at most 105% of its time (timing noise).
 BOUND_SLACK = 1.05
+
+
+K3_FUNCTIONS = ("pool_reg_kernel", "forward_transform", "inverse_transform")
+
+
+def k3_ptxas(log: str) -> list:
+    """(name<log2 B>, registers or None, stack, spill store, spill load
+    bytes) of pool.cu's register path, from its `ptxas -v` report: each
+    size's kernel and the transforms it calls (8192 and 16384 points)."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", line)
+        name = m and next((f for f in K3_FUNCTIONS if f in m.group(1)), None)
+        if not name or i + 1 >= len(lines):
+            continue
+        size = re.search(r"ILi(\d+)E", m.group(1))
+        props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+        regs = next((re.search(r"Used (\d+) registers", ln) for ln in lines[i + 2 : i + 4] if "Used" in ln), None)
+        if props:
+            out.append((f"{name}<{size.group(1)}>" if size else name, int(regs.group(1)) if regs else None,
+                        *map(int, props.groups())))
+    return out
 
 
 def bound(flop: float, nbytes: float):
@@ -519,6 +545,10 @@ def main():
         + " | ".join(ptxas),
         flush=True,
     )
+    k3_spills = k3_ptxas(_build.build_logs.get("pool.cu", ""))
+    print(f"K3 ptxas [{smi}]: " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st} / {ld} B"
+                                            for name, regs, stack, st, ld in k3_spills)
+          + f"; spill bytes over K3's register path {sum(st + ld for *_, st, ld in k3_spills)}", flush=True)
 
     # 3. kernel parity at the main path's shapes: one 2^21 chunk
     cfg = UpmixConfig.make(BAND_EDGES, sr=SR, max_block_size=MAX_BLOCK)
@@ -999,7 +1029,7 @@ def pool_phases(smi: str, dev) -> list:
     from upmix_tpu_torch.config import UpmixConfig
     from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
     from upmix_tpu_torch.ops import pool_floor
-    from upmix_tpu_torch.ops.omnibus import launch_geometry
+    from upmix_tpu_torch.ops.fftplan import reg_pool_launch, reg_threads
     from upmix_tpu_torch.ops.pool import launches_per_bucket, make_pool_plan, pool_step_lcr, pool_step_lcr_plain
     from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor_plain
 
@@ -1240,16 +1270,21 @@ def pool_phases(smi: str, dev) -> list:
           f"{k3_bytes / 1e9:.3f} GB), kernel at {k3_bound / k3_ms:.1%} of it", flush=True)
 
     def design_flop(b):
-        # Its own FFTs: 1 forward and 1.5 inverse per frame (2 when a frame's
-        # Rs goes alone), G frames a pass, at the pool's launch geometry.
-        geo = launch_geometry(b, b.passes, S, None, b.passes + b.block // b.hop)
-        G = geo.frames
-        return S * -(-b.passes // G) * G * 5 * b.block * np.log2(b.block) * (1 + (1.5 if G > 1 or geo.pair else 2))
+        # Its own FFTs at reg_pool_launch's geometry: a forward and a C + i Ls
+        # inverse a frame, and the Rs of two frames of a round in one
+        # inverse (one team: of two frames with `pair`, else each alone).
+        geo = reg_pool_launch(b.block, b.kept)
+        F = b.passes
+        if geo.threads > reg_threads(b.block):
+            rs = sum(-(-min(geo.round, F - i) // 2) for i in range(0, F, geo.round))
+        else:
+            rs = -(-F // 2) if geo.pair else F
+        return S * (2 * F + rs) * 5 * b.block * np.log2(b.block)
 
     d_flop = sum(design_flop(b) for b in plan.buckets)
     d_bytes = k3_bytes + 4 * S * 2 * sum(b.passes * (b.block - b.hop) for b in plan.buckets)  # frames re-read
     d_bound, d_by = bound(d_flop, d_bytes)
-    print(f"design [{smi}]: pool FFTs in shared memory {d_flop:.3e} FLOP, {d_bytes / 1e9:.3f} GB -> "
+    print(f"design [{smi}]: pool FFTs on the register core {d_flop:.3e} FLOP, {d_bytes / 1e9:.3f} GB -> "
           f"{d_bound:.3f} ms ({d_by}); kernel at {d_bound / k3_ms:.1%} of it "
           f"({d_flop / k3_ms / 1e9:.2f} TFLOP/s)", flush=True)
     parts = []

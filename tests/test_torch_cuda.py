@@ -14,7 +14,9 @@ spectral OLA) at every pool case and 1, 5 and 2048 streams, its edge
 product on every bucket at hw 2048 and 8192 and its inputs on one
 device, one band that keeps every bin (a 16384-point frame whose Rs goes alone;
 a split bucket whose kept bins take 65 tiles), the pool at hw 8192 (its
-32768 bucket split); the bench config covers each of its block sizes,
+32768 bucket split), and K3's register path at every size from 16 to
+16384 points with every bin kept, hops 1, 3 and 4, two calls bit for
+bit and NaN isolated; the bench config covers each of its block sizes,
 256 to 65536.  Launch counts are read from the wrappers'
 `launches_per_bucket`.  The probes: K4 at every rung and cluster size,
 K5 in its six configurations and odd geometries.  The stream server on
@@ -139,17 +141,25 @@ POOL_CASES = {
     "hw8192_split": (([0.0, 500.0, 2000.0, 8000.0], 48000.0), 8192),
     "one_band_every_bin": (([0.0], 8000.0), 4096),
 }
+# K3's register path at every size it takes, B = 16 .. 16384 (one bucket,
+# every bin kept: the widest Rs buffer; hw = B / 4): one team a block from
+# 8192 points, the Rs of two frames paired but at 16384.
+POOL_SIZES = {f"B{1 << n}": (([0.0], 8000.0), 1 << (n - 2)) for n in range(4, 15)}
 
 
-@pytest.mark.parametrize("case", list(POOL_CASES))
-@pytest.mark.parametrize("S,hops", [(1, 1), (5, 1), (5, 3)])
+def _pool_case(case):
+    return POOL_CASES[case] if case in POOL_CASES else POOL_SIZES[case]
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES) + list(POOL_SIZES))
+@pytest.mark.parametrize("S,hops", [(1, 1), (5, 1), (5, 3), (5, 4)])
 def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
     # FP32 FFTs against float64 FFTs; mixed t with nonzero carries,
     # stream 0 below the warmup with a carry it must hold.
     from upmix_tpu_torch.ops import pool
     from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 
-    (edges, sr), hw = POOL_CASES[case]
+    (edges, sr), hw = _pool_case(case)
     cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
     plan = make_pool_plan(cfg, hw, S, device=cuda)
     K = plan.warmup
@@ -173,16 +183,19 @@ def test_pool_kernel_matches_plain_float64(cuda, case, S, hops):
             assert torch.equal(n[0], c[0])  # stream 0 not ready: carry held
 
 
+@pytest.mark.parametrize("case", ["bela_48k", *POOL_SIZES])
 @pytest.mark.parametrize("hops", [1, 4])
-def test_pool_kernel_zeros_and_nan_isolation(cuda, hops):
-    # The stream server's config at 64 streams with mixed t and nonzero
-    # carries: >= 80 dB, exact zeros where the plain version has them, and
-    # a NaN in one stream's history leaves every other stream's output and
-    # carries as they were, and finite.
+def test_pool_kernel_zeros_and_nan_isolation(cuda, hops, case):
+    # The stream server's config, and K3's every register size, at 64
+    # streams with mixed t and nonzero carries: >= 80 dB, exact zeros where
+    # the plain version has them, two calls bit for bit, and a NaN in one
+    # stream's history leaves every other stream's output and carries as
+    # they were, and finite.
     from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 
-    cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=2048)
-    S, hw = 64, 2048
+    (edges, sr), hw = _pool_case(case)
+    cfg = UpmixConfig.streaming(edges, sr=sr, hw_block_size=hw)
+    S = 64
     plan = make_pool_plan(cfg, hw, S, device=cuda)
     K = plan.warmup
     rng = np.random.default_rng(40 + hops)
@@ -191,13 +204,15 @@ def test_pool_kernel_zeros_and_nan_isolation(cuda, hops):
     carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block)) * 0.1, dtype=torch.float32, device=cuda)
                for b in plan.buckets]
     out, new = pool_step_lcr(hist, t, carries, plan, hops)
+    again, new_again = pool_step_lcr(hist, t, carries, plan, hops)
+    assert torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(new, new_again))
     ref, ref_new = pool_step_lcr_plain(hist.double(), t, [c.double() for c in carries], plan, hops)
     assert bool((ref == 0).any()) and bool((out[ref == 0] == 0).all())
     assert _snr(ref, out) >= 80.0
     for r, n in zip(ref_new, new):
         assert _snr(r, n) >= 80.0
     bad = hist.clone()
-    bad[7, 1, -100] = float("nan")
+    bad[7, 1, -min(100, hw)] = float("nan")
     out_nan, new_nan = pool_step_lcr(bad, t, carries, plan, hops)
     others = torch.arange(S, device=cuda) != 7
     assert bool(torch.isfinite(out_nan[others]).all()) and torch.equal(out_nan[others], out[others])
@@ -1028,14 +1043,21 @@ def test_overhead_probe_rejects_what_it_does_not_take(cuda):
 
 def test_pool_plan_on_the_card_carries_the_split_tables(cuda):
     # A CPU plan leaves the two-stage split's tables out (test_torch_pool);
-    # a plan for the card builds them for its bucket over 16384 points.
+    # a plan for the card builds them for its bucket over 16384 points,
+    # with the split's N1 pass twiddles (fft.cuh's), and the register
+    # core's twiddles for the others, in both OLA modes.
+    from upmix_tpu_torch.ops.fftplan import pass_twiddles, reg_twiddles
     from upmix_tpu_torch.ops.pool import make_pool_plan
 
     cfg = UpmixConfig.streaming([0.0, 500.0, 2000.0, 8000.0], sr=48000.0, hw_block_size=8192)
-    plan = make_pool_plan(cfg, 8192, 2, device=cuda)
-    big = [b for b in plan.buckets if b.block > 16384]
-    assert big and all(b.wide is not None and b.twiddles is not None for b in big)
-    assert all(b.twiddles.device.type == "cuda" for b in plan.buckets)
+    for ola in ("time", "spectral"):
+        plan = make_pool_plan(cfg, 8192, 2, device=cuda, ola=ola)
+        big = [b for b in plan.buckets if b.block > 16384]
+        assert big and all(b.wide is not None and b.twiddles is not None for b in big)
+        assert all(b.twiddles.device.type == "cuda" for b in plan.buckets)
+        for b in plan.buckets:
+            want = pass_twiddles(b.wide.n1) if b.block > 16384 else reg_twiddles(b.block)
+            assert torch.equal(b.twiddles.cpu(), torch.as_tensor(want))
 
 
 @pytest.mark.parametrize("hops,pipeline", [(1, 1), (2, 1), (1, 2), (2, 2)])
@@ -1332,7 +1354,8 @@ def test_spans_count_the_launches(cuda, ola):
 def test_spectral_spans_split_k3s(cuda, ola, tmp_path):
     # Inside each `pool.kernels` span K3s's three steps have spans of their
     # own, on the pool's card, in the exported trace too; the time pool's
-    # kernels span holds none.
+    # kernels span holds K3's one, `pool.frames`, with the frames of a
+    # stream's call, every one on the register core.
     import json
     import os
 
@@ -1346,7 +1369,8 @@ def test_spectral_spans_split_k3s(cuda, ola, tmp_path):
     (kernels,) = [s for s in spans if s.name == "pool.kernels"]
     inner = sorted((s for s in spans if s.parent == kernels.id), key=lambda s: s.start_ns)
     if ola == "time":
-        assert inner == []
+        assert [(s.name, s.card, s.attrs) for s in inner] == [
+            ("pool.frames", 0, {"buckets": 4, "fft_frames": 43, "reg_frames": 43})]
     else:
         routes = p.plan.spectral_routes(1)
         assert [(s.name, s.card) for s in inner] == [("pool.forward", 0), ("pool.edge", 0), ("pool.inverse", 0)]

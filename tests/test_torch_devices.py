@@ -152,7 +152,7 @@ def test_the_launch_path_guards_once_appends_the_stream_counts_and_raises(monkey
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=77))
     monkeypatch.setattr(_build, "_once", set())
-    lib = _FakeLibrary(pool_bucket=700, empty_launch=2)
+    lib = _FakeLibrary(pool_reg_bucket=700, empty_launch=2)
     before = launches("K1"), launches("K3s"), launches("K3s.edge"), launches(*("K1", "K2", "K3", "K3s"))
     with _build.kernels("cuda:1", lib) as k:
         assert entered == [("in", torch.device("cuda", 1))]
@@ -161,14 +161,14 @@ def test_the_launch_path_guards_once_appends_the_stream_counts_and_raises(monkey
         k.once("pool_spectral_roots", 4)
         k.once("pool_spectral_roots", 4)  # once for each library and card
         assert k.query("dot_chain_clusters", 32, 2, 8) == 0
-        with pytest.raises(RuntimeError, match="pool_bucket launch failed: cudaError 700"):
-            k.launch("K3", "pool_bucket", 5)
+        with pytest.raises(RuntimeError, match="pool_reg_bucket launch failed: cudaError 700"):
+            k.launch("K3", "pool_reg_bucket", 5)
         with pytest.raises(RuntimeError, match="empty_launch failed: cudaError 2"):
             k.run("empty_launch", 6, 1, k.stream)
     assert entered == [("in", torch.device("cuda", 1)), ("out", torch.device("cuda", 1))]  # one guard a block
     assert lib.calls == [("omni_bucket", (1, 2, 77)), ("pool_spectral_edge", (3, 77)),
                          ("pool_spectral_roots", (4,)), ("dot_chain_clusters", (32, 2, 8)),
-                         ("pool_bucket", (5, 77)), ("empty_launch", (6, 1, 77))]
+                         ("pool_reg_bucket", (5, 77)), ("empty_launch", (6, 1, 77))]
     # one launch under its kernel each, the failed one too; the edge product's among K3s's; no query or run counted
     assert (launches("K1"), launches("K3s"), launches("K3s.edge"), launches("K1", "K2", "K3", "K3s")) == (
         before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 3)

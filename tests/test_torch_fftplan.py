@@ -1,6 +1,6 @@
-"""The FFT kernels' factorization (csrc/fft.cuh, omnibus.cu, pool.cu),
-stated in torch float64 from the plans' own tables, against the plain
-versions and the JAX package's two-stage banded transform.
+"""The FFT kernels' factorization (csrc/fft.cuh, omnibus.cu, pool.cu,
+fft_reg.cuh), stated in torch float64 from the plans' own tables, against
+the plain versions and the JAX package's two-stage banded transform.
 
 The statement follows the kernels step by step: the radix-2/radix-4
 passes in place with the plans' float32 twiddle tables, bins read at
@@ -9,9 +9,12 @@ its unpacking at the kept bins, the Hermitian packing of C + i Ls (and
 of Rs of two frames) into one inverse, the two-stage split B = N1 x N2
 of the 65536 bucket with its stage-2 sums over the columns and its
 stage-2 rows only where a bin lands, and the pool kernel's gate (frames
-from the first ready hop, the carry added at it).  Only the twiddles'
-rounding to float32 separates it from float64 FFTs: >= 120 dB against
-the plain versions run in float64.  The JAX package's two-stage
+from the first ready hop, the carry added at it).  The pool kernel's
+buckets up to FFT_MAX points run the register core (csrc/fft_reg.cuh:
+`reg_fft` below, from `reg_twiddles`), the mask and the inverses on each
+frame in turn, a round of frames at a time (`reg_pool_step`).  Only the
+twiddles' rounding to float32 separates it from float64 FFTs: >= 120 dB
+against the plain versions run in float64.  The JAX package's two-stage
 transform runs in float32, so the bar there is 100 dB.
 """
 
@@ -35,8 +38,11 @@ from upmix_tpu_torch.ops.fftplan import (
     digit_positions,
     inverse_bins,
     REG_RADIX,
+    POOL_REG_STATIC,
+    REG_SMEM,
     pass_twiddles,
     radices,
+    reg_pool_launch,
     reg_radices,
     reg_round,
     reg_threads,
@@ -167,7 +173,7 @@ def unpair(y: torch.Tensor, F: int) -> torch.Tensor:
 
 def single_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
     """Windowed inverse frames [S, 3, F, B] of one bucket (B <= FFT_MAX)
-    from frames [S, 2, F, B], as omnibus.cu and pool.cu compute them."""
+    from frames [S, 2, F, B], as omnibus.cu computes them (K1, K2)."""
     B, K, lo = b.block, b.kept, b.lo
     tw = _cplx(b.twiddles)
     pos = torch.as_tensor(digit_positions(B))
@@ -232,6 +238,12 @@ def two_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
 
 def bucket_frames(frames, b):
     return single_stage_frames(frames, b) if b.block <= FFT_MAX else two_stage_frames(frames, b)
+
+
+def pool_bucket_frames(frames, b):
+    """The pool kernel's (K3's) frames: on the register core up to FFT_MAX
+    points (`reg_stage_frames`), through the two-stage split above."""
+    return reg_stage_frames(frames, b) if b.block <= FFT_MAX else two_stage_frames(frames, b)
 
 
 @pytest.fixture(scope="module")
@@ -314,8 +326,8 @@ def _check_offline_bucket(b, chunk: int, S: int, seed: int) -> None:
 def test_factorization_matches_plain_pool(hops, hw):
     # The pool's buckets with the pool kernel's gate: frames from the first
     # ready hop i0 on, the carry added at i0 * hw; positions past hops * hw
-    # are the new carry.  At hw 8192 the 32768 bucket takes the two-stage
-    # split.
+    # are the new carry.  Up to FFT_MAX points on the register core; at hw
+    # 8192 the 32768 bucket takes the two-stage split.
     cfg = UpmixConfig.streaming(POOL[0], sr=POOL[1]["sr"], hw_block_size=hw)
     S = 4
     plan = make_pool_plan(cfg, hw, S, device="cpu")
@@ -332,7 +344,7 @@ def test_factorization_matches_plain_pool(hops, hw):
         F = hops * b.passes
         frames = frame_signal(hist[..., : (F - 1) * b.hop + b.block], b.block, b.hop, F)
         ready = (torch.arange(F)[None, :] >= (i0 * b.passes)[:, None])[:, None, :, None]
-        rec = bucket_frames(torch.where(ready, frames, 0.0), b) * ready  # not-ready frames: zeros
+        rec = pool_bucket_frames(torch.where(ready, frames, 0.0), b) * ready  # not-ready frames: zeros
         acc = torch.nn.functional.pad(overlap_add(rec, b.hop), (0, b.hop))  # [S, 3, hops * hw + B]
         for s in range(S):
             c0 = int(i0[s]) * hw
@@ -481,3 +493,162 @@ def test_register_core_statement(log2n):
     tw = _cplx(reg_twiddles(n))
     assert _csnr(torch.fft.fft(z).numpy(), reg_fft(z, tw).numpy()) >= 120.0
     assert _csnr((torch.fft.ifft(z) * n).numpy(), reg_fft(z, tw, inverse=True).numpy()) >= 120.0
+
+
+# csrc/pool.cu::pool_reg_kernel, K3 on the register core.
+
+
+def reg_stage_frames(frames: torch.Tensor, b) -> torch.Tensor:
+    """Windowed inverse frames [S, 3, F, B] of one pool bucket (B <=
+    FFT_MAX) from frames [S, 2, F, B] on the register core: `reg_fft` of
+    each packed frame, the mask at each kept bin from Z[k] and Z[B - k],
+    the C + i Ls inverse of each frame, and the Rs of frames 2j and 2j + 1
+    in one inverse (`pair_rs`), all in natural order."""
+    B, K, lo = b.block, b.kept, b.lo
+    tw = _cplx(b.twiddles)
+    aw, sw = b.analysis_window.double(), b.synthesis_window.double()
+    Z = reg_fft(torch.complex(frames[:, 0] * aw, frames[:, 1] * aw), tw)
+    k = torch.arange(lo, lo + K)
+    c, ls, rs = unpack_mask(Z[..., k], Z[..., (B - k) % B], b.gains.double())
+
+    def inverse(u, v):
+        return reg_fft(hermitian(u, v, B, lo), tw, inverse=True) * (sw / B)
+
+    y01 = inverse(c, ls)
+    y2 = unpair(inverse(*pair_rs(rs)), frames.shape[2])
+    return torch.stack([y01.real, y01.imag, y2], dim=1)
+
+
+def reg_pool_step(hist, t, carries, plan, hops: int):
+    """pool_reg_kernel's dataflow in float64 for a plan whose buckets are
+    all up to FFT_MAX points, one stream at a time (a block), bucket after
+    bucket: init (the previous buckets' output, the carry added at the
+    first ready hop i0 * hw), then the frames from the first ready one, a
+    round at a time (`reg_pool_launch`): with several teams `round` frames,
+    their Rs paired inside the round, each round's frames summed in frame
+    order and added onto what is there; with one team a frame's C and Ls,
+    then the Rs of two frames (`pair`) or of one.  Returns (out, new
+    carries) as `pool_step_lcr` does."""
+    S, hw = hist.shape[0], plan.hw
+    i0 = (plan.warmup - t.long()).clamp(0, hops)
+    out = torch.zeros((S, 3, hops * hw), dtype=torch.float64)
+    new = []
+    for b, carry in zip(plan.buckets, carries):
+        B, H, F = b.block, b.hop, hops * b.passes
+        geo = reg_pool_launch(B, b.kept)
+        one_team = geo.threads == reg_threads(B)
+        frames = frame_signal(hist[..., : (F - 1) * H + B], B, H, F)  # [S, 2, F, B]
+        acc = torch.cat([out, torch.zeros((S, 3, B), dtype=torch.float64)], dim=-1)  # [S, 3, F H + B]
+
+        def add(s, rec, outputs, fb):  # a round's frames [3, nf, B], summed in frame order, onto what is there
+            total = overlap_add(rec[None], H)[0]
+            acc[s, outputs, fb * H : fb * H + total.shape[-1]] += total[outputs]
+
+        for s in range(S):
+            acc[s, :, int(i0[s]) * hw : int(i0[s]) * hw + B] += carry[s]
+            f0 = int(i0[s]) * b.passes
+            if not one_team:
+                for fb in range(f0, F, geo.round):
+                    nf = min(geo.round, F - fb)
+                    add(s, reg_stage_frames(frames[s : s + 1, :, fb : fb + nf], b)[0], [0, 1, 2], fb)
+                continue
+            for f in range(f0, F):
+                slot = (f - f0) % 2 if geo.pair else 0
+                add(s, reg_stage_frames(frames[s : s + 1, :, f : f + 1], b)[0], [0, 1], f)
+                if not geo.pair or slot == 1 or f + 1 == F:
+                    add(s, reg_stage_frames(frames[s : s + 1, :, f - slot : f + 1], b)[0], [2], f - slot)
+        out = acc[..., : hops * hw]
+        new.append(acc[..., hops * hw :])
+    return out, tuple(new)
+
+
+@pytest.mark.parametrize("hw", [2048, 8192])
+def test_time_plan_carries_register_twiddles(hw):
+    # K3 runs every bucket up to FFT_MAX points on the register core, so a
+    # time plan carries its twiddles there, as a spectral plan does; a
+    # bucket over FFT_MAX (32768 at hw 8192) carries the split's N1 pass
+    # twiddles, which only a CUDA plan builds (test_torch_cuda.py's
+    # plan-on-the-card test): none on the CPU.
+    cfg = UpmixConfig.streaming(POOL[0], sr=48000.0, hw_block_size=hw)
+    for ola in ("time", "spectral"):
+        plan = make_pool_plan(cfg, hw, 2, device="cpu", ola=ola)
+        for b in plan.buckets:
+            if b.block > FFT_MAX:
+                assert b.twiddles is None and b.wide is None
+            else:
+                assert torch.equal(b.twiddles, torch.as_tensor(reg_twiddles(b.block)))
+    split = with_split_tables(make_pool_plan(cfg, hw, 2, device="cpu").buckets)
+    assert [torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.wide.n1))) for b in split if b.block > FFT_MAX] == (
+        [True] if hw == 8192 else [])
+
+
+@pytest.mark.parametrize("hw,hops,counts", [(2048, 1, (43, 43)), (2048, 4, (172, 172)),
+                                             (8192, 1, (169, 168)), (8192, 4, (676, 672))])
+def test_pool_frames_counts_of_the_serving_config(hw, hops, counts):
+    # The `pool.frames` span's `fft_frames` and `reg_frames`, from the plan
+    # on the host: at hw 2048 the Bela buckets' 1 + 2 + 8 + 32 frames a
+    # block, every one on the register core; at hw 8192 the 32768 bucket's
+    # frame a block goes through the split, off the core.  The same counts
+    # as K3s's forward step's.
+    cfg = UpmixConfig.streaming(POOL[0], sr=48000.0, hw_block_size=hw)
+    plan = make_pool_plan(cfg, hw, 2, device="cpu")
+    assert plan.fft_frames(hops) == counts
+    spectral = make_pool_plan(cfg, hw, 2, device="cpu", ola="spectral").spectral_routes(hops)
+    assert (spectral.forward_frames, spectral.forward_reg) == counts
+
+
+@pytest.mark.parametrize("log2n", range(15))
+def test_reg_pool_launch_fits_every_kept_width(log2n):
+    # K3's block on the register core: 512 threads in whole teams of n /
+    # 16, four teams of 256 at 4096 points (not two, which would round one
+    # frame at a time), one team from 8192 points; at most 15 teams of 64
+    # threads or more (each syncs on a named barrier, 1-15); a round's nf +
+    # ceil(nf / 2) transforms fit its teams; the shared memory (exchange
+    # buffers, then the Rs buffer) fits one block at every kept width up to
+    # all n / 2 + 1 bins, the Rs of two frames paired with one team only
+    # where both fit (not at 16384 points with every bin kept: that
+    # frame's Rs goes alone).
+    n = 1 << log2n
+    team = reg_threads(n)
+    for kept in sorted({1, min(90, n // 2 + 1), n // 4 + 1, n // 2 + 1}):
+        g = reg_pool_launch(n, kept)
+        teams = g.threads // team
+        assert g.threads % team == 0 and g.threads <= 1024 and (team < 64 or teams <= 15)
+        assert g.threads == (1024 if n in (4096, 16384) else 512) and g.smem <= REG_SMEM - POOL_REG_STATIC
+        if teams > 1:
+            assert g.round == 2 * teams // 3 and g.round + -(-g.round // 2) <= teams and not g.pair
+            assert g.smem == 8 * (teams * (n + n // 16) + g.round * kept)
+        else:
+            assert g.round == 1 and g.smem == 8 * (n + n // 16 + (2 if g.pair else 1) * kept)
+    # the Bela buckets' rounds: 8192 one team, frame by frame; 4096 both
+    # frames of a one-block call at once; 1024 and 256 in two rounds
+    assert [reg_pool_launch(b, 90).round for b in (8192, 4096, 1024, 256)] == [1, 2, 5, 21]
+    assert reg_pool_launch(16384, 4097).pair and not reg_pool_launch(16384, 8193).pair
+
+
+@pytest.mark.parametrize("hops", [1, 4])
+def test_register_dataflow_matches_plain_pool(hops):
+    # The pool kernel's dataflow on the register core (`reg_pool_step`),
+    # from the plan's float32 twiddles in float64, against
+    # pool_step_lcr_plain on the Bela config at hw 2048: nonzero carries,
+    # stream 0 below the warmup (its carry held at hops 1, its first hops
+    # gated at hops 4), the rest ready.  Within 1e-5 of the outputs' scale,
+    # exact zeros where the plain version has them.
+    cfg = UpmixConfig.streaming(POOL[0], sr=48000.0, hw_block_size=2048)
+    S = 3
+    plan = make_pool_plan(cfg, 2048, S, device="cpu")
+    assert all(b.block <= FFT_MAX for b in plan.buckets)
+    K = plan.warmup
+    rng = np.random.default_rng(26 + hops)
+    hist = torch.as_tensor(rng.standard_normal((S, 2, (K - 1 + hops) * 2048)))
+    t = torch.tensor([1, K, K + 5], dtype=torch.int32)
+    carries = [torch.as_tensor(rng.standard_normal((S, 3, b.block))) for b in plan.buckets]
+    ref, ref_c = pool_step_lcr_plain(hist, t, carries, plan, hops)
+    got, got_c = reg_pool_step(hist, t, carries, plan, hops)
+    assert torch.equal(got == 0, ref == 0)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    for r, g, c in zip(ref_c, got_c, carries):
+        assert float((g - r).abs().max()) <= 1e-5 * max(1.0, float(r.abs().max()))
+        if hops == 1:
+            assert torch.equal(g[0], c[0])  # stream 0 not ready: carry held

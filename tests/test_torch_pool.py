@@ -21,7 +21,7 @@ from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch import aot
 from upmix_tpu_torch.models.streaming import CudaStreamPool
 from upmix_tpu_torch.ops import pool
-from upmix_tpu_torch.ops.fftplan import pass_twiddles
+from upmix_tpu_torch.ops.fftplan import reg_twiddles
 from upmix_tpu_torch.ops.pool import make_pool_plan, pool_step_lcr, pool_step_lcr_plain
 from upmix_tpu_torch.ops.pool_floor import floor_bytes, pool_floor, pool_floor_plain
 from upmix_tpu_torch.parallel import make_mesh
@@ -291,8 +291,8 @@ def test_plan_declines_only_what_it_cannot_run():
     for S in (1, 5, 13):  # no group rule
         plan = make_pool_plan(cfg, HW, S, device="cpu")
         assert plan.n_streams == S and plan.window == 4 * HW
-        for b in plan.buckets:  # windows, gains and the FFT kernel's twiddles: no direct-DFT weights
-            assert torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block))) and b.wide is None
+        for b in plan.buckets:  # windows, gains and the register core's twiddles: no direct-DFT weights
+            assert torch.equal(b.twiddles, torch.as_tensor(reg_twiddles(b.block))) and b.wide is None
             assert [k for k, v in vars(b).items() if isinstance(v, torch.Tensor)] == [
                 "analysis_window", "synthesis_window", "gains", "twiddles"]
     assert make_pool_plan(cfg, 100, 8, device="cpu") is None  # hop does not divide hw

@@ -28,7 +28,7 @@ from upmix_tpu.ops.pallas_pool import pool_step_lcr as jax_pool_step_lcr
 from upmix_tpu_torch.config import UpmixConfig
 from upmix_tpu_torch.models.streaming import CudaStreamPool, StreamingUpmixer, make_stream_pool
 from upmix_tpu_torch.ops import pool
-from upmix_tpu_torch.ops.fftplan import FFT_MAX, pass_twiddles, reg_twiddles
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, reg_twiddles
 from upmix_tpu_torch.ops.pool import (
     EDGE_DEPTH,
     make_edge_weight,
@@ -578,7 +578,8 @@ def test_register_core_frames_of_the_serving_config(hw, hops, counts):
     # inverse (at hops 4 every bucket has whole frames: 1 + 5 + 35 + 131);
     # at hw 8192 the 32768 bucket's frames (1 a block forward, 0 or 1
     # inverse) take the split.  A spectral plan's buckets up to FFT_MAX
-    # points carry the core's twiddles, a time plan's fft.cuh's.
+    # points carry the core's twiddles, and so do a time plan's (K3 runs
+    # them on the same core).
     plan = _serve_plan(hw, 2)
     r = plan.spectral_routes(hops)
     assert (r.forward_frames, r.forward_reg, r.inverse_frames, r.inverse_reg) == counts
@@ -586,7 +587,7 @@ def test_register_core_frames_of_the_serving_config(hw, hops, counts):
         assert b.twiddles is None if b.block > FFT_MAX else torch.equal(b.twiddles, torch.as_tensor(reg_twiddles(b.block)))
     cfg = UpmixConfig.streaming(SERVE_EDGES, sr=SERVE_SR, hw_block_size=hw)
     for b in make_pool_plan(cfg, hw, 2, device="cpu").buckets:
-        assert b.twiddles is None if b.block > FFT_MAX else torch.equal(b.twiddles, torch.as_tensor(pass_twiddles(b.block)))
+        assert b.twiddles is None if b.block > FFT_MAX else torch.equal(b.twiddles, torch.as_tensor(reg_twiddles(b.block)))
 
 
 def test_spectral_steps_run_where_the_spectra_lie():

@@ -1,9 +1,13 @@
 // FP32 FFTs of power-of-two length in shared memory, run by one thread
-// block, and the kernels that omnibus.cu (K1 and K2) and pool.cu (K3)
-// launch on them: windowed stereo frames -> one packed complex FFT per
-// frame -> L and R at the kept bins -> gain x center mask x band sum (mask.cuh) ->
-// Hermitian-packed inverse FFTs of the three outputs -> synthesis window
-// and overlap-add into the caller's epilogue (a Sink, below).
+// block, and the kernels launched on them: windowed stereo frames -> one
+// packed complex FFT per frame -> L and R at the kept bins -> gain x
+// center mask x band sum (mask.cuh) -> Hermitian-packed inverse FFTs of
+// the three outputs -> synthesis window and overlap-add into the caller's
+// epilogue (a Sink, below).  omnibus.cu's K1 and K2 run every bucket on
+// them; the pool's K3 (pool.cu) and K3s (pool_spectral.cu) only the
+// two-stage split of a bucket over FFT_MAX points, and take smaller ones
+// to fft_reg.cuh's register core.  unpack_mask and put_pair serve every
+// kernel of the pool too.
 //
 // Transforms (ops/fftplan.py states the same on the host):
 //   * fft_forward: in place, decimation in frequency, a radix-2 pass first

@@ -1,6 +1,8 @@
-// FP32 FFTs of power-of-two length held in registers, for the pool's
-// spectral OLA (pool_spectral.cu's spectral_forward_kernel and
-// spectral_inverse_kernel); K1, K2 and K3 keep fft.cuh's passes.
+// FP32 FFTs of power-of-two length held in registers, for the pool's two
+// dataflows up to FFT_MAX points: pool.cu's K3 (the time OLA,
+// pool_reg_kernel) and pool_spectral.cu's K3s (spectral_forward_kernel
+// and spectral_inverse_kernel).  K1 and K2 (omnibus.cu) and the two-stage
+// split over FFT_MAX points keep fft.cuh's passes.
 //
 // An n-point transform is run by a team of T = n / 16 threads (one thread
 // below 16 points), each holding R = 16 values (all n below 16).  It takes
@@ -13,9 +15,9 @@
 // twiddles are the 16th roots of unity) and writes y_k at (v / NS) NS P +
 // v mod NS + k NS.  Thread j so reads positions j + slot T at every stage,
 // and input and output are in natural order: the forward reads a frame's
-// samples, the inverse its kept bins, straight from device memory into
-// registers (neighbouring threads on neighbouring addresses), and the
-// result is left in natural order for the mask or the overlap-add.
+// samples, the inverse its kept bins, straight into registers
+// (neighbouring threads on neighbouring addresses), and the result is left
+// in natural order for the mask or the overlap-add.
 //
 // Between stages the values go through the team's exchange buffer in
 // shared memory, padded by one float2 every 16 (reg_pad), so that the 16
@@ -27,16 +29,20 @@
 // points take stages of 16, 16, 16 and 2: three exchanges where fft.cuh
 // takes seven barriered passes over the whole block.  The last stage
 // writes the natural-order result, unpadded, over the team's own buffer.
+// The block's dynamic shared memory starts with the teams' buffers, team
+// t's at t * PADDED (forward_transform and inverse_transform put their
+// results there).
 //
 // Twiddles: ops/fftplan.py::reg_twiddles, computed in float64 and
 // rounded once to float32 (no __sinf/__cosf): w_16^k for k < 4 first
 // (the butterflies take w_16^(4 + k) = -i w_16^k), then per stage after
 // the first exp(-2 pi i m r / (NS P)) at [(r - 1) NS + m], so the threads
 // of a warp read neighbouring entries.  The butterflies' w_16^k, the same
-// for every n, are copied once into constant memory (reg_w16, set by
-// pool_spectral.cu's pool_spectral_roots), where they are operands that
-// hold no register.  The inverse conjugates every twiddle, unnormalised
-// (sum_k X[k] e^{+2 pi i k n / N}).
+// for every n, are copied once into constant memory (reg_w16), where they
+// are operands that hold no register; each source that includes this
+// header has its own copy, set by its entry (pool.cu's pool_reg_roots,
+// pool_spectral.cu's pool_spectral_roots).  The inverse conjugates every
+// twiddle, unnormalised (sum_k X[k] e^{+2 pi i k n / N}).
 
 #pragma once
 
@@ -191,6 +197,94 @@ __device__ __forceinline__ void reg_fft(float2 (&x)[RegGeo<LOG2N>::R], int j, in
   } else {
     reg_stages<LOG2N, INV, 0>(x, j, team, ex, tw);
   }
+}
+
+constexpr int REG_MAX_LOG2 = 14;  // FFT_MAX points: a team of 1024 threads
+
+// CALL(L) for the bucket's log2 B (BucketArgs a), each size its own
+// instantiation.
+#define REG_CASES(CALL) \
+  switch (a.logB) {     \
+    case 0: CALL(0); break;   \
+    case 1: CALL(1); break;   \
+    case 2: CALL(2); break;   \
+    case 3: CALL(3); break;   \
+    case 4: CALL(4); break;   \
+    case 5: CALL(5); break;   \
+    case 6: CALL(6); break;   \
+    case 7: CALL(7); break;   \
+    case 8: CALL(8); break;   \
+    case 9: CALL(9); break;   \
+    case 10: CALL(10); break; \
+    case 11: CALL(11); break; \
+    case 12: CALL(12); break; \
+    case 13: CALL(13); break; \
+    case 14: CALL(14); break; \
+    default: break;           \
+  }
+
+// One forward transform: thread j of team `team` loads its samples j +
+// slot T of the frame at xs (L) and xs + width (R), windowed by aw and
+// packed as L + i R, and reg_fft's forward leaves the frame's
+// spectrum in natural order at the team's part of buf.  forward_frame is
+// the transform inline; forward_transform a call of it, so that the
+// caller's state waits on the stack and leaves the transform its
+// registers.
+template <int LOG2N>
+__device__ __forceinline__ void forward_frame(const float* __restrict__ xs, long long width,
+                                               const float* __restrict__ aw, const float2* __restrict__ tw) {
+  using G = RegGeo<LOG2N>;
+  extern __shared__ float4 smem[];
+  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
+  float2 v[G::R];
+#pragma unroll
+  for (int slot = 0; slot < G::R; ++slot) {
+    const int n = j + slot * G::T;
+    const float wn = __ldg(aw + n);
+    v[slot] = make_float2(wn * xs[n], wn * xs[width + n]);
+  }
+  reg_fft<LOG2N, false>(v, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
+}
+
+template <int LOG2N>
+__device__ __noinline__ void forward_transform(const float* __restrict__ xs, long long width,
+                                               const float* __restrict__ aw, const float2* __restrict__ tw) {
+  forward_frame<LOG2N>(xs, width, aw, tw);
+}
+
+// One inverse transform: thread j of team `team` takes bins j +
+// slot T of the Hermitian-packed W = u + i v (kept bins lo .. lo + K - 1
+// of u and v; v null is zeros): W[k] at each kept bin k, its mirror at B -
+// k (only the real parts at DC and Nyquist, as irfft reads them), zeros
+// elsewhere by selection; then reg_fft's inverse leaves the samples
+// in natural order at the team's part of buf.  inverse_frame is the
+// transform inline; inverse_transform a call of it, so that the caller's
+// state waits on the stack and leaves the transform its registers.
+template <int LOG2N>
+__device__ __forceinline__ void inverse_frame(const float2* u, const float2* v, int lo, int K,
+                                               const float2* __restrict__ tw) {
+  using G = RegGeo<LOG2N>;
+  extern __shared__ float4 smem[];
+  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
+  float2 x[G::R];
+#pragma unroll
+  for (int slot = 0; slot < G::R; ++slot) {
+    const int k = j + slot * G::T, km = G::N - k;
+    const bool kept = (unsigned)(k - lo) < (unsigned)K;
+    const bool mirror = !kept && 2 * k > G::N && (unsigned)(km - lo) < (unsigned)K;
+    const int i = kept ? k - lo : mirror ? km - lo : 0;  // every read in bounds: the loads go together
+    const float2 p = u[i], q0 = (v != nullptr ? v : u)[i];
+    const float2 q = v != nullptr ? q0 : make_float2(0.f, 0.f);
+    x[slot] = kept ? ((k == 0 || 2 * k == G::N) ? make_float2(p.x, q.x) : make_float2(p.x - q.y, p.y + q.x))
+                   : mirror ? make_float2(p.x + q.y, q.x - p.y) : make_float2(0.f, 0.f);
+  }
+  reg_fft<LOG2N, true>(x, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
+}
+
+template <int LOG2N>
+__device__ __noinline__ void inverse_transform(const float2* u, const float2* v, int lo, int K,
+                                               const float2* __restrict__ tw) {
+  inverse_frame<LOG2N>(u, v, lo, K, tw);
 }
 
 }  // namespace

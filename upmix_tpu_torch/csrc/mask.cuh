@@ -1,5 +1,5 @@
-// The gain x center mask x band sum of one kept bin, for fft.cuh's
-// kernels (K1, K2, K3).  It follows
+// The gain x center mask x band sum of one kept bin, for every kernel
+// that masks (K1, K2, K3, K3s; through fft.cuh::unpack_mask).  It follows
 // upmix_tpu_torch/ops/mask.py::mask_sum line for line: per band, gain,
 // then mask, summed over bands (never the gains first: the mask is
 // nonlinear).

@@ -179,31 +179,8 @@ __device__ __forceinline__ void store_frame(float2* spec, float2* carry_out, con
 // a transform (ops/fftplan.py::REG_FORWARD_THREADS, REG_INVERSE_THREADS).
 constexpr int REG_FORWARD_THREADS = 256;
 constexpr int REG_INVERSE_THREADS = 512;
-constexpr int REG_MAX_LOG2 = 14;  // FFT_MAX points: a team of 1024 threads
 
 inline int reg_block(int log2n, int least) { return max(least, log2n < 4 ? 1 : 1 << (log2n - 4)); }
-
-// One forward transform: thread j of team `team` loads its samples j +
-// slot T of the frame at xs (L) and xs + width (R), windowed by aw and
-// packed as L + i R, and fft_reg.cuh's forward leaves the frame's
-// spectrum in natural order at the team's part of buf.  A call, so that
-// the caller's state waits on the stack and leaves the transform its
-// registers.
-template <int LOG2N>
-__device__ __noinline__ void forward_transform(const float* __restrict__ xs, long long width,
-                                               const float* __restrict__ aw, const float2* __restrict__ tw) {
-  using G = RegGeo<LOG2N>;
-  extern __shared__ float4 smem[];
-  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
-  float2 v[G::R];
-#pragma unroll
-  for (int slot = 0; slot < G::R; ++slot) {
-    const int n = j + slot * G::T;
-    const float wn = __ldg(aw + n);
-    v[slot] = make_float2(wn * xs[n], wn * xs[width + n]);
-  }
-  reg_fft<LOG2N, false>(v, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
-}
 
 // Step 1 on 2^LOG2N points.  Team i of block b takes the g-th (stream,
 // frame) pair, g = b * teams + i, frame f = g mod F of stream s = g / F; a
@@ -230,26 +207,6 @@ __device__ __forceinline__ void forward_frames(const float* __restrict__ x, long
     store_frame(spec, carry_out, st, s, f, jj, m);
   }
 }
-
-#define REG_CASES(CALL) \
-  switch (a.logB) {     \
-    case 0: CALL(0); break;   \
-    case 1: CALL(1); break;   \
-    case 2: CALL(2); break;   \
-    case 3: CALL(3); break;   \
-    case 4: CALL(4); break;   \
-    case 5: CALL(5); break;   \
-    case 6: CALL(6); break;   \
-    case 7: CALL(7); break;   \
-    case 8: CALL(8); break;   \
-    case 9: CALL(9); break;   \
-    case 10: CALL(10); break; \
-    case 11: CALL(11); break; \
-    case 12: CALL(12); break; \
-    case 13: CALL(13); break; \
-    case 14: CALL(14); break; \
-    default: break;           \
-  }
 
 // Step 1.  Frames of the history x [S, 2, width], frame f at f * H: those
 // of ready hops windowed, packed, transformed and masked (forward_frames).
@@ -294,34 +251,6 @@ __device__ __forceinline__ void round_spectra(const SpectralState& st, int s, in
     u = st.frame(s, 2, f);
     v = f + 1 < fb + nf ? st.frame(s, 2, f + 1) : nullptr;
   }
-}
-
-// One inverse transform of a round: thread j of team `team` takes bins j +
-// slot T of the Hermitian-packed W = u + i v (kept bins lo .. lo + K - 1
-// of u and v; v null is zeros): W[k] at each kept bin k, its mirror at B -
-// k (only the real parts at DC and Nyquist, as irfft reads them), zeros
-// elsewhere by selection; then fft_reg.cuh's inverse leaves the samples
-// in natural order at the team's part of buf.  A call, so that the
-// round's state waits on the stack and leaves the transform its registers.
-template <int LOG2N>
-__device__ __noinline__ void inverse_transform(const float2* u, const float2* v, int lo, int K,
-                                               const float2* __restrict__ tw) {
-  using G = RegGeo<LOG2N>;
-  extern __shared__ float4 smem[];
-  const int team = threadIdx.x / G::T, j = threadIdx.x % G::T;
-  float2 x[G::R];
-#pragma unroll
-  for (int slot = 0; slot < G::R; ++slot) {
-    const int k = j + slot * G::T, km = G::N - k;
-    const bool kept = (unsigned)(k - lo) < (unsigned)K;
-    const bool mirror = !kept && 2 * k > G::N && (unsigned)(km - lo) < (unsigned)K;
-    const int i = kept ? k - lo : mirror ? km - lo : 0;  // every read in bounds: the loads go together
-    const float2 p = u[i], q0 = (v != nullptr ? v : u)[i];
-    const float2 q = v != nullptr ? q0 : make_float2(0.f, 0.f);
-    x[slot] = kept ? ((k == 0 || 2 * k == G::N) ? make_float2(p.x, q.x) : make_float2(p.x - q.y, p.y + q.x))
-                   : mirror ? make_float2(p.x + q.y, q.x - p.y) : make_float2(0.f, 0.f);
-  }
-  reg_fft<LOG2N, true>(x, j, team, reinterpret_cast<float2*>(smem) + team * G::PADDED, tw);
 }
 
 // The overlap-add of a round's frames fb .. fb + nf - 1 (frame v at v H)

@@ -50,7 +50,8 @@ ENTRIES = {
     "omni_bucket": [_p] * 6 + [_i] * 10 + [_ll, _i, _p],
     "omni_wide_forward": [_p] * 5 + [_i] * 8 + [_ll, _p],
     "omni_wide_inverse": [_p] * 10 + [_i] * 12 + [_ll, _i, _p],
-    "pool_bucket": [_p] * 9 + [_i] * 11 + [_ll, _i, _p],
+    "pool_reg_bucket": [_p] * 9 + [_i] * 12 + [_ll, _i, _p],
+    "pool_reg_roots": [_p],
     "pool_wide_forward": [_p] * 6 + [_i] * 10 + [_ll, _p],
     "pool_wide_inverse": [_p] * 13 + [_i] * 14 + [_p],
     "pool_spectral_forward": [_p] * 8 + [_i] * 9 + [_ll, _p],
@@ -73,9 +74,10 @@ _lib = None
 _once = set()  # (library path, CUDA device index, entry) of `kernels.once`
 # Filled by load(): seconds the last build spent in nvcc (0.0 when the
 # library was already built) and the compiler's report (registers, spills
-# per kernel).
+# per kernel), whole and by source file name.
 build_seconds = None
 build_log = ""
+build_logs = {}
 
 
 def _nvcc() -> str:
@@ -223,7 +225,7 @@ def library(path: str, *entries: str) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first call."""
-    global _lib, build_seconds, build_log, BUILD_DIR
+    global _lib, build_seconds, build_log, build_logs, BUILD_DIR
     if _lib is not None:
         return _lib
     if BUILD_DIR is None:
@@ -249,7 +251,7 @@ def load() -> ctypes.CDLL:
             for src, obj in zip(SOURCES, objs)
         ]
         logs = [p.communicate()[0] for p in procs]
-        build_log = "".join(logs)
+        build_log, build_logs = "".join(logs), {src.name: log for src, log in zip(SOURCES, logs)}
         failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode != 0]
         if not failed:
             res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],

@@ -22,12 +22,14 @@ w_B^(k b); the inverse computes stage-2 rows only where a bin lands
 (`rows`, `row_ptr`, `entries`), WIDE_KT kept bins at a time (`tile_ptr`),
 and runs N1-point inverse FFTs over the columns.
 
-The pool's spectral OLA (csrc/pool_spectral.cu's forward and inverse FFT
-kernels) runs another core, csrc/fft_reg.cuh, for blocks up to FFT_MAX
-points: each transform held in registers by a team of n / REG_RADIX
-threads, REG_RADIX values a thread, through the Stockham stages of
+The pool's kernels run another core, csrc/fft_reg.cuh, for blocks up to
+FFT_MAX points (K3's csrc/pool.cu::pool_reg_kernel, the time OLA, and
+K3s's forward and inverse FFT kernels in csrc/pool_spectral.cu): each
+transform held in registers by a team of n / REG_RADIX threads,
+REG_RADIX values a thread, through the Stockham stages of
 `reg_radices`, bins and samples in natural order both ways, with its own
-twiddle table (`reg_twiddles`).
+twiddle table (`reg_twiddles`); K3's block geometry is
+`reg_pool_launch`.
 """
 
 from __future__ import annotations
@@ -89,6 +91,9 @@ def pass_twiddles(n: int) -> np.ndarray:
 REG_RADIX = 16  # values a thread of csrc/fft_reg.cuh holds: the radix of every stage but the last
 REG_FORWARD_THREADS = 256  # least threads a block of spectral_forward_kernel (a team of n / 16 when more)
 REG_INVERSE_THREADS = 512  # least threads a block of spectral_inverse_kernel, one block a stream
+POOL_REG_THREADS = 512  # threads a block of pool_reg_kernel (K3), one block a stream, two an SM
+REG_SMEM = 232448  # shared memory a block may take on the H100 (227 KB)
+POOL_REG_STATIC = 1024  # of it kept for pool_reg_kernel's static shared arguments (PoolArgs)
 
 
 def reg_radices(n: int) -> list:
@@ -112,6 +117,42 @@ def reg_round(n: int) -> int:
     for its teams, or one (its C + i Ls, then its Rs) with one team."""
     teams = max(REG_INVERSE_THREADS, reg_threads(n)) // reg_threads(n)
     return max(1, 2 * teams // 3)
+
+
+@dataclass(frozen=True)
+class RegPoolLaunch:
+    """K3's launch of one bucket on the register core (csrc/pool.cu::
+    pool_reg_kernel), one block a stream."""
+
+    threads: int  # a block: whole teams of reg_threads(n), POOL_REG_THREADS or one team
+    round: int  # frames a round: nf with nf + ceil(nf / 2) transforms for the teams
+    pair: bool  # one team: the Rs of two frames share a transform
+    smem: int  # bytes: the teams' exchange buffers, then the Rs buffer
+
+
+def reg_pool_launch(n: int, kept: int) -> RegPoolLaunch:
+    """K3's block for an n-point bucket (n <= FFT_MAX) keeping `kept` bins:
+    POOL_REG_THREADS in teams of reg_threads(n), or 1024 threads where that
+    would make two teams (4096 points: a round of two teams is one frame,
+    the other team idle in its forward; four teams take two frames a
+    round), or one team of n / 16 threads from 8192 points; a round of
+    frames as large as its teams take, the Rs of two frames a transform.
+    Each team has an exchange buffer of n + n / 16 complex values
+    (csrc/fft_reg.cuh's padding), where a frame's spectrum is masked in
+    place; the Rs buffer holds `kept` values for each frame of a round
+    (several teams), or for two frames with one team when they fit beside
+    its buffer (`pair`: their Rs share one transform), else one."""
+    team = reg_threads(n)
+    teams = max(1, POOL_REG_THREADS // team)
+    if teams == 2:
+        teams = 4
+    threads = teams * team
+    buffers = 8 * teams * (n + n // 16)
+    if teams > 1:
+        rnd = max(1, 2 * teams // 3)
+        return RegPoolLaunch(threads, rnd, False, buffers + 8 * rnd * kept)
+    pair = buffers + 16 * kept <= REG_SMEM - POOL_REG_STATIC
+    return RegPoolLaunch(threads, 1, pair, buffers + 8 * (2 if pair else 1) * kept)
 
 
 def reg_twiddles(n: int) -> np.ndarray:

@@ -197,21 +197,19 @@ class Launch:
     blocks: int  # thread blocks
 
 
-def launch_geometry(b, F: int, rows: int, n_sm: int | None, n_hops: int | None = None) -> Launch:
-    """The launch of bucket b (an OmnibusBucket or PoolBucket) over F frames
-    of `rows` rows with n_hops output hops each (default F + B/H - 1, the
-    offline span): T from hops_per_block on n_sm SMs, or every hop in one
-    block per row when n_sm is None (the pool)."""
+def launch_geometry(b, F: int, rows: int, n_sm: int) -> Launch:
+    """The launch of OmnibusBucket b over F frames of `rows` rows with F +
+    B/H - 1 output hops each: T from hops_per_block on n_sm SMs."""
     B, H, K, w = b.block, b.hop, b.kept, b.wide
     Kf = B // H
-    n_hops = F + Kf - 1 if n_hops is None else n_hops
+    n_hops = F + Kf - 1
     if w is None:
         G, pair = frame_pass(B, K)
         smem, groups = _frames_smem(B, K, G, pair), 1
     else:
         G, pair = 1, True
         smem, groups = 8 * (w.cols * w.n1 + 6 * w.kt), w.groups
-    T = n_hops if n_sm is None else hops_per_block(n_hops, Kf, G, rows * groups, n_sm, smem)
+    T = hops_per_block(n_hops, Kf, G, rows * groups, n_sm, smem)
     return Launch(frames=G, pair=pair, hops=T, blocks=rows * groups * -(-n_hops // T))
 
 

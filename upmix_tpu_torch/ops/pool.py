@@ -32,12 +32,16 @@ convert the state to and from the JAX package's packed layout ([S, 3 *
 2K rounded up to 128 lanes), so snapshots move between the packages.
 Kr = 1 (hop = block) gives an empty carry.
 
-On a CUDA tensor `pool_step_lcr` launches `csrc/pool.cu`'s kernels: the
-frames through FFTs in shared memory (`csrc/fft.cuh`), the mask, the
-gated overlap-add and the carries, one launch per bucket, two for a
-bucket over `fftplan.FFT_MAX` points (the two-stage split; from a
-hardware block of 8192 samples at the streaming configs' 4 x hw cap;
-`launches_per_bucket`).  On a CPU tensor it runs `pool_step_lcr_plain`
+On a CUDA tensor `pool_step_lcr` launches `csrc/pool.cu`'s kernels (K3):
+the frames, the mask, the gated overlap-add and the carries, one launch
+per bucket up to `fftplan.FFT_MAX` points, `pool_reg_kernel`, each frame
+held on chip from its forward FFT through the mask and the inverses on
+`csrc/fft_reg.cuh`'s register core (its twiddles `reg_twiddles`, its
+block `fftplan.reg_pool_launch`), two for a bucket over FFT_MAX (the
+two-stage split on `csrc/fft.cuh`; from a hardware block of 8192 samples
+at the streaming configs' 4 x hw cap; `launches_per_bucket`), in a
+`pool.frames` span with the FFT frames of a stream's call
+(`PoolPlan.fft_frames`).  On a CPU tensor it runs `pool_step_lcr_plain`
 (torch.fft).  A spectral plan on a CUDA tensor launches
 `csrc/pool_spectral.cu`'s kernels (K3s), in three steps:
 
@@ -102,16 +106,11 @@ import torch.nn.functional as tnf
 from upmix_tpu_torch.config import UpmixConfig, bucket_bands
 from upmix_tpu_torch.ops import _build
 from upmix_tpu_torch.ops.dftmm import make_direct_plan
-from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, reg_twiddles
+from upmix_tpu_torch.ops.fftplan import FFT_MAX, launches_per_bucket, pass_twiddles, reg_pool_launch, reg_twiddles
 from upmix_tpu_torch.ops.framing import frame_signal, overlap_add
 from upmix_tpu_torch.ops.gains import band_gain_curve
 from upmix_tpu_torch.ops.mask import mask_sum
-from upmix_tpu_torch.ops.omnibus import (
-    WideTables,
-    check_kernel_tables,
-    launch_geometry,
-    make_wide_tables,
-)
+from upmix_tpu_torch.ops.omnibus import WideTables, check_kernel_tables, make_wide_tables
 from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
 from upmix_tpu_torch.utils.tracing import span
 
@@ -133,7 +132,7 @@ EDGE_RATE_RATIO = 44
 
 # The register core's butterfly twiddles w_16^0..3 (the head of every
 # `reg_twiddles` table), copied into each device's constant memory once
-# per kernel library (`load_reg_roots`).
+# per kernel library and source (`load_reg_roots`).
 _REG_ROOTS = np.ascontiguousarray(reg_twiddles(1)[:4])
 
 
@@ -207,12 +206,12 @@ class PoolBucket:
     version leaves out the tables of a block over FFT_MAX (`twiddles` and
     `wide` None), as `omnibus.make_bucket` does: the plain version runs
     any block.  `twiddles` are those of the FFT core that runs the
-    bucket: `fftplan.pass_twiddles` (fft.cuh's, K3's and the two-stage
-    split's), or `fftplan.reg_twiddles` for a spectral plan's bucket up to
-    FFT_MAX points (fft_reg.cuh's, K3s's forward and inverse kernels).  A
-    spectral plan's bucket whose edge frames the product
-    takes (`edge_product`) carries the product's weight on a CUDA device
-    (`edge_weight`, `make_edge_weight`); the plain versions need none."""
+    bucket: `fftplan.reg_twiddles` up to FFT_MAX points (fft_reg.cuh's,
+    K3's and K3s's), else `fftplan.pass_twiddles` of the two-stage
+    split's N1 (fft.cuh's).  A spectral plan's bucket whose edge frames
+    the product takes (`edge_product`) carries the product's weight on a
+    CUDA device (`edge_weight`, `make_edge_weight`); the plain versions
+    need none."""
 
     block: int
     hop: int
@@ -221,7 +220,7 @@ class PoolBucket:
     analysis_window: torch.Tensor  # [B]
     synthesis_window: torch.Tensor  # [B]
     gains: torch.Tensor  # [n_bands, K], bins lo .. lo + K - 1
-    twiddles: torch.Tensor | None  # the kernel's FFT's: pass_twiddles (B, or N1 when split) or reg_twiddles (B)
+    twiddles: torch.Tensor | None  # the kernel's FFT's: reg_twiddles (B), or pass_twiddles (N1) when split
     wide: WideTables | None  # the two-stage split, for B > FFT_MAX
     edge_product: bool = False  # spectral: the edge frames go to the product, else every frame to the FFTs
     edge_weight: torch.Tensor | None = None  # [2, B, Kp] split (split_edge_weight), a CUDA plan's
@@ -305,6 +304,14 @@ class PoolPlan:
         """Shared history length: warmup * hw."""
         return self.warmup * self.hw
 
+    def fft_frames(self, hops: int) -> tuple:
+        """(all, reg): the frames a stream's call of `hops` blocks puts
+        through forward FFTs, summed over the buckets, and those of them on
+        the register core (every bucket up to FFT_MAX points; the
+        two-stage split takes the rest)."""
+        frames = [(hops * b.passes, b.block <= FFT_MAX) for b in self.buckets]
+        return sum(n for n, _ in frames), sum(n for n, reg in frames if reg)
+
     def spectral_routes(self, hops: int) -> SpectralRoutes:
         """The spectral routes of a call of `hops` blocks, worked out on the
         first such call and kept."""
@@ -339,12 +346,9 @@ def _spectral_routes(plan: PoolPlan, hops: int) -> SpectralRoutes:
         groups.append(_EdgeGroup(idx, n_edge, depth, weights, geo, None if error else bs[0].edge_weight.device))
     whole = sum(1 for _, w in frames if w)
     launches = sum(launches_per_bucket(b.block) for b in plan.buckets) + 2 * len(groups) + whole
-    reg = [b.block <= FFT_MAX for b in plan.buckets]
-    fwd = [hops * b.passes for b in plan.buckets]
-    inv = [len(w) for _, w in frames]
+    inv = [(len(w), b.block <= FFT_MAX) for b, (_, w) in zip(plan.buckets, frames)]
     return SpectralRoutes(frames, tuple(groups), launches, error, len(takes), sum(len(frames[i][0]) for i in takes),
-                          whole, sum(fwd), sum(n for n, r in zip(fwd, reg) if r), sum(inv),
-                          sum(n for n, r in zip(inv, reg) if r))
+                          whole, *plan.fft_frames(hops), sum(n for n, _ in inv), sum(n for n, reg in inv if reg))
 
 
 def check_ola(ola: str) -> None:
@@ -452,7 +456,7 @@ def _plan_on(records, hw: int, warmup: int, n_streams: int, device: torch.device
                                                         p.synthesis_window)).to(device)
         wide = make_wide_tables(p.block_size, p.hop_size, lo, hi - lo + 1, device) if device.type == "cuda" else None
         n_fft = p.block_size if p.block_size <= FFT_MAX else (wide.n1 if wide is not None else 0)
-        tw = reg_twiddles if ola == "spectral" and p.block_size <= FFT_MAX else pass_twiddles
+        tw = reg_twiddles if p.block_size <= FFT_MAX else pass_twiddles
         buckets.append(
             PoolBucket(
                 block=p.block_size,
@@ -534,12 +538,19 @@ def _check_cuda_inputs(hist, carries, plan: PoolPlan) -> None:
 
 
 def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
+    """K3's launches, one a bucket up to FFT_MAX points (two over it), in a
+    `pool.frames` span of the card with the buckets and the frames of a
+    stream's call through FFTs (`fft_frames`) and on the register core
+    (`reg_frames`), from the plan on the host."""
     _check_inputs(hist, t, carries, plan, hops)
     _check_cuda_inputs(hist, carries, plan)
     dev = hist.device
     S, _, width = hist.shape
     hw, nq = plan.hw, plan.warmup
-    with _build.kernels(dev) as k:
+    fft_frames, reg_frames = plan.fft_frames(hops)
+    with span("pool.frames", card=dev, buckets=len(plan.buckets), fft_frames=fft_frames, reg_frames=reg_frames), \
+            _build.kernels(dev) as k:
+        load_reg_roots(k, "pool_reg_roots")
         t32 = t.to(device=dev, dtype=torch.int32).contiguous()
         out = torch.empty((S, 3, hops * hw), dtype=torch.float32, device=dev)
         new = []
@@ -548,11 +559,11 @@ def _pool_cuda(hist, t, carries, plan: PoolPlan, hops: int):
             carry_out = torch.empty((S, 3, B), dtype=torch.float32, device=dev)
             io = (carry.data_ptr(), t32.data_ptr(), out.data_ptr(), carry_out.data_ptr())
             if w is None:
-                geo = launch_geometry(b, hops * b.passes, S, None, hops * b.passes + B // H)
+                geo = reg_pool_launch(B, K)
                 k.launch(
-                    "K3", "pool_bucket", hist.data_ptr(), *io, b.analysis_window.data_ptr(),
+                    "K3", "pool_reg_bucket", hist.data_ptr(), *io, b.analysis_window.data_ptr(),
                     b.synthesis_window.data_ptr(), b.gains.data_ptr(), b.twiddles.data_ptr(), S, B, H, K, b.lo, nb, hw,
-                    hops, nq, geo.frames, int(geo.pair), width, int(i > 0),
+                    hops, nq, geo.threads, geo.round, int(geo.pair), width, int(i > 0),
                 )
             else:
                 part = torch.empty((S, hops * b.passes, w.groups, 2 * K, 2), dtype=torch.float32, device=dev)
@@ -609,11 +620,13 @@ def pool_step_lcr_plain(hist: torch.Tensor, t: torch.Tensor, carries, plan: Pool
     return out, tuple(new)
 
 
-def load_reg_roots(k) -> None:
+def load_reg_roots(k, entry: str = "pool_spectral_roots") -> None:
     """Copy the register core's butterfly twiddles into the constant memory
-    of `k`'s card (`_build.kernels`; csrc/pool_spectral.cu::
-    pool_spectral_roots), once for each library and card."""
-    k.once("pool_spectral_roots", _REG_ROOTS.ctypes.data)
+    of `k`'s card (`_build.kernels`) that `entry` sets: K3s's
+    (csrc/pool_spectral.cu::pool_spectral_roots) or K3's
+    (csrc/pool.cu::pool_reg_roots), each source its own; once for each
+    library and card."""
+    k.once(entry, _REG_ROOTS.ctypes.data)
 
 
 def spectral_launches(plan: PoolPlan, hops: int) -> int:
