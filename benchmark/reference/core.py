@@ -3,9 +3,10 @@
 Per bucket: frames of the input at every hop, analysis window, real FFT,
 per band the gain and the center mask (coherence times one minus the
 balance; center_extraction.py:372-384), the bands summed, inverse FFT,
-synthesis window, overlap-add.  `offline` gives a whole file's (C, Ls,
-Rs) with the offline framing (frames at k * hop from sample 0, the input
-zero-padded past its end, the sum trimmed to the input's length);
+synthesis window, overlap-add (any hop, dividing the block or not).
+`offline` gives a whole file's (C, Ls, Rs) with the offline framing
+(frames at k * hop from sample 0, the input zero-padded past its end,
+the sum trimmed to the input's length);
 `stream_blocks` gives chosen hardware blocks of a stream pool's output,
 where a band's overlap-add stream is delayed by K - 1 hardware blocks and
 every block before that is silence (bela/upmix.cpp:95-120, 232-237).
@@ -67,14 +68,18 @@ class Reference:
 
     @staticmethod
     def _ola(rec, hop):
-        """rec [..., 3, F, B] (B a multiple of hop) -> [..., 3, (F - 1) hop + B]."""
+        """rec [..., 3, F, B] -> [..., 3, (F - 1) hop + B], any hop.  Where
+        hop does not divide B, each frame is zero-padded to ceil(B / hop)
+        whole hops and the sum cut to its length."""
         *lead, F, B = rec.shape
-        k = B // hop
+        k = -(-B // hop)
+        if B % hop:
+            rec = torch.nn.functional.pad(rec, (0, k * hop - B))
         acc = rec.new_zeros((*lead, F + k - 1, hop))
         parts = rec.unflatten(-1, (k, hop))
         for q in range(k):
             acc[..., q : q + F, :] += parts[..., q, :]
-        return acc.flatten(-2)
+        return acc.flatten(-2)[..., : (F - 1) * hop + B]
 
     def _bucket_span(self, x, block, hop, gains, aw, sw, first, count):
         """Overlap-add of frames first .. first + count - 1 (frame i reads

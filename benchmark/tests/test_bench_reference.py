@@ -17,7 +17,7 @@ def cfg(name):
     return json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
 
 
-@pytest.mark.parametrize("name", ["offline_44k_6band", "stream_48k_4band_bela"])
+@pytest.mark.parametrize("name", ["offline_44k_6band", "stream_48k_4band_bela", "offline_44k_6band_ov065"])
 def test_plan_matches_the_program_config(name):
     from upmix_tpu_torch.ops.gains import band_gain_curve
     from upmix_tpu_torch.ops.windows import design_wola_synthesis_window, make_window
@@ -38,10 +38,11 @@ def test_plan_matches_the_program_config(name):
             np.testing.assert_allclose(bucket.synthesis, design_wola_synthesis_window(aw, c["overlap"]), rtol=1e-6)
 
 
-def test_offline_matches_the_program_cpu_path():
+@pytest.mark.parametrize("name", ["offline_44k_6band", "offline_44k_6band_ov065"])
+def test_offline_matches_the_program_cpu_path(name):
     from upmix_tpu_torch.models.offline import Upmixer
 
-    c = cfg("offline_44k_6band")
+    c = cfg(name)
     x = np.random.default_rng(3).standard_normal((2, 200003)).astype(np.float32) * 0.25
     x[1] += x[0]  # a shared component
     got = Upmixer(run.port_config(c), device="cpu", chunk=65536).process_np(x[0], x[1])
@@ -65,6 +66,43 @@ def test_stream_blocks_match_the_program_cpu_pool():
         err = (outs[t].double() - ref[j]).abs().max()
         assert err < 1e-5, (t, float(err))
     assert ref[0].abs().max() == 0 and ref[2].abs().max() > 0.05
+
+
+def parent_ola(rec, hop):
+    """The overlap-add as it stood when every hop divided its block."""
+    *lead, F, B = rec.shape
+    k = B // hop
+    acc = rec.new_zeros((*lead, F + k - 1, hop))
+    parts = rec.unflatten(-1, (k, hop))
+    for q in range(k):
+        acc[..., q : q + F, :] += parts[..., q, :]
+    return acc.flatten(-2)
+
+
+@pytest.mark.parametrize("name", ["offline_44k_6band", "stream_48k_4band_bela", "stream_48k_4band_bela_spectral"])
+def test_ola_at_dividing_hops_is_bit_for_bit_the_parents(name):
+    gen = torch.Generator().manual_seed(5)
+    for b in plan.buckets(cfg(name)):
+        assert b.block % b.hop == 0
+        for dtype in (torch.float64, torch.float32):  # the reference's and the control's
+            rec = torch.randn((2, 3, 7, b.block), generator=gen, dtype=dtype)
+            assert torch.equal(Reference._ola(rec, b.hop), parent_ola(rec, b.hop)), (b.block, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ola_at_hops_that_divide_no_block_adds_each_frame_at_its_hop(dtype):
+    gen = torch.Generator().manual_seed(6)
+    blocks = [(b.block, b.hop) for b in plan.buckets(cfg("offline_44k_6band_ov065"))] + [(10, 3), (5, 4)]
+    frames = 5
+    for block, hop in blocks:
+        assert block % hop
+        rec = torch.randn((3, frames, block), generator=gen, dtype=dtype)
+        want = torch.zeros((3, (frames - 1) * hop + block), dtype=dtype)
+        for i in range(frames):
+            want[:, i * hop : i * hop + block] += rec[:, i]
+        got = Reference._ola(rec, hop)
+        assert got.shape == want.shape, (block, hop)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12 if dtype == torch.float64 else 1e-5)
 
 
 def test_tf32_rounds_to_ten_mantissa_bits():
